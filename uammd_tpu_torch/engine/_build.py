@@ -1,0 +1,142 @@
+"""Build and bind the port's CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers, so
+nvcc takes seconds) and is compiled on first use for Hopper::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+into ``uammd_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
+source and the flags, then loaded with ``ctypes``. No fast-math: the rebin
+kernel must round every division, multiply and add as IEEE float32 does.
+
+Each C entry point takes tensor pointers and the stream as ``void*``,
+launches on PyTorch's current stream, does not synchronise, and returns
+``cudaGetLastError()``; ``Kernel.__call__`` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+SRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path(name: str) -> Path:
+    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` into a temporary file; None if already built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(SRC_DIR / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> str | None:
+    """Wait for nvcc; install the library, or return nvcc's log on failure."""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        return f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}"
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return None
+
+
+def build(names=None) -> float:
+    """Compile the named sources (default: every ``csrc/*.cu``), one nvcc
+    process per source, all started together, and wait for all of them.
+    Returns the wall seconds; raises with nvcc's output if any failed."""
+    if names is None:
+        names = sorted(p.stem for p in SRC_DIR.glob("*.cu"))
+    t0 = time.perf_counter()
+    started = {name: _start(name) for name in names}
+    errors = [_finish(name, s) for name, s in started.items() if s is not None]
+    errors = [e for e in errors if e]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return _LIBS[name]
+
+
+def check_cuda_tensor(t: torch.Tensor, name: str, shape=None, dtype=torch.float32):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+class Kernel:
+    """One C entry point of ``csrc/<source>.cu`` with its launch count.
+
+    ``launches`` is a plain integer that grows by one per successful launch
+    (and nowhere else), so a run can show which kernels its path went
+    through; callers may reset it to 0."""
+
+    def __init__(self, source: str, symbol: str, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err}")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
