@@ -10,23 +10,45 @@ Imports nothing of JAX or of the JAX package. Phases:
    (one nvcc per source, all started together) into the git-ignored
    ``uammd_tpu_torch/_build/``.
 2. Hold each kernel against its plain PyTorch version on the card:
-   - pair force: max|df| / max|f| < 1e-5 (float32 sums in another order),
-     on a jittered simple-cubic lattice at N = 32768, rho 0.5 (no pair
-     closer than 0.86), on a perturbed fcc lattice at the 2^20 benchmark
-     spec and on the final liquid;
-   - rebin, Q = 7 and Q = 10, after random displacements below the drift
-     threshold: ``out``, ``count`` and ``overflow`` exactly equal; a crammed
-     configuration must latch overflow.
-3. The main path at full size, as bench.py's LJ protocol runs it: N = 2^20,
-   box 128^3 (rho 0.5), rcut 2.5, T 1.5; melt 300 steps at dt 0.004 from
-   the fcc lattice, then a fresh engine on the melted positions at dt 0.01:
-   100 settle steps and 200 timed steps. Every kernel launch count is set
-   to 0 before the melt and read after the timed steps. Requires no
-   overflow, all particles kept, T within 20 % of 1.5, and every kernel of
-   the path launched.
-4. Time each kernel and its plain version (CUDA events, after warm-up) on
-   the final liquid state, check them against each other once more there,
-   and print the kernels' JSON line.
+   - v1 pair force: max|df| / max|f| < 1e-5 (float32 sums in another
+     order), on a jittered simple-cubic lattice at N = 32768, rho 0.5 (no
+     pair closer than 0.86), on a perturbed fcc lattice at the 2^20
+     benchmark spec and on the final liquid;
+   - v1 rebin, Q = 7 and Q = 10, after random displacements below the
+     drift threshold: ``out``, ``count`` and ``overflow`` exactly equal; a
+     crammed configuration must latch overflow;
+   - Newton pair force, exact reciprocal: every output (home, 4 reaction
+     groups, straggler forces) and the folded total within 1e-5 of the
+     largest folded force, and every slot within ``SLOT_TOL`` of its own
+     scale |f_ref| + median|f|, on the n 600 straggler system (CAP 8,
+     128-row list, no pair closer than 0.84; all four self-cell x
+     straggler-image modes) and on the 2^20 perturbed fcc state; with the
+     approximate reciprocal within ``FAST_RECIP_TOL`` and
+     ``FAST_RECIP_SLOT_TOL``. Two controls on the straggler system show
+     that the check fails a kernel that drops the straggler interactions
+     or flips the sign of their reactions;
+   - fold: bit-equal;
+   - fused fold + G-J update at T = 1.5 on identical counter noise: "clt"
+     bit-equal with an equal drift, "bm" within ``BM_TOL`` (the card's
+     logf/sinf/cosf against PyTorch's);
+   - separable rebin after a displacement with stragglers present:
+     ``out``, ``mini``, count and overflow exactly equal; a crammed state
+     latches overflow through ``rebin_fast3``.
+3. The main paths at full size, as bench.py's LJ protocol runs them: N =
+   2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
+   - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
+     engine on the melted positions at dt 0.01: 100 settle and 200 timed
+     steps;
+   - v2 (the engine bench.py times): ``make_lj_md2`` on the melted
+     positions at dt 0.01 with n_strag 16, noise "clt" and the fast
+     reciprocal: 100 settle and 200 timed steps.
+   Every kernel launch count is set to 0 just before each path and read
+   just after it. Each path requires no overflow, all particles kept (grid
+   plus stragglers), T within 20 % of 1.5, and every kernel of the path
+   launched (the per-step kernels at least once per step).
+4. Time each kernel and its plain version (CUDA events, after warm-up) at
+   its path's final shapes, check them against each other once more there,
+   print the v2 step's breakdown and the kernels' JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -44,7 +66,23 @@ import time
 N = 1 << 20
 BOX = 128.0
 TEMPERATURE = 1.5
+RC2 = 2.5 * 2.5
 MELT_STEPS, SETTLE_STEPS, TIMED_STEPS = 300, 100, 200
+N_STRAG = 16  # bench.py:84
+
+# The approximate reciprocal (rcp.approx.ftz.f32, about 1 ulp) enters the
+# force as t^7: a few ulp relative per pair, 100x below this bound.
+FAST_RECIP_TOL = 1e-4
+# Per-slot bounds on |df| / (|f_ref| + median|f|): float32 sums in another
+# order differ by a few 1e-6 of a slot's scale (2.7e-6 for float32 against
+# float64 on the n 600 straggler system, on a CPU); the approximate
+# reciprocal adds its few ulp per pair term.
+SLOT_TOL = 1e-4
+FAST_RECIP_SLOT_TOL = 1e-3
+# "bm" noise goes through logf, sinf and cosf, which may round differently
+# in the kernel and in PyTorch's kernels by an ulp or two: 1e-5 is a few
+# ulp of a position of size 64.
+BM_TOL = 1e-5
 
 # H100 SXM data sheet peaks (full 700 W power limit): float32 outside the
 # tensor cores and HBM3 bandwidth.
@@ -93,8 +131,17 @@ def stacked_of(gs, q: int):
     return torch.stack(cols[: q - 1] + [(gs.pid + 1).to(torch.float32)]).contiguous()
 
 
+def strag_stack_of(gs):
+    import torch
+
+    return torch.stack([gs.spos[:, 0], gs.spos[:, 1], gs.spos[:, 2], gs.svel[:, 0],
+                        gs.svel[:, 1], gs.svel[:, 2],
+                        (gs.spid + 1).to(torch.float32)]).contiguous()
+
+
 def displaced(gs, seed: int):
-    """Every particle moved by less than the drift threshold per axis."""
+    """Every particle (stragglers too) moved by less than the drift
+    threshold per axis."""
     import torch
 
     gen = torch.Generator(device=gs.device)
@@ -102,11 +149,12 @@ def displaced(gs, seed: int):
     step = 0.99 * gs.spec.drift_threshold / math.sqrt(3.0)
     m = gs.mask
 
-    def move(a):
+    def move(a, mask):
         u = torch.rand(a.shape, generator=gen, device=a.device) * 2.0 - 1.0
-        return a + step * u * m
+        return a + step * u * mask
 
-    return gs.replace(x=move(gs.x), y=move(gs.y), z=move(gs.z))
+    return gs.replace(x=move(gs.x, m), y=move(gs.y, m), z=move(gs.z, m),
+                      spos=move(gs.spos, (gs.spid >= 0)[:, None]))
 
 
 def check_pair(gs, what: str) -> float:
@@ -139,11 +187,176 @@ def check_rebin(gs, q: int, what: str, expect_clean: bool = True):
     return int(count_k), int(over_k)
 
 
+def newton_pair(gs, *, approx=False, self_half=True, cellcenter=True, plain=False,
+                spid=None):
+    """The Newton kernel's (or its plain version's) outputs on ``gs``;
+    ``spid`` replaces the state's straggler ids (-1 drops a row)."""
+    from uammd_tpu_torch.engine import kernel2, md
+
+    spec = gs.spec
+    g = md.lj_g_fused(rc2=RC2, approx=approx)
+    spid = gs.spid if spid is None else spid
+    strag = kernel2.broadcast_stragglers(spec, gs.spos, spid) if spec.n_strag else None
+    if plain:
+        return kernel2.newton_pair_plain(spec, g, gs.x, gs.y, gs.z, strag,
+                                         strag_cellcenter=cellcenter)
+    kern = kernel2.make_newton_pair_kernel(spec, g, self_half=self_half,
+                                           strag_cellcenter=cellcenter)
+    return kern(gs.x, gs.y, gs.z, strag)
+
+
+def newton_outputs(gs, out, plain_fold=False):
+    """The Newton outputs (home, groups, straggler forces) and their folded
+    total (the fold kernel, or its plain version), as one list of tensors."""
+    from uammd_tpu_torch.engine import kernel2
+
+    home, groups, sf = out
+    fold = kernel2.fold_reactions_plain if plain_fold else kernel2.make_fold_kernel(gs.spec)
+    grids = list(home) + [c for g in groups for c in g] + list(fold(home, groups))
+    return grids + ([sf] if sf is not None else [])
+
+
+def newton_errs(ref, test, scale):
+    """max|df| over every slot of every output, relative to the largest
+    folded force (``rel``) and to the slot's own scale |f_ref| + median|f|
+    (``slot``), where ``scale`` = (max|f|, median|f|) of the folded total
+    over occupied slots."""
+    fmax, med = scale
+    diffs = [(a - b).abs() for a, b in zip(test, ref)]
+    return {"rel": max(float(d.max()) for d in diffs) / fmax,
+            "slot": max(float((d / (b.abs() + med)).max()) for d, b in zip(diffs, ref))}
+
+
+def check_newton(gs, what: str, modes=((True, True),), approx=False, tol=1e-5,
+                 slot_tol=SLOT_TOL):
+    """Every output of the Newton kernel and the folded total against the
+    plain version (exact reciprocal), relative to the largest folded force
+    of an occupied slot and to each slot's own scale; returns the largest
+    errors, max|f| and median|f|."""
+    import torch
+
+    ref = newton_outputs(gs, newton_pair(gs, plain=True), plain_fold=True)
+    m = gs.mask
+    fa = torch.cat([a[m].abs() for a in ref[15:18]])
+    scale = (float(fa.max()), float(fa.median()))
+    worst = {"rel": 0.0, "slot": 0.0, "max_f": scale[0], "median_f": scale[1]}
+    for self_half, cellcenter in modes:
+        test = newton_outputs(gs, newton_pair(gs, approx=approx, self_half=self_half,
+                                              cellcenter=cellcenter))
+        check(all(bool(a[m].isfinite().all()) for a in test[15:18]),
+              f"{what}: Newton forces finite")
+        err = newton_errs(ref, test, scale)
+        check(err["rel"] < tol and err["slot"] < slot_tol,
+              f"{what}: Newton kernel (self_half={self_half}, cellcenter={cellcenter}, "
+              f"approx={approx}) vs plain, max|df|/max|f| = {err['rel']:.3g} < {tol}, "
+              f"per slot {err['slot']:.3g} < {slot_tol}")
+        worst = {k: max(v, err.get(k, v)) for k, v in worst.items()}
+    return worst
+
+
+def check_newton_controls(gs, what: str):
+    """Outputs that a wrong kernel would give on a straggler state must fail
+    the check of ``check_newton``: the kernel's outputs with the straggler
+    rows dropped, and with the sign of the straggler reactions flipped.
+    Returns their per-slot errors."""
+    import torch
+
+    ref = newton_outputs(gs, newton_pair(gs, plain=True), plain_fold=True)
+    fa = torch.cat([a[gs.mask].abs() for a in ref[15:18]])
+    scale = (float(fa.max()), float(fa.median()))
+    dropped = newton_outputs(gs, newton_pair(gs, spid=torch.full_like(gs.spid, -1)))
+    dropped[-1] = torch.zeros_like(ref[-1])
+    flipped = newton_outputs(gs, newton_pair(gs))
+    flipped[-1] = -flipped[-1]
+    errs = {"stragglers_dropped": newton_errs(ref, dropped, scale)["slot"],
+            "straggler_reaction_flipped": newton_errs(ref, flipped, scale)["slot"]}
+    for k, v in errs.items():
+        check(v > 100 * SLOT_TOL, f"{what}: control '{k}' fails the per-slot check "
+                                  f"({v:.3g} > {100 * SLOT_TOL})")
+    return errs
+
+
+def check_fold(spec, home, groups, what: str):
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+
+    f_k = kernel2.make_fold_kernel(spec)(home, groups)
+    f_p = kernel2.fold_reactions_plain(home, groups)
+    check(all(torch.equal(a, b) for a, b in zip(f_k, f_p)), f"{what}: fold bit-equal to plain")
+
+
+def update_inputs(gs, home, groups, seed: int):
+    """Arguments of the fused update on ``gs``: random w, the given forces,
+    reference positions up to 0.2 away, and a seed."""
+    import torch
+
+    gen = torch.Generator(device=gs.device)
+    gen.manual_seed(seed)
+    m = gs.mask
+
+    def rnd(scale):
+        return scale * torch.randn(gs.x.shape, generator=gen, device=gs.device) * m
+
+    w = [rnd(1.2) for _ in range(3)]
+    ref = [p - rnd(0.1) for p in (gs.x, gs.y, gs.z)]
+    step = torch.tensor(seed, dtype=torch.int32, device=gs.device)
+    return ([gs.x, gs.y, gs.z] + w + list(home), [c for g in groups for c in g], ref, step)
+
+
+def check_update(gs, home, groups, noise: str, what: str):
+    import torch
+    from uammd_tpu_torch.engine import update_kernel as uk
+
+    kern = uk.make_gj_fold_update_kernel(gs.spec, 0.01, TEMPERATURE, 1.0, 1.0, noise=noise)
+    a, grp, ref, step = update_inputs(gs, home, groups, 20251)
+    strag = None
+    if gs.spec.n_strag:
+        gen = torch.Generator(device=gs.device).manual_seed(20252)
+        sv = (gs.spid >= 0)[:, None]
+        strag = (gs.spos, torch.randn(gs.svel.shape, generator=gen, device=gs.device) * sv,
+                 torch.randn(gs.sforce.shape, generator=gen, device=gs.device) * sv, gs.spid)
+    out_k, d_k, *s_k = kern(*a, grp, *ref, step, strag)
+    out_p, d_p, *s_p = uk.gj_fold_update_plain(gs.spec, kern.coef, noise, *a, grp, *ref,
+                                               step, strag)
+    if strag is not None:  # the straggler rows ride in the same call
+        out_k, out_p = tuple(out_k) + s_k[0], tuple(out_p) + s_p[0]
+    err = max(float((x - y).abs().max()) for x, y in zip(out_k, out_p))
+    d_err = abs(float(d_k) - float(d_p))
+    if noise == "clt":
+        check(all(torch.equal(x, y) for x, y in zip(out_k, out_p)) and d_err == 0.0,
+              f"{what}: fused update (clt) bit-equal to plain, drift equal "
+              f"(max|d| {err:.3g}, drift {float(d_k)} vs {float(d_p)})")
+    else:
+        check(err <= BM_TOL and d_err <= BM_TOL,
+              f"{what}: fused update (bm) within {BM_TOL} of plain: {err:.3g}, "
+              f"drift {d_err:.3g}")
+    check(float(d_k) > 0.0, f"{what}: fused update sees the drift")
+    return err, d_err
+
+
+def check_sep_rebin(gs, what: str, expect_clean: bool = True):
+    import torch
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    stacked, strag = stacked_of(gs, 7), strag_stack_of(gs)
+    out_k, mini_k, count_k, over_k = rk.make_separable_rebin(gs.spec)(stacked, strag)
+    out_p, mini_p, count_p, over_p = rk.separable_rebin_plain(gs.spec, stacked, strag)
+    check(torch.equal(out_k, out_p) and torch.equal(mini_k, mini_p),
+          f"{what}: separable rebin out and mini equal plain slot for slot")
+    check((int(count_k), int(over_k)) == (int(count_p), int(over_p)),
+          f"{what}: separable rebin count/overflow {int(count_k)}/{int(over_k)} "
+          f"== plain {int(count_p)}/{int(over_p)}")
+    if expect_clean:
+        check(int(count_k) == gs.n and int(over_k) == 0,
+              f"{what}: separable rebin keeps all {gs.n} particles without overflow")
+    return int(count_k), int(over_k), int((mini_k[6] > 0.5).sum())
+
+
 def stencil_pairs(gs) -> tuple[int, int]:
     """Unordered pairs of distinct particles in one 27-cell stencil of this
     state, and those of them within the cutoff: the work the pair force's
     data needs. Each pair is seen from both ends, so the ordered counts are
-    halved."""
+    halved. Straggler rows are not counted."""
     import numpy as np
     import torch
     from uammd_tpu_torch.engine import layout
@@ -167,6 +380,21 @@ def stencil_pairs(gs) -> tuple[int, int]:
     return cand // 2, cut // 2
 
 
+def gates(engine, gs, what: str, n_steps: int, launches: dict, per_step, at_least_once):
+    n_kept = int((gs.pid >= 0).sum()) + int((gs.spid >= 0).sum())
+    t_meas = float(engine.temperature_of(gs))
+    check(not bool(gs.overflow), f"{what}: no overflow")
+    check(n_kept == N, f"{what}: all particles kept: {n_kept} == {N}")
+    check(math.isfinite(t_meas) and abs(t_meas - TEMPERATURE) < 0.2 * TEMPERATURE,
+          f"{what}: temperature {t_meas:.4f} within 20 % of {TEMPERATURE}")
+    for k in per_step:
+        check(launches[k] >= n_steps,
+              f"{what}: {k} kernel launched {launches[k]} >= {n_steps} times")
+    for k in at_least_once:
+        check(launches[k] >= 1, f"{what}: {k} kernel launched {launches[k]} >= 1 times")
+    return n_kept, t_meas
+
+
 def main() -> int:
     import torch
 
@@ -174,7 +402,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        from uammd_tpu_torch.engine import _build, layout, md, pair_kernel, rebin_kernel
+        from uammd_tpu_torch.engine import (
+            _build, kernel2, layout, md, md2, pair_kernel, rebin_kernel, update_kernel)
         from uammd_tpu_torch.utils.lattices import lattice
     except ImportError as e:
         print(f"chip_smoke: the uammd_tpu_torch package is missing ({e})", file=sys.stderr)
@@ -228,15 +457,80 @@ def main() -> int:
     for q in (7, 10):
         check_rebin(moved, q, "2^20 perturbed fcc displaced")
     del gs_fcc, moved, gs_small, crammed
+
+    # the v2 kernels on tests/test_engine2.py:35's system (n 600, L 12, CAP
+    # 8 below the largest occupancy, so about 100 particles are stragglers),
+    # its fcc sites (nearest neighbours 1.41 apart) moved by a 0.15-sigma
+    # Gaussian clipped to 0.2 per axis, so no pair is closer than 0.84 and
+    # the largest force stays a few hundred
+    n_s, L_s = 600, 12.0
+    jit_s = (0.15 * torch.randn((n_s, 3), generator=rng, dtype=torch.float64)).clamp(-0.2, 0.2)
+    pos_s = lattice(n_s, L_s, "fcc") + jit_s.numpy()
+    spec_s = layout.choose_spec(L_s, n_s, 2.5, cap=8, pos=pos_s, n_strag=128)
+    gs_s = layout.pack(spec_s, pos_s, vel=torch.randn((n_s, 3), generator=rng).numpy(),
+                       device=dev)
+    n_strag_s = int((gs_s.spid >= 0).sum())
+    check(n_strag_s > 0, "n 600 CAP 8: the straggler list is used")
+    all_modes = ((False, False), (False, True), (True, False), (True, True))
+    v2_err = {"n600_strag": check_newton(gs_s, "n 600 stragglers", modes=all_modes)}
+    fast_err = {"n600_strag": check_newton(gs_s, "n 600 stragglers", approx=True,
+                                           tol=FAST_RECIP_TOL, slot_tol=FAST_RECIP_SLOT_TOL)}
+    controls = check_newton_controls(gs_s, "n 600 stragglers")
+    home, groups, _ = newton_pair(gs_s)
+    check_fold(spec_s, home, groups, "n 600 stragglers")
+    upd_err = {f"n600_{nz}": check_update(gs_s, home, groups, nz, "n 600 stragglers")
+               for nz in update_kernel.NOISES}
+    # tests/test_engine2.py:96-102's displacement: every particle by a
+    # clipped 0.35-sigma Gaussian, so cells pass CAP and stragglers move
+    dx = (0.35 * torch.randn(gs_s.x.shape, generator=rng).to(dev)).clamp(-1.0, 1.0) * gs_s.mask
+    sdx = 0.35 * torch.randn(gs_s.spos.shape, generator=rng).to(dev) * (gs_s.spid >= 0)[:, None]
+    moved_s = gs_s.replace(x=gs_s.x + dx, y=gs_s.y + 0.5 * dx, z=gs_s.z - 0.3 * dx,
+                           spos=gs_s.spos + sdx)
+    sep_s = check_sep_rebin(moved_s, "n 600 stragglers moved")
+    check(sep_s[2] > 0, "n 600 stragglers moved: the mini-grid holds stragglers")
+    r3 = rebin_kernel.rebin_fast3(moved_s)
+    check(not bool(r3.overflow) and int((r3.pid >= 0).sum()) + int((r3.spid >= 0).sum()) == n_s,
+          "n 600 stragglers moved: rebin_fast3 keeps every particle")
+    crammed = gs_s.replace(**{k: torch.where(gs_s.mask, getattr(gs_s, k) * 0.05,
+                                             getattr(gs_s, k)) for k in ("x", "y", "z")})
+    check(bool(rebin_kernel.rebin_fast3(crammed).overflow),
+          "crammed n 600: rebin_fast3 latches overflow")
+
+    spec_fcc2 = layout.choose_spec(BOX, N, 2.5, pos=pos_fcc, n_strag=N_STRAG)
+    gs_fcc2 = layout.pack(spec_fcc2, pos_fcc + jitter, device=dev)
+    v2_err["n2^20_fcc"] = check_newton(gs_fcc2, "2^20 perturbed fcc")
+    fast_err["n2^20_fcc"] = check_newton(gs_fcc2, "2^20 perturbed fcc", approx=True,
+                                         tol=FAST_RECIP_TOL, slot_tol=FAST_RECIP_SLOT_TOL)
+    home, groups, _ = newton_pair(gs_fcc2)
+    check_fold(spec_fcc2, home, groups, "2^20 perturbed fcc")
+    for nz in update_kernel.NOISES:
+        upd_err[f"n2^20_{nz}"] = check_update(gs_fcc2, home, groups, nz, "2^20 perturbed fcc")
+    sep_fcc = check_sep_rebin(displaced(gs_fcc2, 14), "2^20 perturbed fcc displaced")
+    del gs_fcc2, home, groups, gs_s, moved_s, crammed, r3
     print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
                       "pair_rel_err": {"n32768_jittered_sc": err_small, "n2^20_fcc": err_fcc},
-                      "rebin": "exact at Q=7 and Q=10", "fcc_spec": list(spec_fcc.array_shape)}),
-          flush=True)
+                      "rebin": "exact at Q=7 and Q=10", "fcc_spec": list(spec_fcc.array_shape),
+                      "newton_err": v2_err, "newton_fast_recip_err": fast_err,
+                      "newton_controls_slot_err": controls, "slot_tol": SLOT_TOL,
+                      "fast_recip_tol": FAST_RECIP_TOL,
+                      "fast_recip_slot_tol": FAST_RECIP_SLOT_TOL, "fold": "bit-equal",
+                      "update_max_abs_err_and_drift_err": upd_err,
+                      "separable_rebin": "exact (out, mini, count, overflow)",
+                      "n600_stragglers": n_strag_s, "n600_mini_stragglers": sep_s[2],
+                      "fcc_v2_spec": list(spec_fcc2.array_shape),
+                      "fcc_v2_mini_stragglers": sep_fcc[2]}), flush=True)
 
-    # 3. the main path: melt, then settle and timed steps on a fresh engine
-    kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN}
-    for k in kernels.values():
-        k.launches = 0
+    kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN,
+               "newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
+               "gj_fold_update": update_kernel.GJ_FOLD_UPDATE,
+               "separable_rebin": rebin_kernel.SEP_REBIN}
+
+    def zero_counts():
+        for k in kernels.values():
+            k.launches = 0
+
+    # 3a. the v1 path: melt, then settle and timed steps on a fresh engine
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     md_melt = md.make_lj_md(BOX, N, dt=0.004, temperature=TEMPERATURE, pos=pos_fcc, device=dev)
@@ -254,33 +548,55 @@ def main() -> int:
     gs = engine.run(gs, TIMED_STEPS)
     torch.cuda.synchronize()
     timed_s = time.perf_counter() - t0
-    launches = {k: v.launches for k, v in kernels.items()}
-    timed_launches = {k: launches[k] - before[k] for k in kernels}
-
-    n_kept = int((gs.pid >= 0).sum())
-    t_meas = float(engine.temperature_of(gs))
+    launches_v1 = {k: v.launches for k, v in kernels.items()}
+    timed_v1 = {k: launches_v1[k] - before[k] for k in kernels}
     total_steps = MELT_STEPS + SETTLE_STEPS + TIMED_STEPS
-    check(not bool(gs.overflow), "timed phase: no overflow")
-    check(n_kept == N, f"all particles kept: {n_kept} == {N}")
-    check(math.isfinite(t_meas) and abs(t_meas - TEMPERATURE) < 0.2 * TEMPERATURE,
-          f"temperature {t_meas:.4f} within 20 % of {TEMPERATURE}")
-    check(launches["pair_force"] >= total_steps,
-          f"pair kernel launched {launches['pair_force']} >= {total_steps} times")
-    check(launches["rebin"] >= 1, f"rebin kernel launched {launches['rebin']} >= 1 times")
-    check(all(bool(a.isfinite().all()) for a in layout.unpack(gs)), "final state finite")
-    ms_per_step = 1e3 * timed_s / TIMED_STEPS
+    n_kept, t_meas = gates(engine, gs, "v1 path", total_steps, launches_v1,
+                           ["pair_force"], ["rebin"])
+    check(all(bool(a.isfinite().all()) for a in layout.unpack(gs)), "v1: final state finite")
+    ms_v1 = 1e3 * timed_s / TIMED_STEPS
     print(json.dumps({
         "phase": "main_path", "n": N, "box": BOX, "melt_steps": MELT_STEPS,
         "settle_steps": SETTLE_STEPS, "timed_steps": TIMED_STEPS,
         "melt_spec": list(md_melt.spec.array_shape), "timed_spec": list(engine.spec.array_shape),
-        "melt_seconds": melt_s, "timed_seconds": timed_s, "ms_per_step": ms_per_step,
+        "melt_seconds": melt_s, "timed_seconds": timed_s, "ms_per_step": ms_v1,
         "particle_steps_per_s": N * TIMED_STEPS / timed_s,
         "temperature": t_meas, "particles_kept": n_kept, "overflow": False,
-        "launches": launches, "timed_launches": timed_launches,
+        "launches": launches_v1, "timed_launches": timed_v1,
+    }), flush=True)
+
+    # 3b. the v2 path, as bench.py:83-91 builds it, on the melted positions
+    zero_counts()
+    torch.cuda.synchronize()
+    engine2 = md2.make_lj_md2(BOX, N, dt=0.01, temperature=TEMPERATURE, pos=melted,
+                              n_strag=N_STRAG, noise="clt", fast_recip=True, device=dev)
+    gs2 = engine2.run(engine2.init(melted, seed=1), SETTLE_STEPS)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in kernels.items()}
+    t0 = time.perf_counter()
+    gs2 = engine2.run(gs2, TIMED_STEPS)
+    torch.cuda.synchronize()
+    timed2_s = time.perf_counter() - t0
+    n_strag_now = int((gs2.spid >= 0).sum())
+    launches_v2 = {k: v.launches for k, v in kernels.items()}
+    timed_v2 = {k: launches_v2[k] - before[k] for k in kernels}
+    n_kept2, t_meas2 = gates(engine2, gs2, "v2 path", SETTLE_STEPS + TIMED_STEPS, launches_v2,
+                             ["newton_pair", "gj_fold_update"], ["fold", "separable_rebin"])
+    check(all(bool(a.isfinite().all()) for a in layout.unpack(gs2)), "v2: final state finite")
+    ms_v2 = 1e3 * timed2_s / TIMED_STEPS
+    print(json.dumps({
+        "phase": "main_path_v2", "n": N, "box": BOX, "n_strag": N_STRAG, "noise": "clt",
+        "fast_recip": True, "spec": list(engine2.spec.array_shape), "cap": engine2.spec.cap,
+        "settle_steps": SETTLE_STEPS, "timed_steps": TIMED_STEPS,
+        "timed_seconds": timed2_s, "ms_per_step": ms_v2,
+        "particle_steps_per_s": N * TIMED_STEPS / timed2_s,
+        "temperature": t_meas2, "particles_kept": n_kept2, "stragglers": n_strag_now,
+        "overflow": False, "launches": launches_v2, "timed_launches": timed_v2,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }), flush=True)
 
-    # 4. kernel times on the final liquid state (the timed engine's shapes)
+    # 4. kernel times at each path's final shapes
+    slot_bytes = 4 * engine.spec.n_slots
     spec = engine.spec
     g = md.lj_g()
     force = pair_kernel.make_pair_force_kernel(spec, g)
@@ -301,44 +617,112 @@ def main() -> int:
         lambda: pair_kernel.pair_force_plain(spec, g, gs.x, gs.y, gs.z), reps=3, warmup=1)
     rebin_ms = cuda_ms(lambda: rebin(stacked), reps=20)
     rebin_plain_ms = cuda_ms(lambda: rebin_kernel.rebin_plain(spec, stacked), reps=3, warmup=1)
-
-    slot_bytes = 4 * spec.n_slots
     pairs, pairs_in_cutoff = stencil_pairs(gs)
     pair_bytes_ms = 1e3 * 6 * slot_bytes / PEAK_HBM_BYTES
     pair_ops_ms = (1e3 * (OPS_PAIR_TEST * pairs + OPS_PAIR_FORCE * pairs_in_cutoff)
                    / PEAK_FP32_FLOPS)
     rebin_bytes_ms = 1e3 * (2 * 7 * slot_bytes + 8) / PEAK_HBM_BYTES
-    per_step = {k: timed_launches[k] / TIMED_STEPS for k in kernels}
-    share_pair = per_step["pair_force"] * pair_ms / ms_per_step
-    share_rebin = per_step["rebin"] * rebin_ms / ms_per_step
+    del moved, stacked
+
+    # the v2 kernels at the v2 path's final state, with its engine's options
+    spec2 = engine2.spec
+    slot2 = 4 * spec2.n_slots
+    S = spec2.n_strag
+    gk = md.lj_g_fused(rc2=RC2, approx=True)
+    newton = kernel2.make_newton_pair_kernel(spec2, gk, self_half=True, strag_cellcenter=True)
+    strag = kernel2.broadcast_stragglers(spec2, gs2.spos, gs2.spid)
+    err_v2 = check_newton(gs2, "2^20 v2 liquid", approx=True, tol=FAST_RECIP_TOL,
+                          slot_tol=FAST_RECIP_SLOT_TOL)
+    out_k = newton(gs2.x, gs2.y, gs2.z, strag)
+    out_p = newton_pair(gs2, plain=True)
+    f_k = kernel2.fold_reactions_plain(*out_k[:2])
+    f_p = kernel2.fold_reactions_plain(*out_p[:2])
+    m2 = gs2.mask
+    newton_abs_err = max(float((a[m2] - b[m2]).abs().max()) for a, b in zip(f_k, f_p))
+    home, groups = out_k[0], out_k[1]
+    fold = kernel2.make_fold_kernel(spec2)
+    check_fold(spec2, home, groups, "2^20 v2 liquid")
+    fold_abs_err = max(float((x - y).abs().max()) for x, y in zip(
+        fold(home, groups), kernel2.fold_reactions_plain(home, groups)))
+    upd = engine2.update
+    a, grp, ref, step = update_inputs(gs2, home, groups, 31)
+    # the straggler rows as GridMD2.step passes them
+    strag2 = (gs2.spos, gs2.svel, gs2.sforce, gs2.spid)
+    upd_abs_err = check_update(gs2, home, groups, "clt", "2^20 v2 liquid")[0]
+    moved2 = displaced(gs2, 15)
+    sep_liquid = check_sep_rebin(moved2, "2^20 v2 liquid displaced")
+    st2, sst2 = stacked_of(moved2, 7), strag_stack_of(moved2)
+    sep = rebin_kernel.make_separable_rebin(spec2)
+    sep_abs_err = max(float((x - y).abs().max()) for x, y in zip(
+        sep(st2, sst2)[:2], rebin_kernel.separable_rebin_plain(spec2, st2, sst2)[:2]))
+
+    newton_ms = cuda_ms(lambda: newton(gs2.x, gs2.y, gs2.z, strag), reps=20)
+    newton_plain_ms = cuda_ms(lambda: newton_pair(gs2, plain=True), reps=3, warmup=1)
+    fold_ms = cuda_ms(lambda: fold(home, groups), reps=20)
+    fold_plain_ms = cuda_ms(lambda: kernel2.fold_reactions_plain(home, groups), reps=5, warmup=1)
+    upd_ms = cuda_ms(lambda: upd(*a, grp, *ref, step, strag2), reps=20)
+    upd_plain_ms = cuda_ms(lambda: update_kernel.gj_fold_update_plain(
+        spec2, upd.coef, "clt", *a, grp, *ref, step, strag2), reps=5, warmup=1)
+    sep_ms = cuda_ms(lambda: sep(st2, sst2), reps=20)
+    sep_plain_ms = cuda_ms(lambda: rebin_kernel.separable_rebin_plain(spec2, st2, sst2),
+                           reps=3, warmup=1)
+    pairs2, cut2 = stencil_pairs(gs2)
+    newton_ops_ms = 1e3 * (OPS_PAIR_TEST * pairs2 + OPS_PAIR_FORCE * cut2) / PEAK_FP32_FLOPS
+    newton_bytes_ms = 1e3 * (18 * slot2 + 28 * S) / PEAK_HBM_BYTES
+    fold_bytes_ms = 1e3 * 18 * slot2 / PEAK_HBM_BYTES
+    # the update reads 24 grids, [S, 3] spos, svel, sforce, [S] spid and the
+    # step seed, and writes 6 grids, spos, svel and the drift
+    upd_bytes_ms = 1e3 * (30 * slot2 + 64 * S + 8) / PEAK_HBM_BYTES
+    # the separable rebin reads 7 grids and the [7, S] stragglers, writes 7
+    # grids and the [7, nz, nyb, OCAP, NLANE] mini-grid
+    mini_bytes = 4 * 7 * spec2.n_slots // spec2.cap * rebin_kernel.OCAP
+    sep_bytes_ms = 1e3 * (2 * 7 * slot2 + mini_bytes + 7 * 4 * S + 8) / PEAK_HBM_BYTES
+
+    per_step = {k: timed_v2[k] / TIMED_STEPS for k in kernels}
+    kernel_ms = {"newton_pair": newton_ms, "fold": fold_ms, "gj_fold_update": upd_ms,
+                 "separable_rebin": sep_ms}
+    shares = {k: per_step[k] * v / ms_v2 for k, v in kernel_ms.items()}
     print(json.dumps({
-        "phase": "breakdown", "card": card, "ms_per_step": ms_per_step,
+        "phase": "breakdown_v2", "card": card, "ms_per_step": ms_v2,
         "launches_per_step": per_step,
-        "share_pair_force": share_pair, "share_rebin": share_rebin,
-        "share_rest": 1.0 - share_pair - share_rebin,
-        "pair_rel_err_liquid": err_liquid, "stencil_pairs": pairs,
-        "stencil_pairs_in_cutoff": pairs_in_cutoff,
-        "padded_pair_slots": 27 * spec.cap * spec.n_slots,
-        "pair_bound_ms": {"bytes": pair_bytes_ms, "operations": pair_ops_ms},
-        "note": "shares are kernel times (CUDA events, separate runs) x launches per "
-                "timed step over the timed wall-clock ms per step",
+        "kernel_ms_per_step": {k: per_step[k] * v for k, v in kernel_ms.items()},
+        "shares": shares, "share_rest": 1.0 - sum(shares.values()),
+        "newton_err_liquid": err_v2, "stencil_pairs": pairs2,
+        "stencil_pairs_in_cutoff": cut2, "stragglers": n_strag_now,
+        "separable_rebin_mini_stragglers": sep_liquid[2],
+        "v1": {"ms_per_step": ms_v1, "pair_force_ms": pair_ms, "rebin_ms": rebin_ms,
+               "launches_per_timed_step": {k: timed_v1[k] / TIMED_STEPS
+                                           for k in ("pair_force", "rebin")},
+               "pair_rel_err_liquid": err_liquid, "stencil_pairs": pairs,
+               "stencil_pairs_in_cutoff": pairs_in_cutoff},
+        "note": "kernel ms per step = kernel time (CUDA events, separate runs) x launches "
+                "per timed step; shares are over the timed wall-clock ms per step",
     }), flush=True)
 
+    def row(name, source, replaces, launches, err, ms, plain_ms, bytes_ms, ops_ms=0.0):
+        return {"name": name, "route": "cuda",
+                "source": f"uammd_tpu_torch/engine/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                "library_ms": None}
+
     rows = [
-        {"name": "pair_force", "route": "cuda",
-         "source": "uammd_tpu_torch/engine/csrc/pair_force.cu",
-         "replaces": "uammd_tpu/engine/pair_kernel.py:272",
-         "launches": launches["pair_force"], "max_abs_err": pair_abs_err,
-         "ms": pair_ms, "plain_ms": pair_plain_ms,
-         "bound_ms": max(pair_bytes_ms, pair_ops_ms),
-         "bound_by": "operations" if pair_ops_ms >= pair_bytes_ms else "bytes",
-         "library_ms": None},
-        {"name": "rebin", "route": "cuda",
-         "source": "uammd_tpu_torch/engine/csrc/rebin.cu",
-         "replaces": "uammd_tpu/engine/rebin_kernel.py:223",
-         "launches": launches["rebin"], "max_abs_err": rebin_abs_err,
-         "ms": rebin_ms, "plain_ms": rebin_plain_ms,
-         "bound_ms": rebin_bytes_ms, "bound_by": "bytes", "library_ms": None},
+        row("pair_force", "pair_force.cu", "uammd_tpu/engine/pair_kernel.py:272",
+            launches_v1["pair_force"], pair_abs_err, pair_ms, pair_plain_ms,
+            pair_bytes_ms, pair_ops_ms),
+        row("rebin", "rebin.cu", "uammd_tpu/engine/rebin_kernel.py:223",
+            launches_v1["rebin"], rebin_abs_err, rebin_ms, rebin_plain_ms, rebin_bytes_ms),
+        row("newton_pair", "newton_pair.cu", "uammd_tpu/engine/kernel2.py:447",
+            launches_v2["newton_pair"], newton_abs_err, newton_ms, newton_plain_ms,
+            newton_bytes_ms, newton_ops_ms),
+        row("fold", "fold.cu", "uammd_tpu/engine/kernel2.py:531",
+            launches_v2["fold"], fold_abs_err, fold_ms, fold_plain_ms, fold_bytes_ms),
+        row("gj_fold_update", "gj_fold_update.cu", "uammd_tpu/engine/update_kernel.py:301",
+            launches_v2["gj_fold_update"], upd_abs_err, upd_ms, upd_plain_ms, upd_bytes_ms),
+        row("separable_rebin", "sep_rebin.cu",
+            "uammd_tpu/engine/rebin_kernel.py:904,920,934",
+            launches_v2["separable_rebin"], sep_abs_err, sep_ms, sep_plain_ms, sep_bytes_ms),
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,14 @@ CHOOSE_CASES = {
     "strag": dict(box_size=(20.0, 30.0, 40.0), n=3000, cutoff=2.5,
                   pos=_random(3000, (20.0, 30.0, 40.0), 2), n_strag=16),
     "lanes64": dict(box_size=30.0, n=1200, cutoff=2.0, skin=1.1, max_lanes=64),
+    # CAP 16 against the defaults' 8: the per-cell excess limit binds
+    "strag_excess": dict(box_size=(20.0, 30.0, 40.0), n=3000, cutoff=2.5,
+                         pos=_random(3000, (20.0, 30.0, 40.0), 2), n_strag=128,
+                         strag_cell_excess=2),
+    # CAP 8 against the defaults' 16: the smaller headroom admits it
+    "strag_headroom": dict(box_size=(20.0, 30.0, 40.0), n=3000, cutoff=2.5,
+                           pos=_random(3000, (20.0, 30.0, 40.0), 2), n_strag=32,
+                           strag_cell_excess=3, strag_headroom=1.0),
 }
 
 
@@ -70,6 +78,15 @@ def test_choose_spec_equal(case):
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
     assert a.array_shape == b.array_shape
     assert a.drift_threshold == b.drift_threshold
+
+
+def test_choose_spec_rejects_excess_over_mini_grid():
+    """More stragglers per cell than the separable rebin's mini-grid holds."""
+    kw = dict(box_size=20.0, n=1000, cutoff=2.5, pos=_random(1000, 20.0, 3))
+    with pytest.raises(ValueError, match="mini-grid"):
+        tl.choose_spec(**kw, n_strag=16, strag_cell_excess=tl.OCAP + 1)
+    tl.choose_spec(**kw, n_strag=16, strag_cell_excess=tl.OCAP)
+    tl.choose_spec(**kw, strag_cell_excess=tl.OCAP + 1)  # no straggler list
 
 
 def test_choose_spec_benchmark_size():
@@ -155,6 +172,18 @@ def test_state_carry_roundtrip(system):
         np.testing.assert_array_equal(back[k], f[k], err_msg=k)
 
 
+def test_state_carry_keeps_reaction_groups(system):
+    n, L, pos, vel, force, spec_j, spec_t = system
+    f = _fields(jl.pack(spec_j, pos, vel=vel, force=force))
+    f["fgrp"] = tuple(np.full(spec_t.array_shape, k, np.float32) for k in range(12))
+    gt = tl.grid_state_from_numpy(spec_t, f, device="cpu")
+    assert len(gt.fgrp) == 12 and all(float(g[0, 0, 0, 0]) == k for k, g in enumerate(gt.fgrp))
+    back = tl.grid_state_to_numpy(gt)
+    for a, b in zip(back["fgrp"], f["fgrp"]):
+        np.testing.assert_array_equal(a, b)
+    assert tl.grid_state_to_numpy(tl.pack(spec_t, pos, device="cpu"))["fgrp"] == ()
+
+
 def test_entry_points_default_to_gpu(system):
     n, L, pos, vel, force, spec_j, spec_t = system
     if torch.cuda.is_available():
@@ -168,7 +197,7 @@ def test_entry_points_default_to_gpu(system):
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
-        "import uammd_tpu_torch, uammd_tpu_torch.engine.md\n"
+        "import uammd_tpu_torch, uammd_tpu_torch.engine.md, uammd_tpu_torch.engine.md2\n"
         "import uammd_tpu_torch.utils.lattices\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'uammd_tpu' or m.startswith('uammd_tpu.')]\n"

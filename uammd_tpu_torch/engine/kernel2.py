@@ -1,0 +1,315 @@
+"""Newton's-third-law pair force with straggler rows, and the reaction fold.
+
+Port of ``uammd_tpu/engine/kernel2.py``: ``make_newton_pair_kernel`` and
+``make_fold_kernel`` (with ``fold_reactions_jnp``), ``broadcast_stragglers``
+and ``straggler_pair_forces``.
+
+Each unordered pair of cells is visited once: the self cell plus the 13
+lexicographically positive offsets ``POS_OFFSETS``. The force on the home
+particle adds to ``home``; the equal and opposite reaction on the candidate
+goes to the candidate's own slot (its row and lane) of ``home`` when the
+candidate's (z, y-block) is the home block, else of one of the four
+reaction-group grids keyed by the candidate block's displacement
+``REACTION_GROUPS``, stored at the *home* block index. The fold then adds
+each group at its shifted block:
+
+    f[z, yb] = home[z, yb] + sum_g G_g[(z - dz_g) % nz, (yb - dyb_g) % nyb]
+
+Stragglers (``GridSpec.n_strag``) are a candidate list seen by every home
+slot; their forces come back reduced to [S, 3] (the JAX kernel returns
+per-program partials that its caller sums). Straggler-straggler pairs are
+O(S^2) plain torch (``straggler_pair_forces``).
+
+On CUDA tensors the wrappers launch ``csrc/newton_pair.cu`` and
+``csrc/fold.cu``; on CPU tensors they run ``newton_pair_plain`` and
+``fold_reactions_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from .layout import GridSpec, recip32, stencil_sources
+from .md import LJFused
+
+_F = ctypes.c_float
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+
+# positive (lexicographic) stencil offsets (dz, dy, dx): every unordered
+# cell pair appears exactly once across {self} + POS_OFFSETS
+POS_OFFSETS = (
+    [(1, dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    + [(0, 1, dx) for dx in (-1, 0, 1)]
+    + [(0, 0, 1)]
+)
+# reaction groups: (dz, dyb) displacement of the candidate *block*
+REACTION_GROUPS = ((1, -1), (1, 0), (1, 1), (0, 1))
+
+# uammd_newton_pair(x, y, z, strag, out, sforce, nx, nyb, nz, F, cap, S,
+#                   self_half, cellcenter, approx, Lx, Ly, Lz, c1, c2, rc2,
+#                   lo, stream)
+NEWTON_PAIR = _build.Kernel(
+    "newton_pair", "uammd_newton_pair", [_P] * 6 + [_I] * 9 + [_F] * 7)
+# uammd_fold(ins[15], out[3], nz, nyb, plane, stream)
+FOLD = _build.Kernel("fold", "uammd_fold", [_PP, _PP, _I, _I, _I])
+
+# candidate rows staged per pass in newton_pair.cu, and its shared-memory
+# budget: 9 staged rows of NLANE floats each, plus the [4, S] stragglers
+STAGE_ROWS = 8
+SMEM_BYTES = 48 * 1024
+
+
+def broadcast_stragglers(spec: GridSpec, spos, spid):
+    """[S, 3] straggler positions + validity -> the [4, S, NLANE] block
+    (x, y, z, valid) that the pair kernel takes (a broadcast view)."""
+    val = (spid >= 0).to(torch.float32)
+    stack = torch.stack([spos[:, 0], spos[:, 1], spos[:, 2], val])
+    return stack[:, :, None].expand(4, spec.n_strag, spec.nlane)
+
+
+@functools.lru_cache(maxsize=None)
+def _box(box_size: tuple, device: torch.device):
+    """The box lengths and their float32 reciprocals as [3] tensors on
+    ``device``, made once (a copy to the card per step would sync it)."""
+    return (torch.tensor(box_size, dtype=torch.float32, device=device),
+            torch.tensor([recip32(L) for L in box_size], dtype=torch.float32, device=device))
+
+
+def straggler_pair_forces(spec: GridSpec, g_fn, spos, spid, clamp_lo: float = 4e-3):
+    """O(S^2) straggler-straggler forces (minimum image), [S, 3]."""
+    Ls, iLs = _box(spec.box_size, spos.device)
+    rc2 = float(np.float32(spec.cutoff * spec.cutoff))
+    val = spid >= 0
+    d = spos[None, :, :] - spos[:, None, :]
+    d = d - Ls * torch.round(d * iLs)
+    r2 = torch.sum(d * d, dim=-1)
+    ok = (r2 < rc2) & (r2 > 1e-10) & val[None, :] & val[:, None]
+    g = torch.where(ok, g_fn(torch.clamp(r2, min=float(np.float32(clamp_lo)))),
+                    torch.zeros((), dtype=r2.dtype, device=r2.device))
+    return torch.sum(g[:, :, None] * d, dim=1)
+
+
+def _straggler_block(spec: GridSpec, g_fn: LJFused, xi, yi, zi, strag,
+                     strag_cellcenter: bool):
+    """Forces between every home slot and the straggler list:
+    returns (t_x, t_y, t_z) of shape [nz, nyb, CAP, S, NLANE]."""
+    nz = spec.shape[2]
+    F = spec.fold
+    Lx, Ly, Lz = spec.box_size
+    iLx, iLy, iLz = (recip32(L) for L in spec.box_size)
+    dev = xi.device
+    sx, sy, sz, sval = (strag[k][None, None, None, :, None] for k in range(4))
+    if strag_cellcenter:
+        # min-image the stragglers once per home cell against the cell
+        # centre (kernel2.py:314-352): any pair inside the cutoff has its
+        # other image far outside it, and the fused radial fails every
+        # pair outside the cutoff whatever image was picked
+        cs = [float(np.float32(v)) for v in spec.cell_size]
+        lane = torch.arange(spec.nlane, device=dev)
+        cxf = (lane // F).to(torch.float32)
+        ff = (lane % F).to(torch.float32)
+        ccx = ((cxf + 0.5) * cs[0] - 0.5 * Lx)[None, None, None, None, :]
+        yrow = torch.arange(spec.nyb, device=dev).to(torch.float32)[:, None] * F + ff
+        ccy = ((yrow + 0.5) * cs[1] - 0.5 * Ly)[None, :, None, None, :]
+        zrow = torch.arange(nz, device=dev).to(torch.float32)
+        ccz = ((zrow + 0.5) * cs[2] - 0.5 * Lz)[:, None, None, None, None]
+        dxv = (sx - Lx * torch.round((sx - ccx) * iLx)) - xi
+        dyv = (sy - Ly * torch.round((sy - ccy) * iLy)) - yi
+        dzv = (sz - Lz * torch.round((sz - ccz) * iLz)) - zi
+        g = g_fn(dxv * dxv + dyv * dyv + dzv * dzv) * sval
+    else:
+        dxv = sx - xi
+        dyv = sy - yi
+        dzv = sz - zi
+        dxv = dxv - Lx * torch.round(dxv * iLx)
+        dyv = dyv - Ly * torch.round(dyv * iLy)
+        dzv = dzv - Lz * torch.round(dzv * iLz)
+        # an empty home slot sits far outside the box, where the minimum
+        # image would bring it back: mask it out
+        ok = (sval > 0.5) & (xi < 1.0e8)
+        g = torch.where(ok, g_fn(dxv * dxv + dyv * dyv + dzv * dzv),
+                        torch.zeros((), dtype=xi.dtype, device=dev))
+    return g * dxv, g * dyv, g * dzv
+
+
+def newton_pair_plain(spec: GridSpec, g_fn: LJFused, x, y, z, strag=None, *,
+                      strag_cellcenter: bool = False):
+    """Plain PyTorch version of the Newton pair kernel.
+
+    The self block is the full all-pairs block (both directions), as the
+    JAX kernel computes it off the TPU (kernel2.py:188-196). Each positive
+    offset gathers the candidate cell's slots into home order
+    (``stencil_sources``), forms the [nz, nyb, CAP_i, CAP_j, NLANE] pair
+    block, adds its sum over candidates to the home force and scatters the
+    reaction (its sum over home rows) by candidate lane into ``home`` or the
+    candidate block's group. Returns ``(home (fx, fy, fz), groups (4 x
+    (gx, gy, gz)), sforce [S, 3] or None)``; ``strag`` is the [4, S, NLANE]
+    block of ``broadcast_stragglers`` (its first lane is read). ``g_fn``
+    is the fused LJ radial (``md.lj_g_fused``), which applies the cutoff
+    and the clamp itself."""
+    dev = x.device
+    cap, F = spec.cap, spec.fold
+    rows = torch.arange(cap, device=dev)[None, None, :, None]
+    xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
+
+    # self block: all ordered pairs of the home cell; d = 0 on the diagonal
+    dxv = x[:, :, None, :, :] - xi
+    dyv = y[:, :, None, :, :] - yi
+    dzv = z[:, :, None, :, :] - zi
+    g = g_fn(dxv * dxv + dyv * dyv + dzv * dzv)
+    home = [(g * dxv).sum(dim=3), (g * dyv).sum(dim=3), (g * dzv).sum(dim=3)]
+    grp = {key: [torch.zeros_like(x) for _ in range(3)] for key in REACTION_GROUPS}
+
+    f_lane = torch.arange(spec.nlane, device=dev) % F
+    for (dz, dy, dx) in POS_OFFSETS:
+        zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
+        cx = x[zs, ybs, rows, lane] + shx
+        cy = y[zs, ybs, rows, lane] + shy
+        cz = z[zs, ybs, rows, lane] + shz
+        dxv = cx[:, :, None, :, :] - xi
+        dyv = cy[:, :, None, :, :] - yi
+        dzv = cz[:, :, None, :, :] - zi
+        g = g_fn(dxv * dxv + dyv * dyv + dzv * dzv)
+        # the candidate lane of every home lane: a permutation, the same for
+        # every y-block
+        sl = lane[0, 0, 0, :]
+        infold = ((f_lane + dy >= 0) & (f_lane + dy < F))[None, None, None, :]
+        target_in = home if dz == 0 else grp[(dz, 0)]
+        for c, dv in enumerate((dxv, dyv, dzv)):
+            t = g * dv
+            home[c] = home[c] + t.sum(dim=3)
+            r = -t.sum(dim=2)  # [nz, nyb, CAP_j, NLANE] in home-lane order
+            zero = torch.zeros((), dtype=r.dtype, device=dev)
+            target_in[c].index_add_(3, sl, torch.where(infold, r, zero))
+            if dy != 0:
+                grp[(dz, dy)][c].index_add_(3, sl, torch.where(infold, zero, r))
+
+    sforce = None
+    if spec.n_strag:
+        t = _straggler_block(spec, g_fn, xi, yi, zi, strag[:, :, 0], strag_cellcenter)
+        home = [h + tc.sum(dim=3) for h, tc in zip(home, t)]
+        sforce = torch.stack([-tc.sum(dim=(0, 1, 2, 4)) for tc in t], dim=-1)
+    groups = tuple(tuple(grp[key]) for key in REACTION_GROUPS)
+    return tuple(home), groups, sforce
+
+
+class NewtonPairKernel:
+    """``force(x, y, z[, strag]) -> (home, groups, sforce)`` for one
+    ``GridSpec`` (see ``newton_pair_plain`` for the contract).
+
+    ``g_fn`` is the fused LJ radial (``md.lj_g_fused``), whose constants
+    the CUDA kernel reads. CPU tensors go to ``newton_pair_plain``; CUDA
+    tensors launch ``csrc/newton_pair.cu`` (counted in
+    ``NEWTON_PAIR.launches``) or raise. The CUDA kernel honours
+    ``self_half`` (the self cell Newton-halved: each in-cell pair once) and
+    ``strag_cellcenter``, and takes the approximate reciprocal when the
+    radial's ``approx`` is set."""
+
+    def __init__(self, spec: GridSpec, g_fn: LJFused, *, self_half: bool = False,
+                 strag_cellcenter: bool = False):
+        if not isinstance(g_fn, LJFused):
+            raise TypeError("the Newton pair kernel takes the fused LJ radial "
+                            "(md.lj_g_fused)")
+        self.spec = spec
+        self.g_fn = g_fn
+        self.self_half = bool(self_half)
+        self.strag_cellcenter = bool(strag_cellcenter)
+
+    def __call__(self, x, y, z, strag=None):
+        spec = self.spec
+        shape = spec.array_shape
+        S = spec.n_strag
+        if S and strag is None:
+            raise ValueError("a straggler-capable spec needs the strag block")
+        if x.device.type == "cpu":
+            for name, t in (("x", x), ("y", y), ("z", z)):
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+                    raise ValueError(f"{name} must be a float32 CPU tensor of shape {shape}")
+            return newton_pair_plain(spec, self.g_fn, x, y, z, strag,
+                                     strag_cellcenter=self.strag_cellcenter)
+        for name, t in (("x", x), ("y", y), ("z", z)):
+            _build.check_cuda_tensor(t, name, shape)
+        smem = 4 * (9 * STAGE_ROWS * spec.nlane + 4 * S)
+        if smem > SMEM_BYTES:
+            raise ValueError(f"NLANE {spec.nlane} and S {S} need {smem} bytes of "
+                             f"shared memory, over the kernel's {SMEM_BYTES}")
+        T = spec.n_slots
+        buf = torch.zeros(15 * T + 3 * S, dtype=torch.float32, device=x.device)
+        out = buf[: 15 * T].view((15,) + shape)
+        sforce = buf[15 * T:].view(S, 3)
+        if S:
+            s = strag[:, :, 0].to(torch.float32).contiguous()
+            _build.check_cuda_tensor(s, "strag", (4, S))
+            sp = _build.ptr(s)
+        else:
+            sp = _P(0)
+        nx, _, nz = spec.shape
+        g = self.g_fn
+        P = _build.ptr
+        NEWTON_PAIR(
+            P(x), P(y), P(z), sp, P(out), P(sforce),
+            nx, spec.nyb, nz, spec.fold, spec.cap, S,
+            int(self.self_half), int(self.strag_cellcenter), int(g.approx),
+            *spec.box_size, g.c1, g.c2, g.rc2, g.lo,
+        )
+        home = (out[0], out[1], out[2])
+        groups = tuple((out[3 + 3 * i], out[4 + 3 * i], out[5 + 3 * i]) for i in range(4))
+        return home, groups, (sforce if S else None)
+
+
+def make_newton_pair_kernel(spec: GridSpec, g_fn: LJFused, *, self_half: bool = False,
+                            strag_cellcenter: bool = False) -> NewtonPairKernel:
+    """Build ``force(x, y, z[, strag]) -> (home[3], groups[4][3], sforce)``
+    on [nz, nyb, CAP, NLANE] float32 tensors."""
+    return NewtonPairKernel(spec, g_fn, self_half=self_half,
+                            strag_cellcenter=strag_cellcenter)
+
+
+def fold_reactions_plain(home, groups):
+    """Plain version of the fold: ``home + roll(G_g, (dz_g, dyb_g))`` added
+    in ``REACTION_GROUPS`` order (bit-equal to ``fold_reactions_jnp``)."""
+    out = list(home)
+    for (dz, dyb), g in zip(REACTION_GROUPS, groups):
+        for c in range(3):
+            out[c] = out[c] + torch.roll(g[c], shifts=(dz, dyb), dims=(0, 1))
+    return tuple(out)
+
+
+class FoldKernel:
+    """``fold(home[3], groups[4][3]) -> (fx, fy, fz)`` for one ``GridSpec``.
+
+    CPU tensors go to ``fold_reactions_plain``; CUDA tensors launch
+    ``csrc/fold.cu`` (counted in ``FOLD.launches``) or raise."""
+
+    def __init__(self, spec: GridSpec):
+        self.spec = spec
+
+    def __call__(self, home, groups):
+        ins = list(home) + [c for g in groups for c in g]
+        if len(ins) != 15:
+            raise ValueError("fold takes 3 home grids and 4 x 3 group grids")
+        shape = self.spec.array_shape
+        if ins[0].device.type == "cpu":
+            for t in ins:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+                    raise ValueError(f"fold inputs must be float32 CPU tensors of shape {shape}")
+            return fold_reactions_plain(home, groups)
+        for k, t in enumerate(ins):
+            _build.check_cuda_tensor(t, f"fold input {k}", shape)
+        out = torch.empty((3,) + shape, dtype=torch.float32, device=ins[0].device)
+        nz, nyb, cap, nlane = shape
+        FOLD((_P * 15)(*(t.data_ptr() for t in ins)),
+             (_P * 3)(*(o.data_ptr() for o in out)), nz, nyb, cap * nlane)
+        return out[0], out[1], out[2]
+
+
+def make_fold_kernel(spec: GridSpec) -> FoldKernel:
+    """Build ``fold(home, groups) -> (fx, fy, fz)``."""
+    return FoldKernel(spec)

@@ -78,6 +78,11 @@ class GridSpec:
         return 0.5 * max(slack, 1e-6)
 
 
+# depth of the separable rebin's per-cell overflow mini-grid (ranks CAP ..
+# CAP+OCAP-1), which holds the stragglers of a cell
+OCAP = 8
+
+
 def choose_spec(
     box_size,
     n: int,
@@ -87,14 +92,21 @@ def choose_spec(
     cap: int | None = None,
     pos=None,
     n_strag: int = 0,
+    strag_cell_excess: int = 6,
+    strag_headroom: float = 3.0,
 ) -> GridSpec:
     """Pick (nx, ny, nz), fold F and CAP for a target box/density.
 
     The same search as the JAX package (so both build identical grids):
     cells >= cutoff*skin on each axis, (nx, ny, F) minimizing the cost model
     nz * nyb * CAP_est^2 with a penalty for NLANE != max_lanes, and CAP from
-    a Poisson margin or, given ``pos``, from the measured occupancy.
+    a Poisson margin or, given ``pos``, from the measured occupancy. With
+    a straggler list, ``strag_cell_excess`` (at most ``OCAP``) bounds the
+    stragglers per cell and ``strag_headroom`` the list's fill.
     """
+    if n_strag > 0 and strag_cell_excess > OCAP:
+        raise ValueError(f"strag_cell_excess {strag_cell_excess} exceeds the separable "
+                         f"rebin's {OCAP}-deep overflow mini-grid")
     Ls = [float(s) for s in np.broadcast_to(np.asarray(box_size, float), (3,))]
     rl = cutoff * skin
     nx_nat = max(3, int(Ls[0] / rl))
@@ -140,11 +152,14 @@ def choose_spec(
             occ = int(counts.max())
             cap = (occ + max(2, occ // 8) + 7) // 8 * 8
             if n_strag > 0:
-                # the smallest CAP whose excess fits the side list with 3x
-                # headroom, at most 6 stragglers per cell (the JAX defaults)
+                # the smallest CAP whose excess fits the side list with
+                # ``strag_headroom`` headroom and at most ``strag_cell_excess``
+                # stragglers per cell (6 fits the separable rebin's OCAP = 8
+                # overflow mini-grid)
                 for c in range(8, cap + 1, 8):
                     excess = np.maximum(counts - c, 0)
-                    if excess.sum() * 3.0 <= n_strag and excess.max() <= 6:
+                    if (excess.sum() * strag_headroom <= n_strag
+                            and excess.max() <= strag_cell_excess):
                         cap = c
                         break
     return GridSpec(
@@ -157,9 +172,13 @@ def choose_spec(
 class GridState:
     """Grid-resident MD state. All grid tensors are [nz, nyb, CAP, NLANE].
 
-    ``gen`` is the ``torch.Generator`` that draws the Langevin noise (it
-    advances in place). The straggler fields ``spos``/``svel``/``sforce``
-    ([S, 3]) and ``spid`` ([S]) are empty unless ``spec.n_strag > 0``.
+    ``gen`` is the ``torch.Generator`` that draws the v1 engine's Langevin
+    noise (it advances in place). The straggler fields ``spos``/``svel``/
+    ``sforce`` ([S, 3]) and ``spid`` ([S]) are empty unless
+    ``spec.n_strag > 0``. ``fgrp`` holds the v2 engine's unfolded Newton
+    reaction groups (12 grid tensors, ``kernel2.REACTION_GROUPS`` x 3
+    components) while the fused update folds them in, else ``()``; the
+    physical force is then fx + the shifted groups (``GridMD2.folded_forces``).
     """
 
     spec: GridSpec
@@ -184,6 +203,7 @@ class GridState:
     svel: torch.Tensor
     sforce: torch.Tensor
     spid: torch.Tensor
+    fgrp: tuple = ()
 
     @property
     def mask(self) -> torch.Tensor:
@@ -405,9 +425,9 @@ STATE_FIELDS = (
 def grid_state_from_numpy(spec: GridSpec, fields: dict, device=None,
                           seed: int = 0) -> GridState:
     """A GridState on ``device`` from numpy arrays, e.g. the fields of the
-    JAX package's GridState (``STATE_FIELDS`` plus ``n``). The JAX PRNG key
-    does not carry over: the new state's generator is seeded with
-    ``seed``."""
+    JAX package's GridState (``STATE_FIELDS`` plus ``n`` and, optionally,
+    ``fgrp``: a sequence of 12 grids or empty). The JAX PRNG key does not
+    carry over: the new state's generator is seeded with ``seed``."""
     dev = resolve_device(device)
     arrays = {}
     for name in STATE_FIELDS:
@@ -419,16 +439,20 @@ def grid_state_from_numpy(spec: GridSpec, fields: dict, device=None,
         else:
             dtype = torch.float32
         arrays[name] = torch.from_numpy(a).to(device=dev, dtype=dtype).contiguous()
+    fgrp = tuple(torch.from_numpy(np.array(a)).to(device=dev, dtype=torch.float32)
+                 .contiguous() for a in fields.get("fgrp", ()))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return GridState(spec=spec, n=int(fields["n"]), gen=gen, **arrays)
+    return GridState(spec=spec, n=int(fields["n"]), gen=gen, fgrp=fgrp, **arrays)
 
 
 def grid_state_to_numpy(gs: GridState) -> dict:
     """The array fields of ``gs`` (``STATE_FIELDS``) as numpy arrays, plus
-    ``n``; the inverse of ``grid_state_from_numpy``."""
+    ``n`` and ``fgrp`` (a tuple of numpy grids); the inverse of
+    ``grid_state_from_numpy``."""
     out = {name: getattr(gs, name).detach().cpu().numpy() for name in STATE_FIELDS}
     out["n"] = gs.n
+    out["fgrp"] = tuple(a.detach().cpu().numpy() for a in gs.fgrp)
     return out
 
 

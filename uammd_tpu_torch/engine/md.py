@@ -41,6 +41,40 @@ def lj_g(epsilon: float = 1.0, sigma: float = 1.0) -> LJRadial:
     return LJRadial(epsilon, sigma)
 
 
+class LJFused:
+    """The LJ radial with the cutoff and clamp selects fused in, as
+    ``md.lj_g_fused`` of the JAX package writes it: with t = 1/max(r2, lo),
+    g = r2 < rc2 ? t^4 (c1 t^3 + c2) : 0, sigma folded into c1 and c2.
+
+    Called on a tensor it is the plain version and always takes the exact
+    reciprocal. The Newton pair kernel reads ``c1``, ``c2``, ``rc2`` and
+    ``lo`` and evaluates the same expression in its device function, with
+    ``rcp.approx.ftz.f32`` in place of the division when ``approx``."""
+
+    def __init__(self, epsilon=1.0, sigma=1.0, *, rc2, clamp_lo=4e-3, approx=False):
+        s6 = float(sigma) ** 6
+        self.c1 = float(np.float32(-48.0 * epsilon * s6 * s6))
+        self.c2 = float(np.float32(24.0 * epsilon * s6))
+        self.rc2 = float(np.float32(rc2))
+        self.lo = float(np.float32(clamp_lo))
+        self.approx = bool(approx)
+
+    def __call__(self, r2: torch.Tensor) -> torch.Tensor:
+        t = 1.0 / torch.clamp(r2, min=self.lo)
+        t2 = t * t
+        t3 = t2 * t
+        t4 = t2 * t2
+        return torch.where(r2 < self.rc2, t4 * (self.c1 * t3 + self.c2),
+                           torch.zeros((), dtype=r2.dtype, device=r2.device))
+
+
+def lj_g_fused(epsilon=1.0, sigma=1.0, *, rc2, clamp_lo=4e-3, approx=False) -> LJFused:
+    """Minimum-op LJ radial with the cutoff/clamp selects fused in (JAX
+    ``md.lj_g_fused``). ``approx`` selects the hardware approximate
+    reciprocal inside the CUDA kernel; the plain version is exact."""
+    return LJFused(epsilon, sigma, rc2=rc2, clamp_lo=clamp_lo, approx=approx)
+
+
 @dataclasses.dataclass(frozen=True)
 class GridMD:
     """Bound engine: spec + force kernel + integrator params + device."""

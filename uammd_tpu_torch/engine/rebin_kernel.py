@@ -18,6 +18,14 @@ and the number ranked past CAP. The caller latches overflow when
 
 On CUDA tensors the wrapper launches ``csrc/rebin.cu``; on CPU tensors it
 runs ``rebin_plain``.
+
+The v2 engine's straggler-aware rebin is the port of
+``make_separable_rebin`` with ``rebin_fast3``: three passes, z (absorbing
+the straggler list) then y then x, each pulling from the 3 neighbor cells
+along its axis at the wide capacity CAP + OCAP; ranks CAP .. CAP+OCAP-1 of
+the x pass form the overflow mini-grid that becomes the next straggler
+list. CUDA tensors launch ``csrc/sep_rebin.cu``, CPU tensors run
+``separable_rebin_plain``.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import ctypes
 import torch
 
 from . import _build
-from .layout import EMPTY_POS, GridSpec, GridState, recip32, stencil_sources
+from .layout import EMPTY_POS, OCAP, GridSpec, GridState, recip32, stencil_sources
 
 _F = ctypes.c_float
 _I = ctypes.c_int
@@ -161,6 +169,200 @@ def rebin_fast(gs: GridState) -> GridState:
         fx=out[6], fy=out[7], fz=out[8],
         pid=pid, ref_x=out[0], ref_y=out[1], ref_z=out[2],
         overflow=overflow,
+    )
+
+
+# uammd_sep_rebin(in, strag, wz, wy, out, mini, counts, Q, S, nx, nyb, nz, F,
+#                 cap, ocap, Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz, stream)
+SEP_REBIN = _build.Kernel("sep_rebin", "uammd_sep_rebin", [_P] * 7 + [_I] * 8 + [_F] * 6)
+
+
+def _sep_pass(spec: GridSpec, w: torch.Tensor, axis: int, depth: int, strag=None):
+    """One pass of the separable rebin, fixing cell axis ``axis`` (0 = x,
+    1 = y, 2 = z) from the 3 neighbor cells along it: candidates in the
+    order -1, 0, +1, source rows ascending, then (z pass) the stragglers,
+    claimed by their full cell. Returns (out [Q, nz, nyb, depth, NLANE],
+    placed count, overflow count)."""
+    n_q = w.shape[0]
+    nx, ny, nz = spec.shape
+    F, nlane, nyb = spec.fold, spec.nlane, spec.nyb
+    Ls = spec.box_size
+    dev = w.device
+    lane = torch.arange(nlane, device=dev)
+    my_c = (
+        (lane // F).to(torch.float32)[None, None, None, :],
+        (torch.arange(nyb, device=dev)[:, None] * F + lane[None, :] % F)
+        .to(torch.float32)[None, :, None, :],
+        torch.arange(nz, device=dev).to(torch.float32)[:, None, None, None],
+    )
+    ncell = (nx, ny, nz)
+    rows = torch.arange(w.shape[3], device=dev)[None, None, :, None]
+    out = torch.zeros((n_q, nz, nyb, depth, nlane), dtype=torch.float32, device=dev)
+    base = torch.zeros((nz, nyb, 1, nlane), dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    over = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def place(cand, valid):
+        nonlocal base, count, over
+        shape = valid.shape  # [nz, nyb, R, nlane]
+        v = valid.to(torch.int64)
+        rank = base + torch.cumsum(v, dim=2) - v
+        base = base + v.sum(dim=2, keepdim=True)
+        count = count + v.sum()
+        over = over + (valid & (rank >= depth)).sum()
+        put = valid & (rank < depth)
+        zd = torch.arange(nz, device=dev)[:, None, None, None].expand(shape)
+        yd = torch.arange(nyb, device=dev)[None, :, None, None].expand(shape)
+        ld = lane[None, None, None, :].expand(shape)
+        vals = torch.stack([c.expand(shape) + 0.0 for c in cand])
+        out[:, zd[put], yd[put], rank[put], ld[put]] = vals[:, put]
+
+    for k in (-1, 0, 1):
+        off = [0, 0, 0]
+        off[axis] = k  # (dx, dy, dz)
+        zs, ybs, ls, shifts = stencil_sources(spec, off[2], off[1], off[0], dev)
+        cand = list(w[:, zs, ybs, rows, ls])
+        p = _wrap_pos(cand[axis] + shifts[axis], Ls[axis])
+        cand[axis] = p
+        valid = (cand[n_q - 1] > 0.5) & (_dest_cell(p, Ls[axis], ncell[axis]) == my_c[axis])
+        place(cand, valid)
+    if strag is not None:
+        sc = [strag[q][None, None, :, None] for q in range(n_q)]
+        for d in range(3):
+            sc[d] = _wrap_pos(sc[d], Ls[d])
+        valid = sc[n_q - 1] > 0.5
+        for d in range(3):
+            valid = valid & (_dest_cell(sc[d], Ls[d], ncell[d]) == my_c[d])
+        place(sc, valid)
+    unfilled = torch.arange(depth, device=dev)[None, None, :, None] >= base
+    out[:3] = torch.where(unfilled, torch.full_like(out[:3], EMPTY_POS), out[:3])
+    return out, count, over
+
+
+def separable_rebin_plain(spec: GridSpec, stacked: torch.Tensor, strag: torch.Tensor,
+                          ocap: int = OCAP):
+    """Plain PyTorch version of the three-pass rebin: z (absorbing the
+    straggler list), then y, then x, each at the wide capacity CAP + ocap;
+    the x pass's ranks CAP .. CAP+ocap-1 form the overflow mini-grid.
+    ``stacked`` is [Q, nz, nyb, CAP, NLANE] (x, y, z first, pid+1 last),
+    ``strag`` the [Q, S] straggler rows. Returns (out, mini, count,
+    overflow): count is the x pass's placed particles, overflow the sum
+    over the passes of ranks past the capacity."""
+    cap = spec.cap
+    wide = cap + ocap
+    pad = torch.zeros(stacked.shape[:3] + (ocap, stacked.shape[4]),
+                      dtype=stacked.dtype, device=stacked.device)
+    pad[:3] = EMPTY_POS
+    wz, _, over_z = _sep_pass(spec, torch.cat([stacked, pad], dim=3), 2, wide, strag)
+    wy, _, over_y = _sep_pass(spec, wz, 1, wide)
+    wx, count, over_x = _sep_pass(spec, wy, 0, wide)
+    return (wx[:, :, :, :cap].contiguous(), wx[:, :, :, cap:].contiguous(), count,
+            over_z + over_y + over_x)
+
+
+class SeparableRebinKernel:
+    """``rebin(stacked [Q, nz, nyb, CAP, NLANE], strag [Q, S]) -> (out,
+    mini, count, overflow)`` for one ``GridSpec`` with ``n_strag > 0``.
+
+    CPU tensors go to ``separable_rebin_plain``; CUDA tensors launch the
+    three passes of ``csrc/sep_rebin.cu`` (one count in
+    ``SEP_REBIN.launches`` per call) or raise."""
+
+    def __init__(self, spec: GridSpec, ocap: int = OCAP):
+        if spec.n_strag <= 0:
+            raise ValueError("the separable rebin needs a straggler-capable spec")
+        self.spec = spec
+        self.ocap = ocap
+
+    def __call__(self, stacked: torch.Tensor, strag: torch.Tensor):
+        spec = self.spec
+        if stacked.dim() != 5 or stacked.shape[0] < 4:
+            raise ValueError("stacked must be [Q >= 4, nz, nyb, CAP, NLANE]")
+        n_q = stacked.shape[0]
+        shape = (n_q,) + spec.array_shape
+        sshape = (n_q, spec.n_strag)
+        if stacked.device.type == "cpu":
+            if (stacked.dtype != torch.float32 or tuple(stacked.shape) != shape
+                    or tuple(strag.shape) != sshape):
+                raise ValueError(f"stacked must be float32 {shape}, strag {sshape}")
+            return separable_rebin_plain(spec, stacked, strag, self.ocap)
+        _build.check_cuda_tensor(stacked, "stacked", shape)
+        strag = strag.contiguous()
+        _build.check_cuda_tensor(strag, "strag", sshape)
+        nx, _, nz = spec.shape
+        nyb, cap, nlane = spec.nyb, spec.cap, spec.nlane
+        wide = cap + self.ocap
+        dev = stacked.device
+        wz = torch.empty((n_q, nz, nyb, wide, nlane), dtype=torch.float32, device=dev)
+        wy = torch.empty_like(wz)
+        out = torch.empty_like(stacked)
+        mini = torch.empty((n_q, nz, nyb, self.ocap, nlane), dtype=torch.float32, device=dev)
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        Lx, Ly, Lz = spec.box_size
+        P = _build.ptr
+        SEP_REBIN(
+            P(stacked), P(strag), P(wz), P(wy), P(out), P(mini), P(counts),
+            n_q, spec.n_strag, nx, nyb, nz, spec.fold, cap, self.ocap,
+            Lx, Ly, Lz, recip32(Lx), recip32(Ly), recip32(Lz),
+        )
+        return out, mini, counts[0], counts[1]
+
+
+def make_separable_rebin(spec: GridSpec, ocap: int = OCAP) -> SeparableRebinKernel:
+    """Build the three-pass straggler-aware rebin for one spec."""
+    return SeparableRebinKernel(spec, ocap)
+
+
+def _compact_mini(mini: torch.Tensor, S: int):
+    """[Q, nz, nyb, OCAP, NLANE] overflow mini-grid -> the dense [S]
+    straggler rows: the occupied entries in flat index order, the first S
+    of them (JAX's ``top_k`` of the 0/1 mask returns ties in index order;
+    a cumsum rank gives that order without a host sync). Returns (spos
+    [S, 3], svel [S, 3], spid [S], occupied count)."""
+    n_q = mini.shape[0]
+    cols = mini.reshape(n_q, -1)
+    mask = cols[n_q - 1] > 0.5
+    count = mask.sum()
+    rank = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    take = mask & (rank < S)
+    # entries not taken all go to the dump row S, which is dropped
+    target = torch.where(take, rank, torch.full_like(rank, S))
+    dense = torch.zeros((n_q, S + 1), dtype=torch.float32, device=mini.device)
+    filled = torch.zeros(S + 1, dtype=torch.bool, device=mini.device)
+    dense[:, target] = cols
+    filled[target] = take
+    dense, filled = dense[:, :S], filled[:S]
+    spos = torch.stack([torch.where(filled, dense[d], EMPTY_POS) for d in range(3)], dim=-1)
+    svel = torch.stack([torch.where(filled, dense[3 + d], 0.0) for d in range(3)], dim=-1)
+    spid = torch.where(filled, dense[n_q - 1].to(torch.int32) - 1, -1)
+    return spos, svel, spid.to(torch.int32), count
+
+
+def rebin_fast3(gs: GridState) -> GridState:
+    """Straggler-aware rebin through the separable kernel: re-absorbs the
+    straggler list into cells, emits the new overflow set as the next
+    straggler list and drops forces (the v2 engine recomputes them right
+    after). Latches overflow on any rank past a capacity, a particle lost
+    (moved more than one cell) or more than S stragglers."""
+    spec = gs.spec
+    S = spec.n_strag
+    stacked = torch.stack([gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz,
+                           (gs.pid + 1).to(torch.float32)])
+    strag = torch.stack([gs.spos[:, 0], gs.spos[:, 1], gs.spos[:, 2],
+                         gs.svel[:, 0], gs.svel[:, 1], gs.svel[:, 2],
+                         (gs.spid + 1).to(torch.float32)])
+    out, mini, count, ovf = SeparableRebinKernel(spec)(stacked, strag)
+    pid = out[6].to(torch.int32) - 1
+    spos, svel, spid, s_count = _compact_mini(mini, S)
+    overflow = gs.overflow | (ovf > 0) | (count != gs.n) | (s_count > S)
+    zero = torch.zeros_like(gs.fx)
+    return gs.replace(
+        x=out[0], y=out[1], z=out[2],
+        vx=out[3], vy=out[4], vz=out[5],
+        fx=zero, fy=zero, fz=zero,
+        pid=pid, ref_x=out[0], ref_y=out[1], ref_z=out[2],
+        overflow=overflow,
+        spos=spos, svel=svel, sforce=torch.zeros_like(gs.sforce), spid=spid,
     )
 
 

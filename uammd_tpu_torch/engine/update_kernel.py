@@ -1,0 +1,256 @@
+"""Fused reaction fold + Gronbech-Jensen Langevin update with in-kernel noise.
+
+Port of ``uammd_tpu/engine/update_kernel.py:make_gj_fold_update_kernel``.
+One elementwise pass per step: fold the Newton pair kernel's reaction
+groups into the home force, complete the deferred half kick
+(v = w + (dt/2m) f), apply the G-J update (reference:
+src/Integrator/VerletNVT/GronbechJensen.cu:20-62), write x, y, z and the new
+pre-half-kick velocity w, and return the largest infinity-norm drift since
+the last rebin.
+
+Noise. The JAX kernel draws from the TPU's hardware PRNG, a stream nothing
+else reproduces. The port draws from a counter-based hash instead,
+Philox-4x32-10 (the reference's idiom, third_party/saruprng.cuh), keyed by
+the step seed (``GridState.step``) and counted by the global slot index, so
+the CUDA kernel and the plain version draw the same numbers: the plain
+version computes the hash in int64 torch arithmetic with masks. Two
+generators, as in the JAX package: ``"clt"`` (variance-exact sums of four
+16-bit uniforms, bounded at 2 sqrt(3) sigma) and ``"bm"`` (Box-Muller on
+mantissa-trick uniforms in (0, 1]).
+
+The straggler rows of the v2 engine get the same update in the same call
+(the JAX engine runs it as separate jnp ops, md2.py:190-213), with the
+counter hash's stream 1 under the same seed; a step then launches no
+per-row noise arithmetic of its own.
+
+On CUDA tensors the wrapper launches ``csrc/gj_fold_update.cu``; on CPU
+tensors it runs ``gj_fold_update_plain``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from . import _build
+from .kernel2 import fold_reactions_plain
+from .layout import GridSpec
+
+_F = ctypes.c_float
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+
+TWO_PI = float(np.float32(2.0 * math.pi))
+NOISES = ("clt", "bm")
+
+# uammd_gj_fold_update(ins[24], outs[6], seed, drift_bits, strag_ins[4],
+#                      strag_outs[2], n, S, nz, nyb, plane, noisy, noise, hv,
+#                      bdt, c_x, dt, a, hva, bm, scale, stream)
+GJ_FOLD_UPDATE = _build.Kernel(
+    "gj_fold_update", "uammd_gj_fold_update",
+    [_PP, _PP, _P, _P, _PP, _PP] + [_I] * 7 + [_F] * 8)
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, a: torch.Tensor):
+    """(hi, lo) 32-bit halves of m * a for uint32 values held in int64,
+    through 16-bit halves of ``a`` so that no product passes 2^63."""
+    p_lo = m * (a & 0xFFFF)
+    p_hi = m * (a >> 16)
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)
+    return ((p_hi >> 16) + (mid >> 32)) & _MASK32, mid & _MASK32
+
+
+def philox4x32(counter, key):
+    """Philox-4x32-10 of the counter words ``counter`` (4 int64 tensors or
+    ints, uint32 values) under ``key`` (2 of the same); returns 4 int64
+    tensors of uint32 values. Mirrors the device function in
+    ``csrc/gj_fold_update.cu``."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) & _MASK32 for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) & _MASK32 for k in key)
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK32
+            k1 = (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def counter_bits(seed, index: torch.Tensor, stream: int = 0):
+    """Eight uint32 words (int64 tensors shaped like ``index``) for each
+    counter ``index`` under ``seed``: Philox with counters (index, 0,
+    stream, 0) and (index, 1, stream, 0), key (seed, 0). The update kernel
+    uses stream 0 over the grid slots; the straggler update stream 1."""
+    seed = torch.as_tensor(seed, dtype=torch.int64, device=index.device)
+    words = []
+    for j in (0, 1):
+        words += philox4x32((index, j, stream, 0), (seed, 0))
+    return words
+
+
+def normals(words, noise: str, amp: float):
+    """Three pseudo-normal fields of standard deviation ``amp`` (float32)
+    from the counter words, with the JAX package's generators."""
+    if noise == "clt":
+        scale = float(np.float32(amp) * np.float32(math.sqrt(3.0) / 65536.0))
+        u = []
+        for d in words[:6]:
+            u += [(d & 0xFFFF).to(torch.float32), ((d >> 16) & 0xFFFF).to(torch.float32)]
+        return tuple(scale * ((u[4 * k] + u[4 * k + 1]) - (u[4 * k + 2] + u[4 * k + 3]))
+                     for k in range(3))
+    if noise == "bm":
+        # (0, 1] uniforms: 1 - (top 23 bits) * 2^-23, exact in float32
+        u1, u2, u3, u4 = (1.0 - (d >> 9).to(torch.float32) * 2.0 ** -23 for d in words[:4])
+        r1 = torch.sqrt(-2.0 * torch.log(u1))
+        r2 = torch.sqrt(-2.0 * torch.log(u3))
+        a = float(np.float32(amp))
+        return (a * (r1 * torch.cos(TWO_PI * u2)),
+                a * (r1 * torch.sin(TWO_PI * u2)),
+                a * (r2 * torch.cos(TWO_PI * u4)))
+    raise ValueError(f"noise must be one of {NOISES}, got {noise!r}")
+
+
+class GJCoefficients:
+    """The update's float32 coefficients, formed as the JAX kernel forms
+    them (update_kernel.py:224-235) and held as Python floats."""
+
+    def __init__(self, dt, temperature, friction, mass):
+        dt_ = np.float32(dt)
+        m_ = np.float32(mass)
+        hv = np.float32(0.5 * dt / mass)
+        gdt = 0.5 * friction * dt
+        b = np.float32(1.0 / (1.0 + gdt))
+        a = np.float32((1.0 - gdt) * b)
+        c_x = np.float32(0.5 * b * dt / mass)
+        self.noisy = temperature > 0
+        self.amp = float(np.float32(
+            math.sqrt(2.0 * temperature * friction * mass * dt) if self.noisy else 0.0))
+        self.dt = float(dt_)
+        self.hv = float(hv)
+        self.a = float(a)
+        self.c_x = float(c_x)
+        self.bdt = float(b * dt_)
+        self.hva = float(hv * a)
+        self.bm = float(b / m_)
+
+
+def _gj(coef: GJCoefficients, p, w, f, n_, mask):
+    """One component of the update: (p', w') from position, pre-half-kick
+    velocity, folded force, noise and the occupied mask, with the JAX
+    kernel's grouping (update_kernel.py:258-269)."""
+    v = w + coef.hv * f
+    return (p + mask * (coef.bdt * v + coef.c_x * (coef.dt * f + n_)),
+            mask * (coef.a * v + coef.hva * f + coef.bm * n_))
+
+
+def _noise(coef: GJCoefficients, noise: str, seed, count: int, device, stream: int):
+    if not coef.noisy:
+        z = torch.zeros(count, dtype=torch.float32, device=device)
+        return z, z, z
+    index = torch.arange(count, dtype=torch.int64, device=device)
+    return normals(counter_bits(seed, index, stream), noise, coef.amp)
+
+
+def gj_fold_update_plain(spec: GridSpec, coef: GJCoefficients, noise: str,
+                         x, y, z, wx, wy, wz, hfx, hfy, hfz, groups, rx, ry, rz, seed,
+                         strag=None):
+    """Plain version of the fused kernel: ``fold_reactions_plain`` of the
+    home force and the 12 group grids (``groups`` flat, REACTION_GROUPS x
+    (x, y, z)), then the update with counter noise keyed by ``seed`` (an
+    int or a 0-d tensor). Returns ((x', y', z', wx', wy', wz'), drift), and
+    with ``strag = (spos, svel, sforce, spid)`` also the stragglers'
+    (spos', svel'), updated with noise stream 1."""
+    grp = [tuple(groups[3 * i: 3 * i + 3]) for i in range(4)]
+    fx, fy, fz = fold_reactions_plain((hfx, hfy, hfz), grp)
+    mask = (x < 1.0e8).to(torch.float32)
+    noise_fields = _noise(coef, noise, seed, spec.n_slots, x.device, 0)
+    out = [_gj(coef, p, w, f, n_.reshape(x.shape), mask) for p, w, f, n_ in
+           zip((x, y, z), (wx, wy, wz), (fx, fy, fz), noise_fields)]
+    (xo, wxo), (yo, wyo), (zo, wzo) = out
+    dinf = mask * torch.maximum(torch.abs(xo - rx),
+                                torch.maximum(torch.abs(yo - ry), torch.abs(zo - rz)))
+    grid = ((xo, yo, zo, wxo, wyo, wzo), dinf.max())
+    if strag is None:
+        return grid
+    spos, svel, sforce, spid = strag
+    smask = (spid >= 0).to(torch.float32)
+    sn = _noise(coef, noise, seed, spid.shape[0], x.device, 1)
+    sout = [_gj(coef, spos[:, c], svel[:, c], sforce[:, c], sn[c], smask) for c in range(3)]
+    return grid + ((torch.stack([o[0] for o in sout], dim=-1),
+                    torch.stack([o[1] for o in sout], dim=-1)),)
+
+
+class GJFoldUpdateKernel:
+    """``update(x, y, z, wx, wy, wz, hfx, hfy, hfz, groups12, rx, ry, rz,
+    seed[, strag]) -> ((x', y', z', wx', wy', wz'), drift[, (spos',
+    svel')])`` for one ``GridSpec``; ``seed`` is the 0-d int32
+    ``GridState.step`` (read on the device by the kernel), ``drift`` a 0-d
+    float32 tensor and ``strag`` the straggler rows (spos, svel, sforce
+    [S, 3] float32, spid [S] int32).
+
+    CPU tensors go to ``gj_fold_update_plain``; CUDA tensors launch
+    ``csrc/gj_fold_update.cu`` (counted in ``GJ_FOLD_UPDATE.launches``) or
+    raise."""
+
+    def __init__(self, spec: GridSpec, dt, temperature, friction, mass, *, noise="bm"):
+        if noise not in NOISES:
+            raise ValueError(f"noise must be one of {NOISES}, got {noise!r}")
+        self.spec = spec
+        self.noise = noise
+        self.coef = GJCoefficients(dt, temperature, friction, mass)
+
+    def __call__(self, x, y, z, wx, wy, wz, hfx, hfy, hfz, groups, rx, ry, rz, seed,
+                 strag=None):
+        spec = self.spec
+        shape = spec.array_shape
+        grids = [x, y, z, wx, wy, wz, hfx, hfy, hfz, *groups, rx, ry, rz]
+        if len(grids) != 24:
+            raise ValueError("update takes 12 reaction-group grids")
+        if x.device.type == "cpu":
+            for t in grids:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+                    raise ValueError(f"update inputs must be float32 CPU tensors of shape {shape}")
+            return gj_fold_update_plain(spec, self.coef, self.noise, x, y, z, wx, wy, wz,
+                                        hfx, hfy, hfz, groups, rx, ry, rz, seed, strag)
+        for k, t in enumerate(grids):
+            _build.check_cuda_tensor(t, f"update input {k}", shape)
+        _build.check_cuda_tensor(seed, "seed", (), dtype=torch.int32)
+        dev = x.device
+        out = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
+        drift_bits = torch.zeros(1, dtype=torch.int32, device=dev)
+        S = 0 if strag is None else strag[3].shape[0]
+        if S:
+            for name, t in zip(("spos", "svel", "sforce"), strag[:3]):
+                _build.check_cuda_tensor(t, name, (S, 3))
+            _build.check_cuda_tensor(strag[3], "spid", (S,), dtype=torch.int32)
+        sout = torch.empty((2, S, 3), dtype=torch.float32, device=dev)
+        sins = (_P * 4)(*((t.data_ptr() for t in strag) if S else (0,) * 4))
+        c = self.coef
+        scale = (float(np.float32(c.amp) * np.float32(math.sqrt(3.0) / 65536.0))
+                 if self.noise == "clt" else c.amp)
+        nz, nyb, cap, nlane = shape
+        GJ_FOLD_UPDATE(
+            (_P * 24)(*(t.data_ptr() for t in grids)),
+            (_P * 6)(*(o.data_ptr() for o in out)),
+            _build.ptr(seed), _build.ptr(drift_bits),
+            sins, (_P * 2)(sout[0].data_ptr(), sout[1].data_ptr()),
+            spec.n_slots, S, nz, nyb, cap * nlane, int(c.noisy), NOISES.index(self.noise),
+            c.hv, c.bdt, c.c_x, c.dt, c.a, c.hva, c.bm, scale,
+        )
+        grid = (tuple(out[k] for k in range(6)), drift_bits.view(torch.float32)[0])
+        return grid if strag is None else grid + ((sout[0], sout[1]),)
+
+
+def make_gj_fold_update_kernel(spec: GridSpec, dt, temperature, friction, mass, *,
+                               noise: str = "bm") -> GJFoldUpdateKernel:
+    """Build the fused fold + G-J update for one spec and parameter set."""
+    return GJFoldUpdateKernel(spec, dt, temperature, friction, mass, noise=noise)
