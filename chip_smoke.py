@@ -33,7 +33,17 @@ Imports nothing of JAX or of the JAX package. Phases:
      logf/sinf/cosf against PyTorch's);
    - separable rebin after a displacement with stragglers present:
      ``out``, ``mini``, count and overflow exactly equal; a crammed state
-     latches overflow through ``rebin_fast3``.
+     latches overflow through ``rebin_fast3``;
+   - pencil spread and interpolation (kernels #13/#14 of the BDHI-FCM
+     path): max|d| <= ``PENCIL_TOL`` x max|ref| at n 5000, L 24, 32^3 for
+     the Gaussian, Peskin 3- and 4-point and ES/BM windows, slack 0 and 1,
+     and on the FCM path's first state (131072 particles, 384^3, support
+     14, slack 1). Two controls must fail that bound by 100x: the spread
+     with one particle's values dropped and the interpolation of a field
+     shifted by one node. ``FCM.grid_velocity`` and ``interpolate_auto``
+     must go through the same kernels (one launch each) and agree with
+     the plain versions at n 4200, 48^3. The fcc start on the 384^3 grid
+     must overflow the pencil cap and NaN-poison the mobility.
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -42,13 +52,24 @@ Imports nothing of JAX or of the JAX package. Phases:
    - v2 (the engine bench.py times): ``make_lj_md2`` on the melted
      positions at dt 0.01 with n_strag 16, noise "clt" and the fast
      reciprocal: 100 settle and 200 timed steps.
+   - BDHI-FCM (``main_path_fcm``): bench.py:117-118's suspension (N =
+     131072, volume fraction 0.05, radius 1) from uniform random positions
+     under gravity, ``fcm_em`` over the FCM mobility at h = a sqrt(pi)/3
+     (384^3, Gaussian support 14, slack 1), dt 0.01, T 1: 20 warm-up and
+     100 timed steps.
    Every kernel launch count is set to 0 just before each path and read
-   just after it. Each path requires no overflow, all particles kept (grid
-   plus stragglers), T within 20 % of 1.5, and every kernel of the path
-   launched (the per-step kernels at least once per step).
+   just after it. Each LJ path requires no overflow, all particles kept
+   (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
+   path launched (the per-step kernels at least once per step). The FCM
+   path requires no pencil overflow, finite positions, both pencil kernels
+   launched at least once per timed step, the self-mobility through the
+   kernels with the path's bins within 1e-3 of Hashimoto's, the noise of
+   two ``compute_mf_bdw`` draws differing by 2 (2T/dt) m_self per axis
+   within 2 % (averaged over ``FDT_PAIRS`` pairs), and the mean settling
+   velocity within 10 % of m_self |g|.
 4. Time each kernel and its plain version (CUDA events, after warm-up) at
    its path's final shapes, check them against each other once more there,
-   print the v2 step's breakdown and the kernels' JSON line.
+   print the v2 and FCM steps' breakdowns and the kernels' JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -95,6 +116,26 @@ PEAK_HBM_BYTES = 3.35e12
 # 8 mul/add), g * d (3) and the sums into both particles (6).
 OPS_PAIR_TEST = 8
 OPS_PAIR_FORCE = 19
+
+
+# The BDHI-FCM path: bench.py:117-118's colloidal suspension (N = 131072,
+# volume fraction 0.05, radius 1) under gravity, with the FCM mobility at
+# h = a sqrt(pi) / 3 (a 384^3 grid, Gaussian support 14) and fcm_em's
+# persistent pencil bins (slack 1).
+FCM_N = 131072
+FCM_PHI = 0.05
+FCM_L = (FCM_N * (4.0 / 3.0) * math.pi / FCM_PHI) ** (1.0 / 3.0)
+FCM_PPR = 3.0 / math.sqrt(math.pi)
+FCM_DT, FCM_T, FCM_G = 0.01, 1.0, 1.0
+FCM_WARM, FCM_TIMED = 20, 100
+FDT_PAIRS = 4
+# Pencil kernels against their plain versions: max|d| <= PENCIL_TOL x
+# max|ref|. Both sum float32 products in another order (atomics in the
+# spread), and the largest difference over the 1.7e8 outputs of the 384^3
+# field is an extreme of many: 5.7e-6 for the spread and 2.7e-6 for the
+# interpolation on the path's first state, 6.2e-7 at 32^3 (a first chip
+# run; the phase also prints both against float64 plain versions).
+PENCIL_TOL = 2e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -395,6 +436,379 @@ def gates(engine, gs, what: str, n_steps: int, launches: dict, per_step, at_leas
     return n_kept, t_meas
 
 
+# ---------------------------------------------------------------- BDHI-FCM
+def rel_err(test, ref) -> float:
+    return float((test - ref).abs().max() / ref.abs().max())
+
+
+def pencil_kernels():
+    """The four window functions as the pencil kernels take them: the
+    test_pencil_ibm.py:210 Gaussian, Peskin 3- and 4-point, and FCM's
+    normalised ES/BM at its default support 6."""
+    from uammd_tpu_torch.integrators.bdhi.fcm import _NormalizedBM
+    from uammd_tpu_torch.solvers import ibm
+
+    return {"gaussian": ibm.GaussianKernel(sigma=1.1, support=8), "peskin3": ibm.Peskin3pt(),
+            "peskin4": ibm.Peskin4pt(), "bm": _NormalizedBM(beta=1.3267 * 6, support=6)}
+
+
+def check_pencil(kern, pos, vals, shape, b, bins, slack: int, what: str):
+    """Kernels #13 and #14 against their plain versions (the interpolation
+    of the plain spread field); both within PENCIL_TOL x max|ref|. Returns
+    (spread err, interp err, plain field, plain values)."""
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    f_p, _ = tp.spread_pencil_fused_plain(kern, pos, vals, shape, b, bins, slack=slack)
+    f_k, _ = tp.spread_pencil_fused(kern, pos, vals, shape, b, bins, slack=slack)
+    v_p, _ = tp.interpolate_pencil_fused_plain(kern, pos, f_p, b, bins, slack=slack)
+    v_k, _ = tp.interpolate_pencil_fused(kern, pos, f_p, b, bins, slack=slack)
+    errs = (rel_err(f_k, f_p), rel_err(v_k, v_p))
+    check(all(math.isfinite(e) and e <= PENCIL_TOL for e in errs),
+          f"{what}: pencil spread / interp vs plain, max|d|/max|ref| = "
+          f"{errs[0]:.3g} / {errs[1]:.3g} <= {PENCIL_TOL}")
+    return errs[0], errs[1], f_p, v_p
+
+
+def check_pencil_controls(kern, pos, vals, shape, b, bins, slack, f_p, v_p, what: str):
+    """Outputs a wrong kernel would give must fail check_pencil's bound by
+    a wide margin: the spread with particle 0's values dropped, and the
+    interpolation read from a field shifted by one node along x."""
+    import torch
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    dropped = vals.clone()
+    dropped[0] = 0.0
+    f_d, _ = tp.spread_pencil_fused(kern, pos, dropped, shape, b, bins, slack=slack)
+    v_s, _ = tp.interpolate_pencil_fused(kern, pos, torch.roll(f_p, 1, dims=0), b, bins,
+                                         slack=slack)
+    errs = {"spread_one_particle_dropped": rel_err(f_d, f_p),
+            "interp_field_shifted_one_node": rel_err(v_s, v_p)}
+    for k, v in errs.items():
+        check(v > 100 * PENCIL_TOL, f"{what}: control '{k}' fails the pencil check "
+                                    f"({v:.3g} > {100 * PENCIL_TOL})")
+    return errs
+
+
+def check_auto_dispatch(dev):
+    """``FCM.grid_velocity`` and ``interpolate_auto`` take the pencil path
+    through kernels #13/#14 (one launch each) and agree with their plain
+    versions within PENCIL_TOL x max|ref|, at tests/test_bdhi.py:187's
+    system (n 4200, L 40, points_per_radius 1.2, support 8)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.integrators.bdhi.fcm import FCM
+    from uammd_tpu_torch.solvers import ibm
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    rng = np.random.default_rng(9)
+    L = 40.0
+    pos = torch.tensor((rng.random((4200, 3)) - 0.5) * L, dtype=torch.float32, device=dev)
+    f = torch.tensor(rng.normal(size=(4200, 3)), dtype=torch.float32, device=dev)
+    fcm = FCM.create(box(L, device=dev), viscosity=1.0, radius=1.0, points_per_radius=1.2,
+                     support=8)
+    n0, n1 = tp.SPREAD.launches, tp.INTERP.launches
+    u_k, kern = fcm.grid_velocity(pos, f)
+    v_k = ibm.interpolate_auto(kern, pos, u_k, fcm.box)
+    launched = (tp.SPREAD.launches - n0, tp.INTERP.launches - n1)
+    bins = tp.bin_pencils(pos, fcm.shape, fcm.box)
+    field, _ = tp.spread_pencil_fused_plain(kern, pos, f, fcm.shape, fcm.box, bins)
+    u_p = fcm._irfftn(fcm._mobility_k(torch.fft.rfftn(field, dim=(0, 1, 2)), pos))
+    v_p, _ = tp.interpolate_pencil_fused_plain(kern, pos, u_k, fcm.box, bins)
+    errs = {"grid_velocity": rel_err(u_k, u_p), "interpolate_auto": rel_err(v_k, v_p)}
+    check(launched == (1, 1), f"auto dispatch: grid_velocity and interpolate_auto launched "
+                              f"the spread / interp kernels {launched} times, want (1, 1)")
+    check(all(math.isfinite(e) and e <= PENCIL_TOL for e in errs.values()),
+          f"auto dispatch vs plain, max|d|/max|ref| = {errs} <= {PENCIL_TOL}")
+    return errs
+
+
+def fcm_setup(dev, seed: int):
+    """The path's box, FCM and uniform random start (numpy, from ``seed``)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.integrators.bdhi.fcm import FCM
+
+    b = box(FCM_L, device=dev)
+    fcm = FCM.create(b, viscosity=1.0, radius=1.0, points_per_radius=FCM_PPR)
+    pos = (np.random.default_rng(seed).random((FCM_N, 3)) - 0.5) * FCM_L
+    return b, fcm, torch.tensor(pos, dtype=torch.float32, device=dev)
+
+
+def hashimoto_mobility() -> float:
+    """Periodic self-mobility of one sphere, Hashimoto's series
+    (tests/test_bdhi.py:67), at viscosity 1 and radius 1."""
+    m0 = 1.0 / (6.0 * math.pi)
+    return m0 * (1.0 - 2.83729748 / FCM_L + (4.0 * math.pi / 3.0) / FCM_L**3)
+
+
+def fcm_kernel_checks(dev):
+    """Phase 2b: kernels #13/#14 against their plain versions at n 5000,
+    L 24, 32^3 for the four window functions and slack 0 and 1, with the
+    two controls; through the auto dispatch (``check_auto_dispatch``); then
+    at full size on the path's first state (with
+    float64 plain versions as a yardstick of both); then the fcc control."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    rng = np.random.default_rng(5)
+    n, L, shape = 5000, 24.0, (32, 32, 32)
+    b = box(L, device=dev)
+    pos0 = torch.tensor((rng.random((n, 3)) - 0.5) * L, dtype=torch.float32, device=dev)
+    vals = torch.tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+    bins = tp.bin_pencils(pos0, shape, b)
+    # with slack 1 the particles move by up to 0.99 h in x and y (and 3 h
+    # in z) after binning: the persistent-bin contract of fcm_em
+    h = L / shape[0]
+    moved = pos0 + torch.tensor(rng.uniform(-0.99, 0.99, (n, 3)) * [h, h, 3 * h],
+                                dtype=torch.float32, device=dev)
+    small, controls = {}, {}
+    for name, kern in pencil_kernels().items():
+        for slack, pos in ((0, pos0), (1, moved)):
+            what = f"n 5000 32^3 {name} slack {slack}"
+            es, ei, f_p, v_p = check_pencil(kern, pos, vals, shape, b, bins, slack, what)
+            small[f"{name}_slack{slack}"] = [es, ei]
+            if name == "gaussian":
+                controls[f"slack{slack}"] = check_pencil_controls(
+                    kern, pos, vals, shape, b, bins, slack, f_p, v_p, what)
+
+    auto = check_auto_dispatch(dev)
+
+    bf, fcm, pos = fcm_setup(dev, seed=0)
+    kern = fcm._kernel()
+    bins = fcm.pencil_bins(pos, slack=1)
+    check(not bool(bins.overflow), "FCM first state: no pencil overflow")
+    f = torch.tensor(rng.normal(size=(FCM_N, 3)), dtype=torch.float32, device=dev)
+    es, ei, f_p, v_p = check_pencil(kern, pos, f, fcm.shape, bf, bins, 1, "FCM first state")
+    full_controls = check_pencil_controls(kern, pos, f, fcm.shape, bf, bins, 1, f_p, v_p,
+                                          "FCM first state")
+    f_k, _ = tp.spread_pencil_fused(kern, pos, f, fcm.shape, bf, bins, slack=1)
+    v_k, _ = tp.interpolate_pencil_fused(kern, pos, f_p, bf, bins, slack=1)
+    spread_abs = float((f_k - f_p).abs().max())
+    interp_abs = float((v_k - v_p).abs().max())
+    b64 = box(FCM_L, dtype=torch.float64, device=dev)
+    p64 = pos.double()
+    f_64, _ = tp.spread_pencil_fused_plain(kern, p64, f.double(), fcm.shape, b64, bins, slack=1)
+    v_64, _ = tp.interpolate_pencil_fused_plain(kern, p64, f_p.double(), b64, bins, slack=1)
+    vs_f64 = {"spread_kernel": rel_err(f_k.double(), f_64),
+              "spread_plain": rel_err(f_p.double(), f_64),
+              "interp_kernel": rel_err(v_k.double(), v_64),
+              "interp_plain": rel_err(v_p.double(), v_64)}
+    del f_p, f_k, f_64, v_64, p64
+
+    # the fcc start overflows the pencil cap on this grid: the result is
+    # NaN-poisoned, never silently short of particles
+    pos_fcc = torch.tensor(lattice(FCM_N, FCM_L, "fcc"), dtype=torch.float32, device=dev)
+    bins_fcc = fcm.pencil_bins(pos_fcc, slack=1)
+    occ_fcc = int(torch.bincount(tp.pencil_of(pos_fcc, fcm.shape, bf)).max())
+    fcc_mf = fcm.compute_mf(pos_fcc, torch.ones_like(pos_fcc), bins=bins_fcc, slack=1)
+    check(bool(bins_fcc.overflow), "fcc control: the pencil bins latch overflow")
+    check(bool(fcc_mf.isnan().all()), "fcc control: the mobility is NaN-poisoned")
+    out = {"phase": "fcm_kernels_vs_plain", "ok": True, "tol": PENCIL_TOL,
+           "small_spread_interp_rel_err": small, "small_controls": controls,
+           "auto_dispatch_rel_err": auto,
+           "full": {"shape": list(fcm.shape), "support": fcm.support,
+                    "cap": bins.pids.shape[1],
+                    "max_pencil_load": int(torch.bincount(tp.pencil_of(pos, fcm.shape, bf)).max()),
+                    "spread_rel_err": es, "interp_rel_err": ei, "controls": full_controls,
+                    "rel_err_vs_float64_plain": vs_f64},
+           "fcc_control": {"overflow": True, "max_pencil_load": occ_fcc,
+                           "cap": bins_fcc.pids.shape[1], "mobility_all_nan": True}}
+    print(json.dumps(out), flush=True)
+    return {"pencil_spread": spread_abs, "pencil_interp": interp_abs}
+
+
+def fcm_main_path(dev, counted):
+    """Phase 3c: fcm_em with gravity on the 131072-particle suspension,
+    FCM_WARM + FCM_TIMED steps, with the launch counts of ``counted`` set
+    to 0 just before and read just after; then the gates."""
+    import torch
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.integrators.bdhi.euler_maruyama import fcm_em
+    from uammd_tpu_torch.interactors.external import external_forces, gravity
+
+    b, fcm, pos = fcm_setup(dev, seed=1)
+    energy_fn, force_fn = gravity((0.0, 0.0, -FCM_G))
+
+    def forces(state, aux):
+        return external_forces(state, energy_fn, force_fn), aux
+
+    for k in counted.values():
+        k.launches = 0
+    integ = fcm_em(forces, fcm, dt=FCM_DT, temperature=FCM_T, slack=1)
+    state, aux = integ.init(make_state(pos, seed=1, device=dev), None)
+    overflows, rebins = [aux[0].overflow], 0
+    for _ in range(FCM_WARM):
+        state, aux = integ.step(state, aux)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in counted.items()}
+    z0 = state.pos[:, 2].clone()
+    t0 = time.perf_counter()
+    for _ in range(FCM_TIMED):
+        prev = aux[0]
+        state, aux = integ.step(state, aux)
+        if aux[0] is not prev:
+            rebins += 1
+            overflows.append(aux[0].overflow)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    timed = {k: launches[k] - before[k] for k in counted}
+    bins = aux[0]
+
+    m_self = hashimoto_mobility()
+    check(not bool(torch.stack(overflows).any()), "FCM path: no pencil overflow")
+    check(bool(state.pos.isfinite().all()), "FCM path: all positions finite")
+    for k in counted:
+        check(timed[k] >= FCM_TIMED, f"FCM path: {k} launched {timed[k]} >= {FCM_TIMED} "
+                                     f"times in the timed steps")
+    v_settle = -float((state.pos[:, 2] - z0).mean()) / (FCM_TIMED * FCM_DT)
+    settle_ratio = v_settle / (m_self * FCM_G)
+    check(abs(settle_ratio - 1.0) < 0.1,
+          f"FCM path: mean settling velocity {v_settle:.5g} within 10 % of m_self |g| "
+          f"= {m_self * FCM_G:.5g} (ratio {settle_ratio:.4f})")
+    # self-mobility through the kernels, with the path's own bins
+    e = torch.zeros_like(state.pos)
+    e[0, 0] = 1.0
+    v0 = fcm.compute_mf(state.pos, e, bins=bins, slack=1)
+    hashimoto_err = float(v0[0, 0]) / m_self - 1.0
+    check(abs(hashimoto_err) < 1e-3,
+          f"FCM path: self-mobility {float(v0[0, 0]):.7g} within 1e-3 of Hashimoto "
+          f"{m_self:.7g} ({hashimoto_err:.3g})")
+    # fluctuation-dissipation: two noise draws with the same forces differ by
+    # amp^2 * 2 * M_ii per axis, amp^2 = 2 T / dt. Hydrodynamic correlations
+    # leave about N/4 independent samples in one pair (a 2 % spread per axis,
+    # measured at N = 16384 on a CPU), so FDT_PAIRS pairs are averaged.
+    amp = math.sqrt(2.0 * FCM_T / FCM_DT)
+    f = state.force
+    msq = torch.zeros(3, dtype=torch.float64, device=dev)
+    for _ in range(FDT_PAIRS):
+        d = (fcm.compute_mf_bdw(state.pos, f, state.gen, amp, bins=bins, slack=1)
+             - fcm.compute_mf_bdw(state.pos, f, state.gen, amp, bins=bins, slack=1))
+        msq += (d.double() ** 2).mean(0)
+    msq = [float(x) / FDT_PAIRS for x in msq]
+    want = 2.0 * amp * amp * m_self
+    fdt = [m / want - 1.0 for m in msq]
+    check(all(abs(x) < 0.02 for x in fdt),
+          f"FCM path: noise mean square per axis {msq} ({FDT_PAIRS} pairs) within 2 % of "
+          f"{want:.6g}")
+    ms = 1e3 * timed_s / FCM_TIMED
+    out = {"phase": "main_path_fcm", "n": FCM_N, "box": FCM_L, "volume_fraction": FCM_PHI,
+           "shape": list(fcm.shape), "support": fcm.support, "cap": bins.pids.shape[1],
+           "dt": FCM_DT, "temperature": FCM_T, "slack": 1, "warmup_steps": FCM_WARM,
+           "timed_steps": FCM_TIMED, "timed_seconds": timed_s, "ms_per_step": ms,
+           "particle_steps_per_s": FCM_N * FCM_TIMED / timed_s, "rebins_timed": rebins,
+           "overflow": False, "launches": launches, "timed_launches": timed,
+           "settling_velocity": v_settle, "settling_over_m_self_g": settle_ratio,
+           "self_mobility": float(v0[0, 0]), "hashimoto": m_self,
+           "hashimoto_rel_err": hashimoto_err, "noise_msq_per_axis": msq,
+           "noise_msq_want": want, "fdt_rel_err": fdt, "fdt_pairs": FDT_PAIRS,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(out), flush=True)
+    return {"fcm": fcm, "box": b, "state": state, "bins": bins, "ms": ms,
+            "rebins_per_step": rebins / FCM_TIMED, "launches": launches}
+
+
+def fcm_breakdown(path, card, errs):
+    """Phase 4b: each part of the FCM step timed alone at the path's final
+    state (CUDA events), times its calls per step; and the pencil kernels'
+    rows of the kernels line."""
+    import torch
+    from uammd_tpu_torch.integrators.bdhi.fcm import _sample_white_rfft
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+    from uammd_tpu_torch.solvers.ibm import _poison
+
+    fcm, b, state, bins = path["fcm"], path["box"], path["state"], path["bins"]
+    pos, f, shape = state.pos, state.force, fcm.shape
+    kern = fcm._kernel()
+    amp = math.sqrt(2.0 * FCM_T / FCM_DT)
+    field, _ = tp.spread_pencil_fused(kern, pos, f, shape, b, bins, slack=1)
+    fk = torch.fft.rfftn(field, dim=(0, 1, 2))
+    uk = fcm._kspace_combine(fk.clone(), _sample_white_rfft(state.gen, shape, fcm.dV,
+                                                            torch.float32, pos.device), amp, pos)
+    u = torch.fft.irfftn(uk, s=shape, dim=(0, 1, 2))
+    Ls = fcm.box_size
+
+    ref = pos + 0.1
+
+    def drift_read():  # fcm_em's rebin test: two reductions and one host read
+        w = [torch.max(torch.abs(dd - L * torch.round(dd / L)))
+             for dd, L in ((pos[:, k] - ref[:, k], Ls[k]) for k in range(2))]
+        return float(torch.maximum(*w))
+
+    t = {
+        "pencil_spread": cuda_ms(lambda: tp.spread_pencil_fused(kern, pos, f, shape, b, bins,
+                                                                slack=1), reps=10),
+        "pencil_interp": cuda_ms(lambda: tp.interpolate_pencil_fused(kern, pos, u, b, bins,
+                                                                     slack=1), reps=10),
+        "rfftn": cuda_ms(lambda: torch.fft.rfftn(field, dim=(0, 1, 2)), reps=10),
+        "irfftn": cuda_ms(lambda: torch.fft.irfftn(uk, s=shape, dim=(0, 1, 2)), reps=10),
+        "poison_field": cuda_ms(lambda: _poison(field, bins.overflow), reps=10),
+        "bin_pencils": cuda_ms(lambda: fcm.pencil_bins(pos, slack=1), reps=10),
+    }
+    clone_ms = cuda_ms(lambda: fk.clone(), reps=10)
+    t["kspace_combine_and_noise"] = cuda_ms(lambda: fcm._kspace_combine(
+        fk.clone(), _sample_white_rfft(state.gen, shape, fcm.dV, torch.float32, pos.device),
+        amp, pos), reps=10) - clone_ms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        drift_read()
+    t["host_drift_read"] = 1e3 * (time.perf_counter() - t0) / 20
+    calls = {k: 1.0 for k in t}
+    calls["bin_pencils"] = path["rebins_per_step"]
+    per_step = {k: t[k] * calls[k] for k in t}
+    ms = path["ms"]
+    print(json.dumps({
+        "phase": "breakdown_fcm", "card": card, "ms_per_step": ms, "ms_per_call": t,
+        "calls_per_step": calls, "ms_per_step_by_part": per_step,
+        "shares": {k: v / ms for k, v in per_step.items()},
+        "rest_ms": ms - sum(per_step.values()),
+        "note": "each part timed alone with CUDA events at the path's final state (host "
+                "clock for the drift read, on an idle card); rest = step minus the parts: "
+                "gravity, the position update, the interpolation's poison, the launch gaps "
+                "while the host waits for the drift read"}), flush=True)
+
+    plain_ms = {
+        "pencil_spread": cuda_ms(lambda: tp.spread_pencil_fused_plain(
+            kern, pos, f, shape, b, bins, slack=1), reps=3, warmup=1),
+        "pencil_interp": cuda_ms(lambda: tp.interpolate_pencil_fused_plain(
+            kern, pos, u, b, bins, slack=1), reps=3, warmup=1),
+    }
+    # the work this state needs: per particle, the nodes of each axis where
+    # phi is nonzero (integers within support/2 of u), their product, times
+    # C multiply-adds; the bytes: u, the values or outputs, pids, and the
+    # field written (spread) or read (interpolation) once
+    uu = tp._node_coords(pos, shape, b).double()
+    half = kern.support / 2.0
+    per_axis = torch.ceil(uu + half) - torch.floor(uu - half) - 1
+    pairs = float(per_axis.prod(1).sum())
+    C = 3
+    ops_ms = 1e3 * 2.0 * C * pairs / PEAK_FP32_FLOPS
+    field_bytes = 4 * C * math.prod(shape)
+    part_bytes = 4 * (FCM_N * 3 + bins.pids.numel())
+    bytes_ms = {"pencil_spread": 1e3 * (field_bytes + part_bytes + 4 * FCM_N * C) / PEAK_HBM_BYTES,
+                "pencil_interp": 1e3 * (field_bytes + part_bytes + 4 * bins.pids.numel() * C)
+                / PEAK_HBM_BYTES}
+    rows = []
+    for name, src, rep in (("pencil_spread", "pencil_spread.cu",
+                            "uammd_tpu/solvers/pencil_ibm.py:450"),
+                           ("pencil_interp", "pencil_interp.cu",
+                            "uammd_tpu/solvers/pencil_ibm.py:572")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"uammd_tpu_torch/engine/csrc/{src}", "replaces": rep,
+                     "launches": path["launches"][name], "max_abs_err": errs[name],
+                     "ms": t[name], "plain_ms": plain_ms[name],
+                     "bound_ms": max(bytes_ms[name], ops_ms),
+                     "bound_by": "operations" if ops_ms > bytes_ms[name] else "bytes",
+                     "library_ms": None, "node_pairs": pairs})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -404,11 +818,14 @@ def main() -> int:
     try:
         from uammd_tpu_torch.engine import (
             _build, kernel2, layout, md, md2, pair_kernel, rebin_kernel, update_kernel)
+        from uammd_tpu_torch.solvers import pencil_ibm
         from uammd_tpu_torch.utils.lattices import lattice
     except ImportError as e:
         print(f"chip_smoke: the uammd_tpu_torch package is missing ({e})", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    # plain versions' matrix products in full float32 (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
@@ -520,6 +937,8 @@ def main() -> int:
                       "fcc_v2_spec": list(spec_fcc2.array_shape),
                       "fcc_v2_mini_stragglers": sep_fcc[2]}), flush=True)
 
+    fcm_errs = fcm_kernel_checks(dev)
+
     kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN,
                "newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
                "gj_fold_update": update_kernel.GJ_FOLD_UPDATE,
@@ -594,6 +1013,10 @@ def main() -> int:
         "overflow": False, "launches": launches_v2, "timed_launches": timed_v2,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }), flush=True)
+
+    # 3c. the BDHI-FCM path, with its own zeroed launch counts
+    fcm_path = fcm_main_path(dev, {"pencil_spread": pencil_ibm.SPREAD,
+                                   "pencil_interp": pencil_ibm.INTERP})
 
     # 4. kernel times at each path's final shapes
     slot_bytes = 4 * engine.spec.n_slots
@@ -724,6 +1147,7 @@ def main() -> int:
             "uammd_tpu/engine/rebin_kernel.py:904,920,934",
             launches_v2["separable_rebin"], sep_abs_err, sep_ms, sep_plain_ms, sep_bytes_ms),
     ]
+    rows += fcm_breakdown(fcm_path, card, fcm_errs)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

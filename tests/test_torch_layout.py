@@ -199,6 +199,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import uammd_tpu_torch, uammd_tpu_torch.engine.md, uammd_tpu_torch.engine.md2\n"
         "import uammd_tpu_torch.utils.lattices\n"
+        "import uammd_tpu_torch.integrators.bdhi.euler_maruyama\n"
+        "import uammd_tpu_torch.interactors.external\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'uammd_tpu' or m.startswith('uammd_tpu.')]\n"
         "assert not bad, bad\n"

@@ -7,8 +7,9 @@ nvcc takes seconds) and is compiled on first use for Hopper::
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 into ``uammd_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-source and the flags, then loaded with ``ctypes``. No fast-math: the rebin
-kernel must round every division, multiply and add as IEEE float32 does.
+source, the shared ``csrc/*.cuh`` headers and the flags, then loaded with
+``ctypes``. No fast-math: the rebin kernel must round every division,
+multiply and add as IEEE float32 does.
 
 Each C entry point takes tensor pointers and the stream as ``void*``,
 launches on PyTorch's current stream, does not synchronise, and returns
@@ -50,6 +51,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
