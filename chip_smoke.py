@@ -44,6 +44,15 @@ Imports nothing of JAX or of the JAX package. Phases:
      must go through the same kernels (one launch each) and agree with
      the plain versions at n 4200, 48^3. The fcc start on the 384^3 grid
      must overflow the pencil cap and NaN-poison the mobility.
+   - the channel kernels of the PSE near field (``pse_kernels_vs_plain``):
+     the 27-stencil channel kernel #2, the Newton channel kernel #10 (with
+     the n-channel fold #9) and #9 alone against their plain versions at 1
+     and 2 stacked 3-vectors, within ``CHANNEL_TOL`` x max|ref|, on
+     tests/test_pse_engine.py:536's n 512 clump system (17 stragglers) and
+     on the PSE path's first packed state; #10 against #2 on the card, #7
+     against #9 at n = 3, and two controls that must fail the bound (the
+     stragglers dropped, a reaction group rolled the wrong way); #5 (n_q 4,
+     ocap 16), #6 and #7 at the PSE grid's shape (NLANE 114, S 192).
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -57,6 +66,17 @@ Imports nothing of JAX or of the JAX package. Phases:
      under gravity, ``fcm_em`` over the FCM mobility at h = a sqrt(pi)/3
      (384^3, Gaussian support 14, slack 1), dt 0.01, T 1: 20 warm-up and
      100 timed steps.
+   - BDHI-PSE (``main_path_pse``): bench.py:104-276's PSE protocol at its
+     defaults (N = 131072, volume fraction 0.05, fcc start, far grid 144,
+     tolerance 1e-4, 192 straggler rows, Lanczos tuned to 1e-3, WCA pair
+     force, dt 0.01, T 1): 40 warm-up and 40 timed persistent steps, one
+     retry with n_strag x2 and far_cap_extra 24 on overflow. Gates: no
+     overflow, finite positions, #10 and #9 launched at least m times per
+     step and #6, #7, #13, #14 once, #5 in the timed window, one host read
+     per step, the T = 0 displacement against dt x compute_mf, the
+     persistent layout against a fresh pack, the sqrt identity, split
+     invariance (far grid 144 against 128) and fluctuation-dissipation
+     against Hashimoto's self-mobility.
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -69,7 +89,11 @@ Imports nothing of JAX or of the JAX package. Phases:
    velocity within 10 % of m_self |g|.
 4. Time each kernel and its plain version (CUDA events, after warm-up) at
    its path's final shapes, check them against each other once more there,
-   print the v2 and FCM steps' breakdowns and the kernels' JSON line.
+   print the v2, FCM and PSE steps' breakdowns and the kernels' JSON line
+   (eleven kernels).
+
+``--only-pse`` runs the build and the PSE phases alone and prints no result
+line (for work on that path).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -809,8 +833,717 @@ def fcm_breakdown(path, card, errs):
     return rows
 
 
+# ---------------------------------------------------------------- BDHI-PSE
+# The BDHI-PSE path: bench.py:104-276's PSE protocol at its defaults (N =
+# 131072 colloids of radius 1 at volume fraction 0.05, fcc start,
+# far_grid 144, tolerance 1e-4, n_strag 192, near skin 1, Lanczos tuned to
+# 1e-3 with m_max 16, WCA between surfaces, dt 0.01, T 1, 40 warm-up + 40
+# timed steps, one retry with n_strag x2 and far_cap_extra 24 on overflow).
+PSE_N = 131072
+PSE_PHI = 0.05
+PSE_L = (PSE_N * (4.0 / 3.0) * math.pi / PSE_PHI) ** (1.0 / 3.0)
+PSE_FAR_GRID, PSE_TOLERANCE, PSE_STRAG, PSE_LTOL = 144, 1e-4, 192, 1e-3
+PSE_FAR_GRID_SPLIT = 128  # the second split of the invariance gate
+PSE_DT, PSE_T = 0.01, 1.0
+PSE_WARM, PSE_TIMED = 40, 40
+# channel kernels against their plain versions: max|d| <= CHANNEL_TOL x
+# max|ref| (the bar of tests/test_pse_engine.py:573): float32 sums in
+# another order (atomics in the Newton kernel), FMA Horner steps and
+# rsqrtf against torch.rsqrt
+CHANNEL_TOL = 2e-5
+SQRT_RTOL = 5e-3  # tests/test_pse_engine.py:87
+SPLIT_RMS = 1e-2  # tests/test_pse_engine.py:53
+MF_RTOL = 2e-4  # tests/test_pse_engine.py:69, as max|d| / max|ref|
+# the persistent layout against a fresh pack (tests/test_pse_engine.py:319's
+# bar): the two layouts wrap coordinates differently, so a pair at the
+# cutoff, where the remainder jumps by ~1e-4 m0, may fall on either side
+PERSIST_TOL = 5e-3
+FDT_DRAWS = 4
+HOST_READ_STEPS = 3
+FDT_TOL = 0.02
+# float32 operations per pair of the PSE functor: the cutoff test (d, r2:
+# 8) for every candidate pair; for pairs inside rcut the radial (rsqrt, q,
+# u, two 12-step FMA Horner chains, g / r2: 55) and per 3-vector and
+# direction f F + (g / r2)(d . F) d with its sums (18)
+OPS_CH_TEST, OPS_CH_RADIAL, OPS_CH_APPLY = 8, 55, 18
+
+
+def pse_box_and_fcc(dev):
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.utils.lattices import lattice
+    import torch
+
+    pos = torch.tensor(lattice(PSE_N, PSE_L, "fcc"), dtype=torch.float32, device=dev)
+    return box(PSE_L, device=dev), pos
+
+
+def pse_backend(b, pos, n_strag=None, far_cap_extra=0, far_grid=None):
+    import dataclasses
+    from uammd_tpu_torch.integrators.bdhi.pse_engine import PSEGrid
+
+    n_strag = PSE_STRAG if n_strag is None else n_strag
+    be = PSEGrid.create(b, PSE_N, viscosity=1.0, radius=1.0, far_grid=far_grid or PSE_FAR_GRID,
+                        tolerance=PSE_TOLERANCE, lanczos_iterations=10, pos=pos,
+                        n_strag=n_strag, near_skin=1.0)
+    if far_cap_extra:
+        be = dataclasses.replace(be, far_cap_extra=int(far_cap_extra))
+    return be
+
+
+def wca():
+    from uammd_tpu_torch.engine.md import lj_g_fused
+
+    rc = 2.0 ** (1.0 / 6.0) * 2.0
+    return lj_g_fused(1.0, 2.0, rc2=rc * rc, approx=True)
+
+
+def channel_outputs(be, cg, nvec, kind, strag_valid=True):
+    """Outputs of one channel kernel (or plain version) on ``cg``'s first
+    3 nvec channels as a list: the grids, then the straggler totals.
+    ``kind``: "27" / "newton" (kernels), "27_plain" / "newton_plain"."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2, pair_kernel
+
+    spec = be.spec
+    chans = list(cg.channels[: 3 * nvec])
+    spid = cg.spid if strag_valid else torch.full_like(cg.spid, -1)
+    blk = (pair_kernel.broadcast_strag_channels(spec, cg.spos, tuple(cg.schannels[: 3 * nvec]),
+                                                spid) if spec.n_strag else None)
+    fn = be.near_fn()
+    if kind == "27":
+        out = be._kernel(nvec, newton=False)(cg.x, cg.y, cg.z, *chans, strag=blk)
+    elif kind == "newton":
+        out = be._kernel(nvec, newton=True)(cg.x, cg.y, cg.z, *chans, strag=blk)
+    elif kind == "27_plain":
+        g, sp = pair_kernel.pair_channel_plain(spec, fn, nvec, cg.x, cg.y, cg.z, chans, blk)
+        out = tuple(g) + (tuple(sp) if sp is not None else ())
+    else:
+        home, groups, sp = kernel2.newton_channel_plain(spec, fn, nvec, cg.x, cg.y, cg.z,
+                                                        chans, blk)
+        out = tuple(kernel2.fold_reactions_n_plain(home, groups)) + (
+            tuple(sp) if sp is not None else ())
+    return list(out)
+
+
+def channel_err(ref, test, nvec) -> float:
+    """max|d| over every output (grids and straggler totals) / max|ref grid|."""
+    scale = max(float(a.abs().max()) for a in ref[: 3 * nvec])
+    return max(float((a - b).abs().max()) for a, b in zip(ref, test)) / scale
+
+
+def check_channel_kernels(be, cg, what: str, controls: bool):
+    """#2 and #10 (+ #9) against their plain versions and each other at
+    nvec 1 and 2; #9 alone bit-equal; #7 against #9 at n = 3; with
+    ``controls`` the two wrong kernels that must fail the bound."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+
+    errs = {}
+    spec = be.spec
+    for nvec in (1, 2):
+        p27 = channel_outputs(be, cg, nvec, "27_plain")
+        pnt = channel_outputs(be, cg, nvec, "newton_plain")
+        k27 = channel_outputs(be, cg, nvec, "27")
+        knt = channel_outputs(be, cg, nvec, "newton")
+        e = {"27_vs_plain": channel_err(p27, k27, nvec),
+             "newton_vs_plain": channel_err(pnt, knt, nvec),
+             "newton_vs_27_kernels": channel_err(k27, knt, nvec),
+             "plain_newton_vs_plain_27": channel_err(p27, pnt, nvec)}
+        for k, v in e.items():
+            check(v < CHANNEL_TOL, f"{what}: nvec {nvec} {k} {v:.3g} < {CHANNEL_TOL}")
+        errs[f"nvec{nvec}"] = e
+        chans = list(cg.channels[: 3 * nvec])
+        blk = (kernel2_strag_block(be, cg, nvec) if spec.n_strag else None)
+        home, groups, _ = be._kernel(nvec, newton=True).raw(cg.x, cg.y, cg.z, *chans, strag=blk)
+        f_k = kernel2.make_fold_kernel_n(spec, 3 * nvec)(home, groups)
+        f_p = kernel2.fold_reactions_n_plain(home, groups)
+        check(all(torch.equal(a, b) for a, b in zip(f_k, f_p)),
+              f"{what}: nvec {nvec} fold #9 bit-equal to plain")
+        if nvec == 1:
+            f7 = kernel2.make_fold_kernel(spec)(home, groups)
+            check(all(torch.equal(a, b) for a, b in zip(f7, f_k)),
+                  f"{what}: fold #7 equals fold #9 at n = 3")
+        if controls and nvec == 1:
+            # the group (1, 0) folded the wrong way: rolled by (-1, 0)
+            wrong = list(kernel2.fold_reactions_n_plain(home, groups))
+            wrong = [w - torch.roll(gc, (1, 0), (0, 1)) + torch.roll(gc, (-1, 0), (0, 1))
+                     for w, gc in zip(wrong, groups[1])]
+            c_roll = channel_err(pnt[:3], wrong, nvec)
+            check(c_roll > CHANNEL_TOL,
+                  f"{what}: control, a group rolled the wrong way, fails the bound ({c_roll:.3g})")
+            c_drop = None  # no straggler to drop
+            if bool(cg.smask.any()):
+                dropped = channel_outputs(be, cg, nvec, "newton", strag_valid=False)
+                c_drop = channel_err(pnt, dropped, nvec)
+                check(c_drop > CHANNEL_TOL,
+                      f"{what}: control, the stragglers dropped, fails the bound ({c_drop:.3g})")
+            errs["controls"] = {"stragglers_dropped": c_drop, "group_rolled_wrong_way": c_roll}
+    return errs
+
+
+def kernel2_strag_block(be, cg, nvec):
+    from uammd_tpu_torch.engine import pair_kernel
+
+    return pair_kernel.broadcast_strag_channels(be.spec, cg.spos,
+                                                tuple(cg.schannels[: 3 * nvec]), cg.spid)
+
+
+def with_channels(be, cg, dev, seed: int):
+    """``cg`` with 6 random normal channels (zero on empty slots/rows)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    m = cg.mask.to(torch.float32)
+    sm = cg.smask.to(torch.float32)
+    chans = tuple(torch.randn(cg.x.shape, generator=gen, device=dev) * m for _ in range(6))
+    sch = tuple(torch.randn(cg.spid.shape, generator=gen, device=dev) * sm for _ in range(6))
+    return cg.replace(channels=chans, schannels=sch)
+
+
+def pse_kernel_checks(dev):
+    """Phase 2c: the channel kernels #2, #10 (with #9) and #9 alone against
+    their plain versions on tests/test_pse_engine.py:536's n 512 clump
+    system and on the PSE path's first packed state; #5, #6 and #7 at the
+    PSE grid's shape (NLANE 114, S 192, n_q 4, ocap 16)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.engine import kernel2, rebin_kernel
+    from uammd_tpu_torch.engine.layout import pack_channels
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    n, phi = 512, 0.08
+    L = (n * (4.0 / 3.0) * math.pi / phi) ** (1.0 / 3.0)
+    rng = np.random.default_rng(3)
+    pos = np.concatenate([np.asarray(lattice(n - 20, L, "fcc")),
+                          rng.uniform(-2.0, 2.0, (20, 3)) + 3.0]).astype(np.float32)
+    from uammd_tpu_torch.integrators.bdhi.pse_engine import PSEGrid
+
+    be_s = PSEGrid.create(box(L, device=dev), n, far_grid=32, tolerance=1e-3,
+                          lanczos_iterations=3, pos=pos, n_strag=48)
+    cg_s = pack_channels(be_s.spec, torch.tensor(pos, device=dev),
+                         torch.tensor(rng.normal(size=(n, 6)), dtype=torch.float32, device=dev))
+    n_strag_s = int(cg_s.smask.sum())
+    check(n_strag_s > 0, "n 512 clump: the straggler list is used")
+    small = check_channel_kernels(be_s, cg_s, "n 512 clump", controls=True)
+
+    b, pos_fcc = pse_box_and_fcc(dev)
+    be = pse_backend(b, pos_fcc)
+    st = be.em_state(pos_fcc)
+    cg, _, _ = be._refresh(st, pos_fcc)
+    cg = with_channels(be, cg, dev, 17)
+    full = check_channel_kernels(be, cg, "PSE first state", controls=True)
+
+    # #6 + #7 at the PSE grid's shape, on the fcc start jittered by 1.2 per
+    # axis (the fcc start itself has no pair inside the WCA cutoff)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    jit = pos_fcc + 1.2 * torch.randn(pos_fcc.shape, generator=gen, device=dev)
+    cgj, _, _ = be._refresh(be.em_state(jit), jit)
+    check(not bool(cgj.overflow), "jittered PSE state: no overflow")
+    g = wca()
+    strag = kernel2.broadcast_stragglers(be.spec, cgj.spos, cgj.spid)
+    home, groups, sf = kernel2.make_newton_pair_kernel(be.spec, g)(cgj.x, cgj.y, cgj.z, strag)
+    ph, pg, psf = kernel2.newton_pair_plain(be.spec, g, cgj.x, cgj.y, cgj.z, strag)
+    fk = kernel2.make_fold_kernel(be.spec)(home, groups)
+    fp = kernel2.fold_reactions_plain(ph, pg)
+    fmax = max(float(a.abs().max()) for a in fp)
+    check(fmax > 0, "jittered PSE state: pairs inside the WCA cutoff")
+    newton_err = max(max(float((a - c).abs().max()) for a, c in zip(fk, fp)),
+                     float((sf - psf).abs().max())) / fmax
+    check(newton_err < FAST_RECIP_TOL,
+          f"PSE grid: Newton pair #6 + fold #7 vs plain {newton_err:.3g} < {FAST_RECIP_TOL}")
+    check(all(torch.equal(a, c) for a, c in zip(fk, kernel2.fold_reactions_plain(home, groups))),
+          "PSE grid: fold #7 bit-equal to plain")
+    # #5 with n_q 4 and ocap 16 on the refresh's input after a drift below
+    # the threshold
+    moved = pos_fcc + 0.9 * be.spec.drift_threshold * (
+        2.0 * torch.rand(pos_fcc.shape, generator=gen, device=dev) - 1.0)
+    st0 = be.em_state(pos_fcc)
+    sep = be._near_rebin()
+    Ls = be.spec.box_size
+    from uammd_tpu_torch.engine.layout import EMPTY_POS, wrap
+
+    po = [st0.ref[:, d] + wrap(moved[:, d] - st0.ref[:, d], Ls[d]) for d in range(3)]
+    src = st0.pid.clamp(min=0).long()
+    e = torch.full((), EMPTY_POS, device=dev)
+    stacked = torch.stack([torch.where(st0.pid >= 0, p[src], e) for p in po]
+                          + [(st0.pid + 1).float()])
+    ss = st0.spid.clamp(min=0).long()
+    sstack = torch.stack([torch.where(st0.spid >= 0, p[ss], e) for p in po]
+                         + [(st0.spid + 1).float()])
+    ok_, mk, ck, vk = sep(stacked, sstack)
+    op, mp, cp, vp = rebin_kernel.separable_rebin_plain(be.spec, stacked, sstack, sep.ocap)
+    check(torch.equal(ok_, op) and torch.equal(mk, mp) and (int(ck), int(vk)) == (int(cp), int(vp)),
+          "PSE grid: separable rebin #5 (n_q 4, ocap 16) equals plain slot for slot")
+    check(int(ck) == PSE_N and int(vk) == 0, "PSE grid: separable rebin keeps every particle")
+    out = {"phase": "pse_kernels_vs_plain", "ok": True, "tol": CHANNEL_TOL,
+           "n512_clump": {"spec": list(be_s.spec.array_shape), "stragglers": n_strag_s,
+                          "rel_err": small},
+           "first_state": {"spec": list(be.spec.array_shape), "n_strag": be.spec.n_strag,
+                           "stragglers": int(cg.smask.sum()), "rel_err": full},
+           "pse_grid_newton_pair_rel_err": newton_err, "pse_grid_fold": "bit-equal",
+           "pse_grid_separable_rebin": "exact (out, mini, count, overflow)",
+           "separable_rebin_mini_stragglers": int((mk[3] > 0.5).sum())}
+    print(json.dumps(out), flush=True)
+    return {"err_27": full["nvec2"]["27_vs_plain"], "err_newton": full["nvec2"]["newton_vs_plain"]}
+
+
+def pse_run(dev, counted, n_strag, far_cap_extra):
+    """One run of the path: create, tune Lanczos, em_state, PSE_WARM +
+    PSE_TIMED persistent steps with the launch counts zeroed just before
+    the steps. Returns what the gates and the breakdown need."""
+    import torch
+
+    b, pos = pse_box_and_fcc(dev)
+    t0 = time.perf_counter()
+    be = pse_backend(b, pos, n_strag=n_strag, far_cap_extra=far_cap_extra)
+    be = be.tuned_lanczos(pos, tol=PSE_LTOL)
+    fs = be.make_pair_force_slots(wca())
+    st = be.em_state(pos)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for k in counted.values():
+        k.launches = 0
+    p = pos
+    for _ in range(PSE_WARM):
+        dx, _, st = be.displacement_with_pair_force_persistent(fs, p, gen, PSE_DT, PSE_T, st)
+        p = b.wrap_position(p + dx)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in counted.items()}
+    reb0 = (st.n_rebin_near, st.n_rebin_far)
+    t0 = time.perf_counter()
+    for _ in range(PSE_TIMED):
+        dx, f, st = be.displacement_with_pair_force_persistent(fs, p, gen, PSE_DT, PSE_T, st)
+        p = b.wrap_position(p + dx)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    return {"box": b, "be": be, "fs": fs, "st": st, "pos": p, "gen": gen,
+            "forces": f, "setup_s": setup_s, "timed_s": timed_s, "launches": launches,
+            "timed": {k: launches[k] - before[k] for k in counted},
+            "rebin_near": st.n_rebin_near - reb0[0], "rebin_far": st.n_rebin_far - reb0[1],
+            "overflow": bool(st.overflow), "ovf_near": bool(st.ovf_near),
+            "ovf_far": bool(st.ovf_far)}
+
+
+def host_reads_per_step(run) -> list:
+    """The synchronising CUDA calls of HOST_READ_STEPS persistent steps,
+    found by PyTorch's sync debug mode: for each, the innermost frame of the
+    repo's code (file:line) that led to it."""
+    import gc
+    import traceback
+    import warnings
+    import torch
+
+    be, st = run["be"], run["st"]
+    where = []
+
+    def show(message, category, filename, lineno, *args, **kw):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "uammd_tpu_torch" in f.filename or "chip_smoke" in f.filename]
+            f = frames[-1] if frames else None
+            where.append(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}" if f else
+                         f"{filename.rsplit('/', 1)[-1]}:{lineno}")
+
+    # garbage from the earlier phases is freed first, so that no finalizer
+    # runs inside the counted steps
+    gc.collect()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(HOST_READ_STEPS):
+                be.displacement_with_pair_force_persistent(run["fs"], run["pos"], run["gen"],
+                                                           PSE_DT, PSE_T, st)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return where
+
+
+def pse_main_path(dev, counted):
+    """Phase 3d: bench.py's PSE protocol, with its one overflow retry;
+    then the gates."""
+    import dataclasses
+    import torch
+    from uammd_tpu_torch.engine.layout import unpack_values
+
+    run = pse_run(dev, counted, PSE_STRAG, 0)
+    retried = False
+    first = {k: run[k] for k in ("overflow", "ovf_near", "ovf_far")}
+    if run["overflow"]:
+        retried = True
+        run = pse_run(dev, counted, 2 * PSE_STRAG, 24)
+    check(not run["overflow"], f"PSE path: no overflow after {int(retried)} retries "
+                               f"(near {run['ovf_near']}, far {run['ovf_far']})")
+    be, p, st, gen = run["be"], run["pos"], run["st"], run["gen"]
+    fails = []  # every gate is read and printed before the first failure raises
+
+    def gate(ok: bool, what: str) -> None:
+        if not ok:
+            fails.append(what)
+
+    m = be.lanczos_iterations
+    gate(bool(p.isfinite().all()), "PSE path: all positions finite")
+    t = run["timed"]
+    for k, need in (("newton_channel", m), ("fold_n", m), ("newton_pair", 1), ("fold", 1),
+                    ("pencil_spread", 1), ("pencil_interp", 1)):
+        gate(t[k] >= need * PSE_TIMED,
+              f"PSE path: {k} launched {t[k]} >= {need} x {PSE_TIMED} times in the timed steps")
+    gate(t["separable_rebin"] >= 1, "PSE path: the near rebin #5 ran in the timed window")
+    reads = host_reads_per_step(run)
+    # a sync with no frame of the port's code on the stack is not the
+    # step's (one shows up once, on the first counted call)
+    reads_per_step = sum(1 for r in reads if not r.startswith("chip_smoke")) / HOST_READ_STEPS
+
+    # T = 0: the fused displacement equals dt x compute_mf (same binning)
+    gen_f = torch.Generator(device=dev)
+    gen_f.manual_seed(5)
+    F = torch.randn(p.shape, generator=gen_f, device=dev)
+    mf = be.compute_mf(p, F)
+    d0, ovf = be.displacement(p, F, gen, PSE_DT, 0.0)
+    mf_err = float((d0 - PSE_DT * mf).abs().max() / (PSE_DT * mf).abs().max())
+    gate(not bool(ovf) and mf_err < MF_RTOL,
+          f"PSE path: T = 0 displacement vs dt x compute_mf {mf_err:.3g} < {MF_RTOL}")
+    # the persistent layout (refreshed, rebinned on drift) against a fresh
+    # pack of the same state: M_near F, unpacked
+    cg, _, _ = be._refresh(st, p)
+    src = cg.pid.clamp(min=0).long()
+    f3 = [torch.where(cg.mask, F[src, d], 0.0) for d in range(3)]
+    sf3 = [torch.where(cg.smask, F[cg.spid.clamp(min=0).long(), d], 0.0) for d in range(3)]
+    *vp, svp = be.near_matvec_slots(cg, *f3, sf3=sf3)
+    v_persist = unpack_values(cg, vp, svalues=svp)
+    v_fresh = be.near_matvec(p, F)
+    persist_err = float((v_persist - v_fresh).abs().max() / v_fresh.abs().max())
+    gate(persist_err < PERSIST_TOL,
+          f"PSE path: near M F on the persistent layout vs a fresh pack {persist_err:.3g} "
+          f"< {PERSIST_TOL}")
+    dxp, _, _ = be.displacement_with_pair_force_persistent(run["fs"], p, gen, PSE_DT, 0.0, st)
+
+    # the sqrt identity ||B z||^2 = z.M z on the path's state, 3 draws
+    sqrt_err = []
+    for _ in range(3):
+        z3, zs = be.draw_z(cg, gen)
+        bx, by, bz, s3, _ = be._near_noise_slots_z(cg, z3, zs)
+        lhs = float(sum((a.double() ** 2).sum() for a in (bx, by, bz)) + (s3.double() ** 2).sum())
+        vx, vy, vz, sv3 = be.near_matvec_slots(cg, *z3, sf3=(zs[0], zs[1], zs[2]))
+        rhs = float(sum((a.double() * c.double()).sum() for a, c in zip(z3, (vx, vy, vz)))
+                    + sum((a.double() * c.double()).sum() for a, c in zip(zs, sv3)))
+        sqrt_err.append(lhs / rhs - 1.0)
+    gate(all(abs(x) < SQRT_RTOL for x in sqrt_err),
+          f"PSE path: sqrt identity {sqrt_err} within {SQRT_RTOL}")
+
+    # split invariance: far_grid 144 against 128 on the same state
+    be128 = dataclasses.replace(pse_backend(run["box"], p, far_grid=PSE_FAR_GRID_SPLIT),
+                                lanczos_iterations=m)
+    mf128 = be128.compute_mf(p, F)
+    split_rms = float(((mf - mf128) ** 2).mean().sqrt() / (mf ** 2).mean().sqrt())
+    gate(split_rms < SPLIT_RMS, f"PSE path: split invariance RMS {split_rms:.3g} < {SPLIT_RMS}")
+
+    # fluctuation-dissipation: the noise part of the step, dx(T) - dx(0)
+    m_self = (1.0 / (6.0 * math.pi)) * (1.0 - 2.83729748 / PSE_L
+                                        + (4.0 * math.pi / 3.0) / PSE_L ** 3)
+    msq = torch.zeros(3, dtype=torch.float64, device=dev)
+    for _ in range(FDT_DRAWS):
+        dxt, _, _ = be.displacement_with_pair_force_persistent(run["fs"], p, gen, PSE_DT,
+                                                               PSE_T, st)
+        msq += ((dxt - dxp).double() ** 2).mean(0)
+    msq = [float(x) / FDT_DRAWS for x in msq]
+    want = 2.0 * PSE_T * PSE_DT * m_self
+    fdt = [x / want - 1.0 for x in msq]
+    gate(all(abs(x) < FDT_TOL for x in fdt),
+          f"PSE path: noise mean square per axis {msq} within {FDT_TOL:.0%} of {want:.6g}")
+    ms = 1e3 * run["timed_s"] / PSE_TIMED
+    out = {"phase": "main_path_pse", "n": PSE_N, "box": PSE_L, "volume_fraction": PSE_PHI,
+           "near_spec": list(be.spec.array_shape), "n_strag": be.spec.n_strag,
+           "far_shape": list(be.far.shape), "far_support": be.far.support,
+           "far_cap": int(st.far_pids.shape[1]), "rcut": be.rcut, "xi": be.xi,
+           "self_f": be.self_f, "fit_error": be.fit_error,
+           "fit_error_noise": be.fit_error_noise, "lanczos_m": m,
+           "dt": PSE_DT, "temperature": PSE_T, "warmup_steps": PSE_WARM,
+           "timed_steps": PSE_TIMED, "setup_seconds": run["setup_s"],
+           "timed_seconds": run["timed_s"], "ms_per_step": ms,
+           "particle_steps_per_s": PSE_N * PSE_TIMED / run["timed_s"],
+           "rebin_near_steps": run["rebin_near"], "rebin_far_steps": run["rebin_far"],
+           "ovf_near": run["ovf_near"], "ovf_far": run["ovf_far"],
+           "first_attempt": first, "retry_taken": retried, "host_reads_per_step": reads_per_step, "host_reads_at": reads,
+           "launches": run["launches"],
+           "launches_per_timed_step": {k: v / PSE_TIMED for k, v in t.items()},
+           "mf_rel_err": mf_err, "persistent_vs_fresh": persist_err,
+           "sqrt_identity_rel_err": sqrt_err, "split_rms_144_vs_128": split_rms,
+           "noise_msq_per_axis": msq, "noise_msq_want": want, "fdt_rel_err": fdt,
+           "fdt_draws": FDT_DRAWS, "m_self": m_self,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(json.dumps(out), flush=True)
+    gate(reads_per_step <= 1, f"PSE path: {reads_per_step} host reads per step {reads}")
+    run["fails"] = fails
+    run["ms"] = ms
+    return run
+
+
+def pse_profile(run, steps: int = 5) -> dict:
+    """Device time per kernel over ``steps`` persistent steps from a
+    torch.profiler trace, and the card's busy share of the wall time (one
+    stream, so the kernels do not overlap)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    be, st, p, gen = run["be"], run["st"], run["pos"], run["gen"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dx, _, st = be.displacement_with_pair_force_persistent(run["fs"], p, gen, PSE_DT,
+                                                                   PSE_T, st)
+            p = run["box"].wrap_position(p + dx)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            kernels[e.key[:90]] = (t / 1e3 / steps, e.count / steps)
+    busy = sum(v[0] for v in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    return {"phase": "profile_pse", "steps": steps, "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": busy if kernels else None,
+            "device_busy_share": busy / (wall_ms / steps) if kernels else None,
+            "kernels": len(kernels), "launches_per_step": sum(v[1] for v in kernels.values()),
+            "top_ms_and_calls_per_step": {k: v for k, v in top},
+            "note": "torch.profiler (CUPTI) device time; wall time includes the profiler's "
+                    "own cost; null when the trace holds no device time"}
+
+
+def channel_pairs(be, cg) -> dict:
+    """The channel kernels' work on ``cg``: unordered candidate pairs of
+    distinct particles in one 27-cell stencil and those inside rcut, plus
+    the home x straggler candidate pairs and those inside rcut."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine.kernel2 import _box
+
+    spec = be.spec
+    rc2 = float(np.float32(be.rcut * be.rcut))
+    rows = torch.arange(spec.cap, device=cg.x.device)[None, None, :, None]
+    pid_i = cg.pid[:, :, :, None, :]
+    home = [a[:, :, :, None, :] for a in (cg.x, cg.y, cg.z)]
+    cand = cut = 0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                zs, ybs, lane, shifts = layout.stencil_sources(spec, dz, dy, dx, cg.x.device)
+                pid_j = cg.pid[zs, ybs, rows, lane][:, :, None]
+                both = (pid_i >= 0) & (pid_j >= 0) & (pid_i != pid_j)
+                r2 = sum(((a[zs, ybs, rows, lane] + s)[:, :, None] - h) ** 2
+                         for a, s, h in zip((cg.x, cg.y, cg.z), shifts, home))
+                cand += int(both.sum())
+                cut += int((both & (r2 < rc2)).sum())
+    Ls, iLs = _box(spec.box_size, cg.x.device)
+    act = cg.mask.reshape(-1)
+    hp = torch.stack([a.reshape(-1)[act] for a in (cg.x, cg.y, cg.z)], -1)
+    sp = cg.spos[cg.smask]
+    d = sp[None, :, :] - hp[:, None, :]
+    d = d - Ls * torch.round(d * iLs)
+    s_cut = int(((d * d).sum(-1) < rc2).sum())
+    return {"stencil": cand // 2, "stencil_in_rcut": cut // 2,
+            "straggler": int(act.sum()) * int(sp.shape[0]), "straggler_in_rcut": s_cut}
+
+
+def channel_ops_ms(pairs, nvec) -> float:
+    """The least time for the function's float32 operations: each
+    unordered pair tested once, each pair inside rcut evaluated once both
+    ways."""
+    cand = pairs["stencil"] + pairs["straggler"]
+    inside = pairs["stencil_in_rcut"] + pairs["straggler_in_rcut"]
+    ops = OPS_CH_TEST * cand + (OPS_CH_RADIAL + 2 * OPS_CH_APPLY * nvec) * inside
+    return 1e3 * ops / PEAK_FP32_FLOPS
+
+
+def pse_breakdown(run, card, errs):
+    """Phase 4c: each part of the PSE step timed alone (CUDA events) at the
+    path's final state, times its calls per step; and the rows of the
+    channel kernels in the kernels line."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+    from uammd_tpu_torch.engine.layout import unpack_values
+    from uammd_tpu_torch.integrators.bdhi.fcm import _sample_white_rfft
+    from uammd_tpu_torch.solvers import lanczos
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    be, st, p, gen = run["be"], run["st"], run["pos"], run["gen"]
+    dev = p.device
+    m = be.lanczos_iterations
+    cg, bins, _ = be._refresh(st, p)
+    cg = with_channels(be, cg, dev, 29)
+    spec = be.spec
+    t, calls = {}, {}
+
+    def args(nvec):
+        return ([cg.x, cg.y, cg.z] + list(cg.channels[: 3 * nvec]),
+                kernel2_strag_block(be, cg, nvec))
+
+    for nvec in (1, 2):
+        a, blk = args(nvec)
+        knt = be._kernel(nvec, newton=True)
+        t[f"newton_channel_{3 * nvec}ch"] = cuda_ms(lambda: knt.raw(*a, strag=blk), reps=10)
+        home, groups, _ = knt.raw(*a, strag=blk)
+        fold = kernel2.make_fold_kernel_n(spec, 3 * nvec)
+        t[f"fold_n_{3 * nvec}ch"] = cuda_ms(lambda: fold(home, groups), reps=20)
+        k27 = be._kernel(nvec, newton=False)
+        t[f"pair_channel_{3 * nvec}ch"] = cuda_ms(lambda: k27(*a, strag=blk), reps=5)
+    calls.update({"newton_channel_6ch": 1.0, "newton_channel_3ch": m - 1.0,
+                  "fold_n_6ch": 1.0, "fold_n_3ch": m - 1.0,
+                  "pair_channel_6ch": 0.0, "pair_channel_3ch": 0.0})
+    sf3 = cg.schannels[:3]
+    t["straggler_pairs_radial"] = cuda_ms(lambda: (cg.__dict__.pop("_strag_radial", None),
+                                                   be._strag_radial(cg, False)), reps=20)
+    t["straggler_pairs_apply"] = cuda_ms(lambda: be._strag_pair_apply(cg, sf3), reps=20)
+    calls["straggler_pairs_radial"] = 2.0  # the full and the noise radial
+    calls["straggler_pairs_apply"] = m + 1.0  # M F and w0 in the fused pass; m - 1 more
+    K = 3 * (spec.n_slots + spec.n_strag)
+    v = torch.randn(K, generator=gen, device=dev)
+    t["lanczos_vector_work"] = cuda_ms(lambda: lanczos.lanczos_sqrt_apply(
+        lambda x: x * 1.5, v, m=m, w0=v * 1.5), reps=5)
+    al, bt = torch.rand(m, device=dev) + 1.0, torch.rand(m + 1, device=dev) * 0.1
+    t["lanczos_sqrt_T"] = cuda_ms(lambda: lanczos._sqrt_e1(al, bt, m), reps=10)
+    t["lanczos_vector_work"] -= t["lanczos_sqrt_T"]
+    calls["lanczos_vector_work"] = calls["lanczos_sqrt_T"] = 1.0
+    fs = run["fs"]
+    t["pair_force_newton_fold"] = cuda_ms(lambda: fs(cg), reps=10)
+    calls["pair_force_newton_fold"] = 1.0
+    Ls = spec.box_size
+    pos_w = torch.stack([p[:, d] - Ls[d] * torch.round(p[:, d] / Ls[d]) for d in range(3)], -1)
+    t["near_rebin_sep_rebin"] = cuda_ms(lambda: be._near_repack(st, p, pos_w), reps=10)
+    calls["near_rebin_sep_rebin"] = run["rebin_near"] / PSE_TIMED
+    t["far_bin_pencils"] = cuda_ms(lambda: be.far.pencil_bins(p, slack=be.far_slack,
+                                                              cap_extra=be.far_cap_extra), reps=10)
+    calls["far_bin_pencils"] = run["rebin_far"] / PSE_TIMED
+    t["refresh_gathers_and_drift"] = cuda_ms(lambda: be._refresh(st, p), reps=10)
+    calls["refresh_gathers_and_drift"] = 1.0
+    far, f = be.far, run["forces"]
+    kern = far._kernel()
+    field, _ = tp.spread_pencil_fused(kern, p, f, far.shape, be.box, bins, slack=be.far_slack)
+    fk = torch.fft.rfftn(field, dim=(0, 1, 2))
+    amp = math.sqrt(2.0 * PSE_T / PSE_DT)
+    uk = far._kspace_combine(fk.clone(), _sample_white_rfft(gen, far.shape, far.dV,
+                                                            torch.float32, dev), amp, p)
+    u = torch.fft.irfftn(uk, s=far.shape, dim=(0, 1, 2))
+    t["far_spread"] = cuda_ms(lambda: tp.spread_pencil_fused(kern, p, f, far.shape, be.box, bins,
+                                                             slack=be.far_slack), reps=10)
+    t["far_interp"] = cuda_ms(lambda: tp.interpolate_pencil_fused(kern, p, u, be.box, bins,
+                                                                  slack=be.far_slack), reps=10)
+    t["far_ffts"] = (cuda_ms(lambda: torch.fft.rfftn(field, dim=(0, 1, 2)), reps=10)
+                     + cuda_ms(lambda: torch.fft.irfftn(uk, s=far.shape, dim=(0, 1, 2)),
+                               reps=10))
+    clone_ms = cuda_ms(lambda: fk.clone(), reps=10)
+    t["far_kspace_combine_and_noise"] = cuda_ms(lambda: far._kspace_combine(
+        fk.clone(), _sample_white_rfft(gen, far.shape, far.dV, torch.float32, dev), amp, p),
+        reps=10) - clone_ms
+    for k in ("far_spread", "far_interp", "far_ffts", "far_kspace_combine_and_noise"):
+        calls[k] = 1.0
+    vals = (cg.x, cg.y, cg.z)
+    svals = tuple(cg.spos[:, d] for d in range(3))
+    t["unpack"] = cuda_ms(lambda: unpack_values(cg, vals, svalues=svals), reps=20)
+    calls["unpack"] = 2.0  # forces and velocities
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        be._drift_flags(st, p).tolist()
+    t["host_read"] = 1e3 * (time.perf_counter() - t0) / 20
+    calls["host_read"] = 1.0
+    per_step = {k: t[k] * calls[k] for k in t}
+    ms = run["ms"]
+    top = max(per_step, key=per_step.get)
+    print(json.dumps({
+        "phase": "breakdown_pse", "card": card, "ms_per_step": ms, "lanczos_m": m,
+        "ms_per_call": t, "calls_per_step": calls, "ms_per_step_by_part": per_step,
+        "shares": {k: v / ms for k, v in per_step.items()},
+        "rest_ms": ms - sum(per_step.values()), "largest_part": top,
+        "note": "each part timed alone with CUDA events at the path's final state (host "
+                "clock for the host read, on an idle card); refresh includes the drift "
+                "check and its host read and the gathers; rest = step minus the parts: "
+                "the position update, the small torch ops, launch gaps"}), flush=True)
+
+    print(json.dumps(pse_profile(run)), flush=True)
+
+    # kernels line rows
+    pairs = channel_pairs(be, cg)
+    a1, blk1 = args(1)
+    a2, blk2 = args(2)
+    plain_27 = cuda_ms(lambda: channel_outputs(be, cg, 2, "27_plain"), reps=1, warmup=1)
+    plain_nt = cuda_ms(lambda: channel_outputs(be, cg, 2, "newton_plain"), reps=1, warmup=1)
+    home, groups, _ = be._kernel(2, newton=True).raw(*a2, strag=blk2)
+    plain_fold = cuda_ms(lambda: kernel2.fold_reactions_n_plain(home, groups), reps=5, warmup=1)
+    fold_err = max(float((x - y).abs().max()) for x, y in zip(
+        kernel2.make_fold_kernel_n(spec, 6)(home, groups),
+        kernel2.fold_reactions_n_plain(home, groups)))
+    ops2 = channel_ops_ms(pairs, 2)
+    fold_bytes = 1e3 * 4 * (5 * 6 + 6) * spec.n_slots / PEAK_HBM_BYTES
+    # the 6-channel pass: 9 grids and the [10, S] rows read, 6 grids out
+    ch_bytes = 1e3 * 4 * ((9 + 6) * spec.n_slots + 16 * spec.n_strag) / PEAK_HBM_BYTES
+    launches = run["launches"]
+
+    def row(name, src, rep, ms_, plain, bound_ops, bound_bytes, err, extra):
+        return {"name": name, "route": "cuda", "source": f"uammd_tpu_torch/engine/csrc/{src}",
+                "replaces": rep, "launches": launches.get(name, 0), "max_abs_err": err,
+                "ms": ms_, "plain_ms": plain, "bound_ms": max(bound_ops, bound_bytes),
+                "bound_by": "operations" if bound_ops > bound_bytes else "bytes",
+                "library_ms": None, **extra}
+
+    rows = [
+        row("pair_channel", "pair_channel.cu", "uammd_tpu/engine/pair_kernel.py:538",
+            t["pair_channel_6ch"], plain_27, ops2, ch_bytes, errs["err_27"],
+            {"shape": "6 channels at the PSE path's final state", "pairs": pairs,
+             "ms_3ch": t["pair_channel_3ch"],
+             "note": "off the main path on the card (newton=False, and the cross-check of #10)"}),
+        row("newton_channel", "newton_channel.cu", "uammd_tpu/engine/kernel2.py:992",
+            t["newton_channel_6ch"], plain_nt, ops2, ch_bytes, errs["err_newton"],
+            {"shape": "6 channels at the PSE path's final state", "pairs": pairs,
+             "ms_3ch": t["newton_channel_3ch"], "bound_ms_3ch": channel_ops_ms(pairs, 1)}),
+        row("fold_n", "fold.cu", "uammd_tpu/engine/kernel2.py:702", t["fold_n_6ch"],
+            plain_fold, 0.0, fold_bytes, fold_err,
+            {"shape": "n = 6 at the PSE grid", "ms_3ch": t["fold_n_3ch"]}),
+    ]
+    return rows
+
+
+def pse_counters() -> dict:
+    from uammd_tpu_torch.engine import kernel2, pair_kernel, rebin_kernel
+    from uammd_tpu_torch.solvers import pencil_ibm
+
+    return {"newton_channel": kernel2.NEWTON_CHANNEL, "fold_n": kernel2.FOLD_N,
+            "pair_channel": pair_kernel.PAIR_CHANNEL, "newton_pair": kernel2.NEWTON_PAIR,
+            "fold": kernel2.FOLD, "separable_rebin": rebin_kernel.SEP_REBIN,
+            "pencil_spread": pencil_ibm.SPREAD, "pencil_interp": pencil_ibm.INTERP}
+
+
+def pse_only(dev, card) -> int:
+    """``--only-pse``: the PSE phases alone, for working on them; prints
+    no result line."""
+    errs = pse_kernel_checks(dev)
+    run = pse_main_path(dev, pse_counters())
+    print(json.dumps({"kernels": pse_breakdown(run, card, errs)}), flush=True)
+    check(not run["fails"], "; ".join(run["fails"]))
+    return 0
+
+
 def main() -> int:
     import torch
+
+    only_pse = "--only-pse" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -839,6 +1572,12 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))}),
           flush=True)
+    for name in ("newton_channel", "pair_channel"):
+        print(json.dumps({"ptxas": name, "lines": [
+            ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines()
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
+    if only_pse:
+        return pse_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -938,6 +1677,7 @@ def main() -> int:
                       "fcc_v2_mini_stragglers": sep_fcc[2]}), flush=True)
 
     fcm_errs = fcm_kernel_checks(dev)
+    pse_errs = pse_kernel_checks(dev)
 
     kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN,
                "newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
@@ -1017,6 +1757,10 @@ def main() -> int:
     # 3c. the BDHI-FCM path, with its own zeroed launch counts
     fcm_path = fcm_main_path(dev, {"pencil_spread": pencil_ibm.SPREAD,
                                    "pencil_interp": pencil_ibm.INTERP})
+
+    # 3d. the BDHI-PSE path, with its own zeroed launch counts
+    pse_path = pse_main_path(dev, pse_counters())
+    check(not pse_path["fails"], "; ".join(pse_path["fails"]))
 
     # 4. kernel times at each path's final shapes
     slot_bytes = 4 * engine.spec.n_slots
@@ -1148,6 +1892,10 @@ def main() -> int:
             launches_v2["separable_rebin"], sep_abs_err, sep_ms, sep_plain_ms, sep_bytes_ms),
     ]
     rows += fcm_breakdown(fcm_path, card, fcm_errs)
+    rows += pse_breakdown(pse_path, card, pse_errs)
+    for r in rows[:8]:  # the earlier kernels that the PSE path also runs
+        if r["name"] in pse_path["launches"]:
+            r["launches_pse_path"] = pse_path["launches"][r["name"]]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

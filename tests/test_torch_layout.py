@@ -201,6 +201,8 @@ def test_port_imports_no_jax():
         "import uammd_tpu_torch.utils.lattices\n"
         "import uammd_tpu_torch.integrators.bdhi.euler_maruyama\n"
         "import uammd_tpu_torch.interactors.external\n"
+        "import uammd_tpu_torch.integrators.bdhi.pse_engine, uammd_tpu_torch.engine.pse_near\n"
+        "import uammd_tpu_torch.solvers.lanczos, uammd_tpu_torch.integrators.bdhi.pse\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'uammd_tpu' or m.startswith('uammd_tpu.')]\n"
         "assert not bad, bad\n"

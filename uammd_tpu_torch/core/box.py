@@ -33,8 +33,14 @@ class Box:
         return torch.prod(self.size)
 
     def _mask_size(self, x):
-        mask = torch.tensor(self.periodic, dtype=x.dtype, device=x.device)
-        return mask, self.size.to(x.dtype)
+        # made once per (dtype, device): a copy to the card per call would
+        # wait for it
+        key = (x.dtype, x.device)
+        cache = self.__dict__.setdefault("_masks", {})
+        if key not in cache:
+            cache[key] = (torch.tensor(self.periodic, dtype=x.dtype, device=x.device),
+                          self.size.to(x.dtype))
+        return cache[key]
 
     def wrap(self, dr: torch.Tensor) -> torch.Tensor:
         """Minimum-image displacement (reference: Box.cuh apply_pbc)."""

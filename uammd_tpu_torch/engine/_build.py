@@ -33,10 +33,13 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source built in this process (ptxas's registers,
+# shared memory and spills per kernel, from -Xptxas -v)
+BUILD_LOGS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -73,9 +76,10 @@ def _finish(name: str, started) -> str | None:
     """Wait for nvcc; install the library, or return nvcc's log on failure."""
     proc, tmp, out = started
     log, _ = proc.communicate()
+    BUILD_LOGS[name] = log.decode(errors="replace")
     if proc.returncode != 0:
         os.unlink(tmp)
-        return f"nvcc failed for {name}.cu:\n{log.decode(errors='replace')}"
+        return f"nvcc failed for {name}.cu:\n{BUILD_LOGS[name]}"
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return None
 

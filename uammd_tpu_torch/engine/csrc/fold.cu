@@ -1,30 +1,37 @@
-// Reaction fold of the Newton pair force, for Hopper (sm_90a).
+// Reaction fold of the Newton kernels, n channels, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel uammd_tpu/engine/kernel2.py:make_fold_kernel
-// (pallas_call at :531):
-//     f[z, yb] = home[z, yb] + sum_g G_g[(z - dz_g) % nz, (yb - dyb_g) % nyb]
+// Replaces two TPU kernels of uammd_tpu/engine/kernel2.py:
+//   make_fold_kernel   (pallas_call at :531), the 3-channel fold of the
+//                      Newton pair force (entry uammd_fold), and
+//   make_fold_kernel_n (pallas_call at :702), the n-channel fold of the
+//                      Newton channel kernel (entry uammd_fold_n, n <= 6).
+// Both compute, per channel c,
+//     out_c[z, yb] = home_c[z, yb] + sum_g G_{g,c}[(z - dz_g) % nz, (yb - dyb_g) % nyb]
 // over REACTION_GROUPS = ((1,-1), (1,0), (1,1), (0,1)), added in that order
-// with __fadd_rn, so the result equals fold_reactions_jnp bit for bit.
+// with __fadd_rn, so the result equals fold_reactions_jnp /
+// fold_reactions_n_jnp bit for bit.
 //
-// Design: one thread per slot, looping over x, y, z; the group reads are
-// the same (row, lane) of a shifted (z, yb) block, so a warp reads 32
-// neighbouring floats of each of the 15 grids.
+// Design: one thread per slot, looping over the channels; the group reads
+// are the same (row, lane) of a shifted (z, yb) block, so a warp reads 32
+// neighbouring floats of each of the 5n grids.
 //
-// What bounds it: memory, 15 grid reads and 3 grid writes per call.
+// What bounds it: memory, 5n grid reads and n grid writes per call.
 
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kMaxChan = 6;
+
 struct Ins {
-  const float* p[15];  // home x, y, z; then group g component c at 3 + 3g + c
+  const float* p[5 * kMaxChan];  // home c at c; group g channel c at n + g*n + c
 };
 
 struct Outs {
-  float* p[3];
+  float* p[kMaxChan];
 };
 
-__global__ void fold_kernel(Ins in, Outs out, int nz, int nyb, int plane) {
+__global__ void fold_kernel(Ins in, Outs out, int n, int nz, int nyb, int plane) {
   const size_t total = static_cast<size_t>(nz) * nyb * plane;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -40,26 +47,37 @@ __global__ void fold_kernel(Ins in, Outs out, int nz, int nyb, int plane) {
     const int syb = (yb - gdyb[g] + nyb) % nyb;
     src[g] = (static_cast<size_t>(sz) * nyb + syb) * plane + rem;
   }
-  for (int c = 0; c < 3; ++c) {
+  for (int c = 0; c < n; ++c) {
     float acc = in.p[c][idx];
-    for (int g = 0; g < 4; ++g) acc = __fadd_rn(acc, in.p[3 + 3 * g + c][src[g]]);
+    for (int g = 0; g < 4; ++g) acc = __fadd_rn(acc, in.p[n + g * n + c][src[g]]);
     out.p[c][idx] = acc;
   }
+}
+
+int launch(void** ins, void** outs, int n, int nz, int nyb, int plane, void* stream) {
+  if (n < 1 || n > kMaxChan) return static_cast<int>(cudaErrorInvalidValue);
+  Ins in;
+  for (int k = 0; k < 5 * n; ++k) in.p[k] = static_cast<const float*>(ins[k]);
+  Outs out;
+  for (int k = 0; k < n; ++k) out.p[k] = static_cast<float*>(outs[k]);
+  const size_t total = static_cast<size_t>(nz) * nyb * plane;
+  const int threads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
+  fold_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, n, nz, nyb,
+                                                                         plane);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // ins: host array of 15 device pointers, outs: of 3; plane = CAP * NLANE.
-extern "C" int uammd_fold(void** ins, void** outs, int nz, int nyb, int plane,
-                          void* stream) {
-  Ins in;
-  for (int k = 0; k < 15; ++k) in.p[k] = static_cast<const float*>(ins[k]);
-  Outs out;
-  for (int k = 0; k < 3; ++k) out.p[k] = static_cast<float*>(outs[k]);
-  const size_t total = static_cast<size_t>(nz) * nyb * plane;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  fold_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, nz, nyb,
-                                                                         plane);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int uammd_fold(void** ins, void** outs, int nz, int nyb, int plane, void* stream) {
+  return launch(ins, outs, 3, nz, nyb, plane, stream);
+}
+
+// ins: host array of 5n device pointers (home, then the 4 groups, n each),
+// outs: of n; 1 <= n <= 6.
+extern "C" int uammd_fold_n(void** ins, void** outs, int n, int nz, int nyb, int plane,
+                            void* stream) {
+  return launch(ins, outs, n, nz, nyb, plane, stream);
 }

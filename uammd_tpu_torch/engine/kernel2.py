@@ -2,7 +2,8 @@
 
 Port of ``uammd_tpu/engine/kernel2.py``: ``make_newton_pair_kernel`` and
 ``make_fold_kernel`` (with ``fold_reactions_jnp``), ``broadcast_stragglers``
-and ``straggler_pair_forces``.
+and ``straggler_pair_forces``; and the channel forms of the PSE near field,
+``make_newton_channel_kernel`` (#10) with ``make_fold_kernel_n`` (#9).
 
 Each unordered pair of cells is visited once: the self cell plus the 13
 lexicographically positive offsets ``POS_OFFSETS``. The force on the home
@@ -20,9 +21,18 @@ slot; their forces come back reduced to [S, 3] (the JAX kernel returns
 per-program partials that its caller sums). Straggler-straggler pairs are
 O(S^2) plain torch (``straggler_pair_forces``).
 
-On CUDA tensors the wrappers launch ``csrc/newton_pair.cu`` and
-``csrc/fold.cu``; on CPU tensors they run ``newton_pair_plain`` and
-``fold_reactions_plain``.
+The Newton channel kernel does the same for per-particle payload channels
+with a pair functor that returns a forward and a reverse contribution (the
+PSE near-field RPY remainder, ``pse_near.PSENear``, the only functor so
+far): the self cell gives every ordered pair forward only, each positive
+offset gives the forward sum to home and the reverse to home or a group,
+and the straggler list goes both ways; the n-channel fold then gives n
+grids.
+
+On CUDA tensors the wrappers launch ``csrc/newton_pair.cu``,
+``csrc/fold.cu`` and ``csrc/newton_channel.cu``; on CPU tensors they run
+``newton_pair_plain``, ``fold_reactions_plain`` /
+``fold_reactions_n_plain`` and ``newton_channel_plain``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,15 @@ import torch
 from . import _build
 from .layout import GridSpec, recip32, stencil_sources
 from .md import LJFused
+from .pse_near import (
+    PSENear,
+    _strag_inv,
+    _Struct,
+    channel_launch_args,
+    channel_launch_shape,
+    check_cpu_inputs,
+    strag_channel_block,
+)
 
 _F = ctypes.c_float
 _I = ctypes.c_int
@@ -59,6 +78,12 @@ NEWTON_PAIR = _build.Kernel(
     "newton_pair", "uammd_newton_pair", [_P] * 6 + [_I] * 9 + [_F] * 7)
 # uammd_fold(ins[15], out[3], nz, nyb, plane, stream)
 FOLD = _build.Kernel("fold", "uammd_fold", [_PP, _PP, _I, _I, _I])
+# uammd_fold_n(ins[5n], out[n], n, nz, nyb, plane, stream): the same source
+FOLD_N = _build.Kernel("fold", "uammd_fold_n", [_PP, _PP, _I, _I, _I, _I])
+# uammd_newton_channel(x, y, z, ch, strag, raw, spart, nv, nx, nyb, nz, F,
+#                      cap, S, rows, kJ, Lx, Ly, Lz, iLx, iLy, iLz, near, stream)
+NEWTON_CHANNEL = _build.Kernel("newton_channel", "uammd_newton_channel",
+                               [_P] * 7 + [_I] * 9 + [_F] * 6 + [_Struct])
 
 # candidate rows staged per pass in newton_pair.cu, and its shared-memory
 # budget: 9 staged rows of NLANE floats each, plus the [4, S] stragglers
@@ -313,3 +338,175 @@ class FoldKernel:
 def make_fold_kernel(spec: GridSpec) -> FoldKernel:
     """Build ``fold(home, groups) -> (fx, fy, fz)``."""
     return FoldKernel(spec)
+
+
+def fold_reactions_n_plain(home, groups):
+    """Plain version of the n-channel fold (bit-equal to
+    ``fold_reactions_n_jnp``): ``home[c] + roll(G_g[c], (dz_g, dyb_g))``."""
+    out = list(home)
+    for (dz, dyb), g in zip(REACTION_GROUPS, groups):
+        for c in range(len(out)):
+            out[c] = out[c] + torch.roll(g[c], shifts=(dz, dyb), dims=(0, 1))
+    return tuple(out)
+
+
+class FoldNKernel:
+    """``fold(home[n], groups[4][n]) -> n grids`` for one ``GridSpec``, the
+    fold of the Newton channel kernel (n <= 6). CPU tensors go to
+    ``fold_reactions_n_plain``; CUDA tensors launch ``uammd_fold_n`` of
+    ``csrc/fold.cu`` (counted in ``FOLD_N.launches``) or raise."""
+
+    def __init__(self, spec: GridSpec, n: int):
+        if not 1 <= n <= 6:
+            raise ValueError(f"the fold takes 1 to 6 channels, not {n}")
+        self.spec = spec
+        self.n = n
+
+    def __call__(self, home, groups):
+        n = self.n
+        ins = list(home) + [c for g in groups for c in g]
+        if len(home) != n or len(groups) != 4 or len(ins) != 5 * n:
+            raise ValueError(f"fold takes {n} home grids and 4 x {n} group grids")
+        shape = self.spec.array_shape
+        if ins[0].device.type == "cpu":
+            for t in ins:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+                    raise ValueError(f"fold inputs must be float32 CPU tensors of shape {shape}")
+            return fold_reactions_n_plain(home, groups)
+        for k, t in enumerate(ins):
+            _build.check_cuda_tensor(t, f"fold input {k}", shape)
+        out = torch.empty((n,) + shape, dtype=torch.float32, device=ins[0].device)
+        nz, nyb, cap, nlane = shape
+        FOLD_N((_P * (5 * n))(*(t.data_ptr() for t in ins)),
+               (_P * n)(*(o.data_ptr() for o in out)), n, nz, nyb, cap * nlane)
+        return tuple(out)
+
+
+def make_fold_kernel_n(spec: GridSpec, n: int) -> FoldNKernel:
+    """Build ``fold(home[n], groups[4][n]) -> n grids``."""
+    return FoldNKernel(spec, n)
+
+
+def newton_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channels,
+                         strag=None):
+    """Plain PyTorch version of the Newton channel kernel (#10) with the PSE
+    near-field functor ``fn`` on ``nvec`` stacked 3-vectors.
+
+    The self cell gives every ordered pair, forward only; each positive
+    offset gathers the candidate cell into home order
+    (``stencil_sources``), adds the forward sum over candidates to home and
+    scatters the reverse (its sum over home rows) by candidate lane into
+    home or the candidate block's group, as ``newton_pair_plain`` does for
+    forces. Returns ``(home (3 nvec grids), groups (4 x 3 nvec), spart
+    [3 nvec, S] or None)``: the straggler rows' reverse sums, which the JAX
+    kernel returns as per-program partials. ``strag`` holds the rows of
+    ``broadcast_strag_channels`` (its first lane is read)."""
+    dev = x.device
+    nc = 3 * nvec
+    rows = torch.arange(spec.cap, device=dev)[None, None, :, None]
+    xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
+    ch_i = [c[:, :, :, None, :] for c in channels]
+
+    # self block: all ordered pairs of the home cell; d = 0 on the diagonal
+    dxv = x[:, :, None, :, :] - xi
+    dyv = y[:, :, None, :, :] - yi
+    dzv = z[:, :, None, :, :] - zi
+    ch_j = [c[:, :, None, :, :] for c in channels]
+    home = [t.sum(dim=3) for t in fn.pair(dxv * dxv + dyv * dyv + dzv * dzv, dxv, dyv, dzv,
+                                         ch_j, nvec)]
+    grp = {key: [torch.zeros_like(x) for _ in range(nc)] for key in REACTION_GROUPS}
+
+    f_lane = torch.arange(spec.nlane, device=dev) % spec.fold
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    for (dz, dy, dx) in POS_OFFSETS:
+        zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
+        cx = x[zs, ybs, rows, lane] + shx
+        cy = y[zs, ybs, rows, lane] + shy
+        cz = z[zs, ybs, rows, lane] + shz
+        ch_j = [c[zs, ybs, rows, lane][:, :, None] for c in channels]
+        dxv = cx[:, :, None, :, :] - xi
+        dyv = cy[:, :, None, :, :] - yi
+        dzv = cz[:, :, None, :, :] - zi
+        fwd, bwd = fn.pair_both(dxv * dxv + dyv * dyv + dzv * dzv, dxv, dyv, dzv, ch_i, ch_j,
+                                nvec)
+        sl = lane[0, 0, 0, :]
+        infold = ((f_lane + dy >= 0) & (f_lane + dy < spec.fold))[None, None, None, :]
+        target_in = home if dz == 0 else grp[(dz, 0)]
+        for c in range(nc):
+            home[c] = home[c] + fwd[c].sum(dim=3)
+            r = bwd[c].sum(dim=2)  # [nz, nyb, CAP_j, NLANE] in home-lane order
+            target_in[c].index_add_(3, sl, torch.where(infold, r, zero))
+            if dy != 0:
+                grp[(dz, dy)][c].index_add_(3, sl, torch.where(infold, zero, r))
+
+    spart = None
+    if spec.n_strag:
+        fwd, spart = strag_channel_block(spec, fn, nvec, xi, yi, zi, ch_i, strag[:, :, 0])
+        home = [h + t for h, t in zip(home, fwd)]
+    groups = tuple(tuple(grp[key]) for key in REACTION_GROUPS)
+    return tuple(home), groups, spart
+
+
+class NewtonChannelKernel:
+    """``apply(x, y, z, *channels[, strag]) -> (3 nvec folded grids) [+ (3
+    nvec straggler totals [S])]`` for one ``GridSpec``, the PSE near-field
+    functor ``fn`` and ``nvec`` (1 or 2) stacked 3-vectors: the Newton
+    channel kernel (#10) followed by the n-channel fold (#9), as the JAX
+    kernel's ``apply`` returns them; ``raw`` gives the unfolded (home,
+    groups, spart). The JAX kernel returns the straggler rows as
+    per-program partial grids that its caller sums over (z, yb, lane); here
+    they come summed. CPU tensors run ``newton_channel_plain`` and
+    ``fold_reactions_n_plain``; CUDA tensors launch ``csrc/newton_channel.cu``
+    (counted in ``NEWTON_CHANNEL.launches``) and ``uammd_fold_n`` or
+    raise."""
+
+    def __init__(self, spec: GridSpec, fn: PSENear, nvec: int = 1):
+        if not isinstance(fn, PSENear):
+            raise TypeError("the channel kernels take the PSE near-field functor "
+                            "(engine.pse_near.PSENear)")
+        if nvec not in (1, 2):
+            raise ValueError(f"nvec must be 1 or 2, not {nvec}")
+        self.spec = spec
+        self.fn = fn
+        self.nvec = nvec
+        self.fold = FoldNKernel(spec, 3 * nvec)
+
+    def raw(self, x, y, z, *channels, strag=None):
+        spec, nvec = self.spec, self.nvec
+        S = spec.n_strag
+        if S and strag is None:
+            raise ValueError("a straggler-capable spec needs the strag block")
+        if x.device.type == "cpu":
+            check_cpu_inputs(spec, nvec, x, y, z, channels, "the Newton channel kernel")
+            return newton_channel_plain(spec, self.fn, nvec, x, y, z, channels, strag)
+        ch, srows = channel_launch_args(spec, nvec, x, y, z, channels, strag,
+                                        "the Newton channel kernel")
+        rows, kj = channel_launch_shape(spec, nvec)
+        nc = 3 * nvec
+        T = spec.n_slots
+        buf = torch.zeros(5 * nc * T + nc * S, dtype=torch.float32, device=x.device)
+        raw = buf[: 5 * nc * T].view((5, nc) + spec.array_shape)
+        spart = buf[5 * nc * T:].view(nc, S)
+        nx, _, nz = spec.shape
+        P = _build.ptr
+        NEWTON_CHANNEL(
+            P(x), P(y), P(z), P(ch), P(srows) if S else _P(0), P(raw), P(spart),
+            nvec, nx, spec.nyb, nz, spec.fold, spec.cap, S, rows, kj,
+            *spec.box_size, *_strag_inv(spec), self.fn.struct(),
+        )
+        home = tuple(raw[0])
+        groups = tuple(tuple(raw[1 + g]) for g in range(4))
+        return home, groups, (spart if S else None)
+
+    def __call__(self, x, y, z, *channels, strag=None):
+        home, groups, spart = self.raw(x, y, z, *channels, strag=strag)
+        folded = self.fold(home, groups)
+        if self.spec.n_strag:
+            return tuple(folded) + tuple(spart)
+        return tuple(folded)
+
+
+def make_newton_channel_kernel(spec: GridSpec, fn: PSENear, nvec: int = 1) -> NewtonChannelKernel:
+    """Build the Newton channel kernel with its fold (see
+    ``NewtonChannelKernel``)."""
+    return NewtonChannelKernel(spec, fn, nvec)

@@ -94,6 +94,7 @@ def choose_spec(
     n_strag: int = 0,
     strag_cell_excess: int = 6,
     strag_headroom: float = 3.0,
+    ocap: int | None = OCAP,
 ) -> GridSpec:
     """Pick (nx, ny, nz), fold F and CAP for a target box/density.
 
@@ -101,12 +102,14 @@ def choose_spec(
     cells >= cutoff*skin on each axis, (nx, ny, F) minimizing the cost model
     nz * nyb * CAP_est^2 with a penalty for NLANE != max_lanes, and CAP from
     a Poisson margin or, given ``pos``, from the measured occupancy. With
-    a straggler list, ``strag_cell_excess`` (at most ``OCAP``) bounds the
-    stragglers per cell and ``strag_headroom`` the list's fill.
+    a straggler list, ``strag_cell_excess`` (at most ``ocap``, the depth
+    of the separable rebin's overflow mini-grid; None: unchecked, as the
+    PSE near grid, whose rebin latches a deeper cell) bounds the stragglers
+    per cell and ``strag_headroom`` the list's fill.
     """
-    if n_strag > 0 and strag_cell_excess > OCAP:
+    if n_strag > 0 and ocap is not None and strag_cell_excess > ocap:
         raise ValueError(f"strag_cell_excess {strag_cell_excess} exceeds the separable "
-                         f"rebin's {OCAP}-deep overflow mini-grid")
+                         f"rebin's {ocap}-deep overflow mini-grid")
     Ls = [float(s) for s in np.broadcast_to(np.asarray(box_size, float), (3,))]
     rl = cutoff * skin
     nx_nat = max(3, int(Ls[0] / rl))
@@ -413,6 +416,112 @@ def unpack(gs: GridState):
     return (torch.stack(s[0:3], dim=-1), torch.stack(s[3:6], dim=-1),
             torch.stack(s[6:9], dim=-1))
 
+
+@dataclasses.dataclass
+class ChannelGrid:
+    """Cell-resident positions plus payload channels, without integrator
+    state: the layout of the grid-resident solvers (the PSE near field).
+
+    All grid tensors are [nz, nyb, CAP, NLANE]; ``channels`` is a tuple of
+    them (zero on empty slots). With ``spec.n_strag > 0`` the straggler
+    side list is ``spos`` [S, 3] (EMPTY_POS on empties), ``schannels`` (a
+    tuple of [S], zero on empties) and ``spid`` [S] int32 (-1 = empty)."""
+
+    spec: GridSpec
+    n: int
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    channels: tuple
+    pid: torch.Tensor  # int32, -1 = empty
+    overflow: torch.Tensor  # 0-d bool
+    spos: torch.Tensor
+    schannels: tuple
+    spid: torch.Tensor
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return self.pid >= 0
+
+    @property
+    def smask(self) -> torch.Tensor:
+        return self.spid >= 0
+
+    def replace(self, **kw) -> "ChannelGrid":
+        return dataclasses.replace(self, **kw)
+
+
+def pack_channels(spec: GridSpec, pos, channels, device=None) -> ChannelGrid:
+    """Bin [N, 3] positions plus an [N, C] channel payload into the grid,
+    slot for slot as the JAX package's ``pack_channels``. Channel empties
+    are 0, so payload-linear kernels see exact zeros from empty slots; with
+    ``spec.n_strag > 0`` the occupancy tail past CAP lands in the
+    straggler list. Tensors stay on their device; numpy input goes to
+    ``device`` (default: the GPU)."""
+    dev = pos.device if torch.is_tensor(pos) else resolve_device(device)
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    n = pos.shape[0]
+    channels = torch.as_tensor(channels, dtype=torch.float32, device=dev)
+    if channels.dim() == 1:
+        channels = channels[:, None]
+    C = channels.shape[1]
+    Ls = spec.box_size
+    x, y, z = (wrap(pos[:, d], Ls[d]) for d in range(3))
+    pid = torch.arange(n, dtype=torch.int32, device=dev)
+    ck = _cell_key(spec, x, y, z, torch.ones((n,), dtype=torch.bool, device=dev))
+    cols = (x, y, z) + tuple(channels[:, c] for c in range(C)) + (pid,)
+    fills = (None, None, None) + (0.0,) * C + (None,)
+    binned, strag, ovf = _bin_columns(spec, ck, cols, fills)
+    return ChannelGrid(
+        spec=spec, n=n, x=binned[0], y=binned[1], z=binned[2],
+        channels=tuple(binned[3:3 + C]), pid=binned[3 + C], overflow=ovf,
+        spos=torch.stack(strag[0:3], dim=-1), schannels=tuple(strag[3:3 + C]),
+        spid=strag[3 + C],
+    )
+
+
+def unpack_values(cg: ChannelGrid, values, svalues=None) -> torch.Tensor:
+    """Slot-space values (a tuple of [nz, nyb, CAP, NLANE]) -> [N, k] in
+    pid order; ``svalues`` (a tuple of [S]) adds the straggler rows. JAX
+    sorts by pid; every pid occurs once, so a scatter by pid is the same
+    function (empty slots go to a dropped row N)."""
+    n = cg.n
+    idx = torch.where(cg.pid >= 0, cg.pid, n).reshape(-1).long()
+    vals = torch.stack([torch.as_tensor(v).reshape(-1) for v in values], dim=-1)
+    if svalues is not None and cg.spid.shape[0] > 0:
+        idx = torch.cat([idx, torch.where(cg.spid >= 0, cg.spid, n).long()])
+        svals = torch.stack([torch.as_tensor(s).reshape(-1) for s in svalues], dim=-1)
+        vals = torch.cat([vals, svals.to(vals.dtype)])
+    out = torch.zeros((n + 1, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    out.index_put_((idx,), vals)
+    return out[:n]
+
+
+def channel_grid_from_numpy(spec: GridSpec, fields: dict, device=None) -> ChannelGrid:
+    """A ChannelGrid on ``device`` from numpy arrays, e.g. a JAX
+    ChannelGrid's fields (``x, y, z, channels, pid, overflow, spos,
+    schannels, spid`` and ``n``)."""
+    dev = resolve_device(device)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.array(a)).to(device=dev, dtype=dtype).contiguous()
+
+    return ChannelGrid(
+        spec=spec, n=int(fields["n"]), x=t(fields["x"]), y=t(fields["y"]), z=t(fields["z"]),
+        channels=tuple(t(c) for c in fields["channels"]), pid=t(fields["pid"], torch.int32),
+        overflow=t(fields["overflow"], torch.bool), spos=t(fields["spos"]),
+        schannels=tuple(t(c) for c in fields["schannels"]), spid=t(fields["spid"], torch.int32),
+    )
+
+
+def channel_grid_to_numpy(cg: ChannelGrid) -> dict:
+    """The inverse of ``channel_grid_from_numpy``."""
+    out = {k: getattr(cg, k).detach().cpu().numpy()
+           for k in ("x", "y", "z", "pid", "overflow", "spos", "spid")}
+    out["channels"] = tuple(c.detach().cpu().numpy() for c in cg.channels)
+    out["schannels"] = tuple(c.detach().cpu().numpy() for c in cg.schannels)
+    out["n"] = cg.n
+    return out
 
 # Fields of GridState that hold arrays, in the JAX package's names.
 STATE_FIELDS = (

@@ -1,0 +1,211 @@
+"""The pair functor of the channel kernels: the PSE near-field RPY remainder.
+
+Port of ``uammd_tpu/integrators/bdhi/pse_engine.py:PSEGrid._radial_apply``
+and ``_pair_fn`` (:263-335). For a pair at d = r_j - r_i with r2 = d.d:
+
+    inside = (r2 < rc2) & (r2 > 1e-10)      (self pair and cutoff excluded)
+    q = (r2 * rsqrt(r2)) / rcut,  piece 1 if q < qb else piece 2
+    f = Horner(f-coefficients, u),  g = Horner(g-coefficients, u),
+        u = a q + b of the piece
+    v_i += f F_j + g / r2 (d . F_j) d
+
+and the reverse contribution onto j is f F_i + g / r2 (d . F_i) d (the g
+term is even in d). ``nvec`` 3-vectors ride on one radial evaluation.
+
+``PSENear`` holds the fitted constants (two pieces, f and g each, as
+power coefficients in the centred variable u) and is both the plain
+PyTorch form of the functor and the source of the constant struct that
+``csrc/pse_near.cuh`` reads. A degree below 12 is padded with leading
+zeros, which leaves every Horner step bit-identical.
+
+Also what the two channel kernels share (#2 in ``pair_kernel.py``, #10 in
+``kernel2.py``): the straggler block of their plain versions, their input
+checks and their launch shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import _build
+from .layout import GridSpec
+
+NCOEF = 13  # the highest fitted degree is 12
+
+
+class _Struct(ctypes.Structure):
+    """``struct PSENear`` of csrc/pse_near.cuh."""
+
+    _fields_ = [("c", ctypes.c_float * (4 * NCOEF))] + [
+        (k, ctypes.c_float) for k in ("a1", "b1", "a2", "b2", "qb", "rc2", "inv_rcut")]
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+@dataclasses.dataclass(frozen=True)
+class PSENear:
+    """coef = (f1, f2, g1, g2) power coefficients (lowest degree first),
+    uscale = ((a1, b1), (a2, b2)), the piece split qb = r / rcut and the
+    cutoff rcut, all as ``PSEGrid.create`` fits them."""
+
+    coef: tuple
+    uscale: tuple
+    qb: float
+    rcut: float
+
+    @property
+    def rc2(self) -> float:
+        return _f32(self.rcut * self.rcut)
+
+    def _consts(self):
+        (a1, b1), (a2, b2) = self.uscale
+        return (_f32(a1), _f32(b1), _f32(a2), _f32(b2), _f32(self.qb), self.rc2,
+                _f32(1.0 / self.rcut))
+
+    def padded(self):
+        """The four coefficient lists as float32 values, padded to NCOEF."""
+        out = []
+        for cs in self.coef:
+            if len(cs) > NCOEF:
+                raise ValueError(f"degree {len(cs) - 1} is above the kernels' {NCOEF - 1}")
+            out.append([_f32(c) for c in cs] + [0.0] * (NCOEF - len(cs)))
+        return out
+
+    def struct(self) -> _Struct:
+        st = _Struct()
+        st.c[:] = [c for cs in self.padded() for c in cs]
+        st.a1, st.b1, st.a2, st.b2, st.qb, st.rc2, st.inv_rcut = self._consts()
+        return st
+
+    def radial(self, r2):
+        """(f, g / r2), both 0 outside the cutoff and on the self pair."""
+        a1, b1, a2, b2, qb, rc2, inv_rcut = self._consts()
+        cf1, cf2, cg1, cg2 = self.padded()
+        inside = (r2 < rc2) & (r2 > 1e-10)
+        r2s = torch.where(inside, r2, torch.ones((), dtype=r2.dtype, device=r2.device))
+        rinv = torch.rsqrt(r2s)
+        q = r2s * rinv * inv_rcut
+        near = q < qb
+        u1 = a1 * q + b1
+        u2 = a2 * q + b2
+
+        def horner(cs, u):
+            acc = torch.full_like(u, cs[-1])
+            for c in cs[-2::-1]:
+                acc = acc * u + c
+            return acc
+
+        zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
+        f = torch.where(near, horner(cf1, u1), horner(cf2, u2))
+        g = torch.where(near, horner(cg1, u1), horner(cg2, u2))
+        f = torch.where(inside, f, zero)
+        ginv2 = torch.where(inside, g * (rinv * rinv), zero)
+        return f, ginv2
+
+    @staticmethod
+    def apply_dir(f, ginv2, dx, dy, dz, ch):
+        fx, fy, fz = ch
+        gc = ginv2 * (fx * dx + fy * dy + fz * dz)
+        return f * fx + gc * dx, f * fy + gc * dy, f * fz + gc * dz
+
+    def pair(self, r2, dx, dy, dz, ch_j, nvec: int):
+        """The forward contributions (3 nvec of them) onto the home rows."""
+        f, ginv2 = self.radial(r2)
+        out = ()
+        for k in range(nvec):
+            out += self.apply_dir(f, ginv2, dx, dy, dz, ch_j[3 * k: 3 * k + 3])
+        return out
+
+    def pair_both(self, r2, dx, dy, dz, ch_i, ch_j, nvec: int):
+        """(forward onto i, reverse onto j) off one radial evaluation."""
+        f, ginv2 = self.radial(r2)
+        fwd, bwd = (), ()
+        for k in range(nvec):
+            fwd += self.apply_dir(f, ginv2, dx, dy, dz, ch_j[3 * k: 3 * k + 3])
+            bwd += self.apply_dir(f, ginv2, -dx, -dy, -dz, ch_i[3 * k: 3 * k + 3])
+        return fwd, bwd
+
+
+def _strag_inv(spec: GridSpec):
+    """The straggler minimum image's float32 1/L, as the JAX channel
+    kernels take it (``np.float32(1.0 / L)``)."""
+    return tuple(float(np.float32(1.0 / L)) for L in spec.box_size)
+
+
+def strag_channel_block(spec: GridSpec, fn: PSENear, nvec: int, xi, yi, zi, ch_i, strag):
+    """Home slots against the straggler list, both directions (minimum
+    image per pair, invalid rows and empty home slots masked): returns
+    (forward [3 nvec] of [nz, nyb, CAP, NLANE], reverse [3 nvec, S]).
+    ``xi``.. are [nz, nyb, CAP, 1, NLANE], ``strag`` the [3 + 3 nvec + 1, S]
+    rows (x, y, z, channels, valid)."""
+    Lx, Ly, Lz = spec.box_size
+    iLx, iLy, iLz = _strag_inv(spec)
+    na = 3 + 3 * nvec
+    sx, sy, sz = (strag[k][None, None, None, :, None] for k in range(3))
+    ch_s = [strag[3 + k][None, None, None, :, None] for k in range(3 * nvec)]
+    sval = strag[na][None, None, None, :, None]
+    dxv, dyv, dzv = sx - xi, sy - yi, sz - zi
+    dxv = dxv - Lx * torch.round(dxv * iLx)
+    dyv = dyv - Ly * torch.round(dyv * iLy)
+    dzv = dzv - Lz * torch.round(dzv * iLz)
+    r2 = dxv * dxv + dyv * dyv + dzv * dzv
+    ok = (sval > 0.5) & (xi < 1.0e8)
+    r2m = torch.where(ok, r2, torch.full_like(r2, 1.0e18))
+    fwd, bwd = fn.pair_both(r2m, dxv, dyv, dzv, ch_i, ch_s, nvec)
+    return ([t.sum(dim=3) for t in fwd],
+            torch.stack([t.sum(dim=(0, 1, 2, 4)) for t in bwd]))
+
+
+# threads per block of the channel kernels (rows x NLANE) and their
+# shared-memory budget: 3 staged y-blocks of (3 + 3 nvec) arrays x kJ rows x
+# NLANE floats, plus the [3 + 3 nvec + 1, S] straggler rows
+CHANNEL_THREADS = 512
+CHANNEL_SMEM = 48 * 1024
+
+
+def channel_launch_shape(spec: GridSpec, nvec: int):
+    """(rows, kJ) of a channel kernel launch; raises ValueError when not
+    even one staged row fits the shared-memory budget."""
+    na = 3 + 3 * nvec
+    strag_bytes = 4 * (na + 1) * spec.n_strag
+    per_row = 4 * 3 * na * spec.nlane
+    kj = min(8, spec.cap, (CHANNEL_SMEM - strag_bytes) // per_row)
+    if kj < 1:
+        raise ValueError(
+            f"the {3 * nvec}-channel kernel needs {per_row + strag_bytes} bytes of shared "
+            f"memory at NLANE {spec.nlane} and S {spec.n_strag}, over its {CHANNEL_SMEM}")
+    rows = max(1, min(spec.cap, CHANNEL_THREADS // spec.nlane))
+    return rows, kj
+
+
+def channel_launch_args(spec: GridSpec, nvec: int, x, y, z, channels, strag, what: str):
+    """Check a channel kernel's CUDA inputs; returns (stacked channels,
+    the [3 + 3 nvec + 1, S] straggler rows or None)."""
+    shape = spec.array_shape
+    if len(channels) != 3 * nvec:
+        raise ValueError(f"{what} takes {3 * nvec} channels, got {len(channels)}")
+    for name, t in (("x", x), ("y", y), ("z", z)):
+        _build.check_cuda_tensor(t, name, shape)
+    for k, t in enumerate(channels):
+        _build.check_cuda_tensor(t, f"channel {k}", shape)
+    ch = torch.stack(channels)
+    rows_s = None
+    if spec.n_strag:
+        rows_s = strag[:, :, 0].to(torch.float32).contiguous()
+        _build.check_cuda_tensor(rows_s, "strag", (3 + 3 * nvec + 1, spec.n_strag))
+    return ch, rows_s
+
+
+def check_cpu_inputs(spec: GridSpec, nvec: int, x, y, z, channels, what: str):
+    shape = spec.array_shape
+    if len(channels) != 3 * nvec:
+        raise ValueError(f"{what} takes {3 * nvec} channels, got {len(channels)}")
+    for t in (x, y, z, *channels):
+        if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{what} inputs must be float32 CPU tensors of shape {shape}")

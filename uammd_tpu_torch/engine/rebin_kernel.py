@@ -338,6 +338,24 @@ def _compact_mini(mini: torch.Tensor, S: int):
     return spos, svel, spid.to(torch.int32), count
 
 
+def compact_mini_pids(mini: torch.Tensor, S: int):
+    """[Q, nz, nyb, ocap, NLANE] overflow mini-grid -> the dense [S]
+    straggler pids (int32, -1 = empty) and the occupied count: the pid-only
+    form of ``_compact_mini``, for callers that gather positions by pid
+    afterwards (the PSE persistent refresh). The JAX package takes
+    ``top_k`` of the 0/1 mask (ties in index order); the same cumsum rank
+    as ``_compact_mini`` gives that order without a host sync."""
+    pidf = mini[mini.shape[0] - 1].reshape(-1)
+    mask = pidf > 0.5
+    count = mask.sum()
+    rank = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    take = mask & (rank < S)
+    # entries not taken all go to the dump row S, which is dropped
+    target = torch.where(take, rank, torch.full_like(rank, S))
+    dense = torch.full((S + 1,), -1, dtype=torch.int32, device=mini.device)
+    dense.scatter_(0, target, torch.where(take, pidf.to(torch.int32) - 1, -1).to(torch.int32))
+    return dense[:S], count
+
 def rebin_fast3(gs: GridState) -> GridState:
     """Straggler-aware rebin through the separable kernel: re-absorbs the
     straggler list into cells, emits the new overflow set as the next

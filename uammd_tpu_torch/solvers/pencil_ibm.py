@@ -140,13 +140,16 @@ def bin_pencils(pos, shape, box: Box, *, cap=None) -> PencilBins:
     rank = torch.arange(m, device=dev) - first
     kept = rank < cap
     overflow = torch.any(((s_key & 1) == 0) & ~kept)
-    pids = torch.zeros(npen * cap, dtype=torch.int32, device=dev)
-    pids[(cell * cap + rank)[kept]] = s_pid[kept]
-    real = pids > 0
-    slot_of_pid = torch.zeros(n, dtype=torch.int32, device=dev)
-    slot_of_pid[pids[real].long() - 1] = torch.arange(
-        npen * cap, dtype=torch.int32, device=dev)[real]
-    return PencilBins(pids=pids.reshape(npen, cap), slot_of_pid=slot_of_pid,
+    # scatters with a dropped dump entry instead of boolean masks, so
+    # binning makes no host read
+    slots = npen * cap
+    pids = torch.zeros(slots + 1, dtype=torch.int32, device=dev)
+    pids[torch.where(kept, cell * cap + rank, slots)] = s_pid
+    pids = pids[:slots]
+    slot_of_pid = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    slot_of_pid[torch.where(pids > 0, pids.long() - 1, n)] = torch.arange(
+        slots, dtype=torch.int32, device=dev)
+    return PencilBins(pids=pids.reshape(npen, cap), slot_of_pid=slot_of_pid[:n],
                       overflow=overflow)
 
 
