@@ -53,6 +53,16 @@ Imports nothing of JAX or of the JAX package. Phases:
      against #9 at n = 3, and two controls that must fail the bound (the
      stragglers dropped, a reaction group rolled the wrong way); #5 (n_q 4,
      ocap 16), #6 and #7 at the PSE grid's shape (NLANE 114, S 192).
+   - slice D (``slice_d_kernels_vs_plain``): #2 with each of its five new
+     functors (DPD at the step counter 7, SPH density, SPH force, LJ
+     mixture, masked LJ mixture) and #1 with energy, virial and stress on,
+     within ``CHANNEL_TOL`` x max|ref| of their plain versions on small
+     jittered systems (n 4000-4096) and on tests/test_mixtures.py:67's
+     hierarchy at 8x its counts; controls that must fail that bound: DPD
+     hashed with the step off by one, SPH's force with p_j dropped, the
+     masked mixture with its mask ignored, #1's energy not halved; #1's
+     trace(stress) = virial; the Lanczos sqrt(T) e1 kernel against eigh
+     with the clamp on indefinite tridiagonals (within ``SQRT_TOL``).
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -77,6 +87,22 @@ Imports nothing of JAX or of the JAX package. Phases:
      persistent layout against a fresh pack, the sqrt identity, split
      invariance (far grid 144 against 128) and fluctuation-dissipation
      against Hashimoto's self-mobility.
+   - DPD (``main_path_dpd``): Groot-Warren water (A 25, gamma 4.5, kT 1,
+     rc 1) at N = 2^20, number density 3, from a jittered fcc lattice with
+     Maxwellian velocities of zero net momentum, dt 0.01: 100 warm-up and
+     200 timed steps. Gates: no overflow, all particles kept, the mean
+     kinetic T of the timed steps within 5 % of 1, |total momentum| / N <
+     1e-4, #2 once per step, #3 on drift, one host read per step.
+   - SPH (``main_path_sph``): examples/dambreak.py:40-41's fluid (support
+     1, viscosity 20, gas stiffness 15, rest density 1.2) as a periodic
+     bulk at the dam's spacing 0.8 (N = 2^20), velocities 0.3 N(0, 1) of
+     zero net momentum, dt 0.004: 100 + 200 steps. Gates: no overflow,
+     finite state, |total momentum| / N < 1e-4, both #2 sweeps once per
+     step, one host read per step.
+   - ``MixtureLJ.forces`` on tests/test_mixtures.py:32's binary at N = 2^20
+     (number density 0.3) and the hierarchy, against plain and timed;
+     ``lj_pressure`` on the v2 path's final state (P and E finite, #1's
+     observable mode launched, checked against plain there).
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -89,11 +115,14 @@ Imports nothing of JAX or of the JAX package. Phases:
    velocity within 10 % of m_self |g|.
 4. Time each kernel and its plain version (CUDA events, after warm-up) at
    its path's final shapes, check them against each other once more there,
-   print the v2, FCM and PSE steps' breakdowns and the kernels' JSON line
-   (eleven kernels).
+   print the v2, FCM, PSE, DPD and SPH steps' breakdowns and the kernels'
+   JSON line (eleven kernels, the five new functors of #2, #1's observable
+   mode and the Lanczos sqrt kernel).
 
-``--only-pse`` runs the build and the PSE phases alone and prints no result
-line (for work on that path).
+``--only-pse`` runs the build and the PSE phases alone, ``--only-slice-d``
+the build and slice D's phases (the observables on the v2 engine's
+jittered fcc start); neither prints a result line (for work on those
+paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -1131,41 +1160,11 @@ def pse_run(dev, counted, n_strag, far_cap_extra):
 
 
 def host_reads_per_step(run) -> list:
-    """The synchronising CUDA calls of HOST_READ_STEPS persistent steps,
-    found by PyTorch's sync debug mode: for each, the innermost frame of the
-    repo's code (file:line) that led to it."""
-    import gc
-    import traceback
-    import warnings
-    import torch
-
+    """The synchronising CUDA calls of HOST_READ_STEPS persistent steps
+    (``host_reads``)."""
     be, st = run["be"], run["st"]
-    where = []
-
-    def show(message, category, filename, lineno, *args, **kw):
-        if "synchroniz" in str(message):
-            frames = [f for f in traceback.extract_stack()[:-1]
-                      if "uammd_tpu_torch" in f.filename or "chip_smoke" in f.filename]
-            f = frames[-1] if frames else None
-            where.append(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}" if f else
-                         f"{filename.rsplit('/', 1)[-1]}:{lineno}")
-
-    # garbage from the earlier phases is freed first, so that no finalizer
-    # runs inside the counted steps
-    gc.collect()
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            for _ in range(HOST_READ_STEPS):
-                be.displacement_with_pair_force_persistent(run["fs"], run["pos"], run["gen"],
-                                                           PSE_DT, PSE_T, st)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return where
+    return host_reads(lambda: be.displacement_with_pair_force_persistent(
+        run["fs"], run["pos"], run["gen"], PSE_DT, PSE_T, st), HOST_READ_STEPS)
 
 
 def pse_main_path(dev, counted):
@@ -1194,14 +1193,12 @@ def pse_main_path(dev, counted):
     gate(bool(p.isfinite().all()), "PSE path: all positions finite")
     t = run["timed"]
     for k, need in (("newton_channel", m), ("fold_n", m), ("newton_pair", 1), ("fold", 1),
-                    ("pencil_spread", 1), ("pencil_interp", 1)):
+                    ("pencil_spread", 1), ("pencil_interp", 1), ("lanczos_sqrt", 1)):
         gate(t[k] >= need * PSE_TIMED,
               f"PSE path: {k} launched {t[k]} >= {need} x {PSE_TIMED} times in the timed steps")
     gate(t["separable_rebin"] >= 1, "PSE path: the near rebin #5 ran in the timed window")
     reads = host_reads_per_step(run)
-    # a sync with no frame of the port's code on the stack is not the
-    # step's (one shows up once, on the first counted call)
-    reads_per_step = sum(1 for r in reads if not r.startswith("chip_smoke")) / HOST_READ_STEPS
+    reads_per_step = len(reads) / HOST_READ_STEPS
 
     # T = 0: the fused displacement equals dt x compute_mf (same binning)
     gen_f = torch.Generator(device=dev)
@@ -1524,7 +1521,10 @@ def pse_counters() -> dict:
     from uammd_tpu_torch.engine import kernel2, pair_kernel, rebin_kernel
     from uammd_tpu_torch.solvers import pencil_ibm
 
+    from uammd_tpu_torch.solvers import lanczos
+
     return {"newton_channel": kernel2.NEWTON_CHANNEL, "fold_n": kernel2.FOLD_N,
+            "lanczos_sqrt": lanczos.LANCZOS_SQRT,
             "pair_channel": pair_kernel.PAIR_CHANNEL, "newton_pair": kernel2.NEWTON_PAIR,
             "fold": kernel2.FOLD, "separable_rebin": rebin_kernel.SEP_REBIN,
             "pencil_spread": pencil_ibm.SPREAD, "pencil_interp": pencil_ibm.INTERP}
@@ -1540,10 +1540,765 @@ def pse_only(dev, card) -> int:
     return 0
 
 
+# ------------------------------------------------ slice D: DPD, SPH, LJ mixtures, observables
+# DPD: Groot-Warren water (J. Chem. Phys. 107, 4423 (1997); the parameters of
+# tests/test_engine_dpd.py:36) at number density 3
+DPD_RHO = 3.0
+DPD_L = (N / DPD_RHO) ** (1.0 / 3.0)
+DPD_KW = dict(rc=1.0, A=25.0, gamma=4.5, temperature=1.0, dt=0.01)
+# SPH: the fluid of examples/dambreak.py:40-41 (the reference's
+# misc/dambreak.cu) as a periodic bulk at the dam's particle spacing 0.8,
+# velocities 0.3 N(0, 1) as tests/test_engine_sph.py:17-23 draws them, at
+# the dam break's dt
+SPH_RHO = 1.0 / 0.8 ** 3
+SPH_L = (N / SPH_RHO) ** (1.0 / 3.0)
+SPH_KW = dict(support=1.0, viscosity=20.0, gas_stiffness=15.0, rest_density=1.2)
+SPH_DT, SPH_V0 = 0.004, 0.3
+D_WARM, D_TIMED = 100, 200
+D_HOST_READ_STEPS = 3
+DPD_T_TOL = 0.05
+MOMENTUM_TOL = 1e-4  # |total momentum| / N
+# LJ mixtures: tests/test_mixtures.py:32-41's binary (eps 1.0 / 0.5, sigma
+# 1.0 / 1.6, cut_scale 2.5) at number density 0.3; the two-grid hierarchy at
+# 8x the counts of test_mixtures.py:67-80 in a box twice as wide
+MIX_RHO = 0.3
+MIX_L = (N / MIX_RHO) ** (1.0 / 3.0)
+MIX_CUT = 2.5
+HIER_L, HIER_SMALL, HIER_LARGE = 72.0, 2400, 128
+# float32 operations per pair inside the functor's cutoff, each pair once
+# and both directions (on top of OPS_PAIR_TEST per candidate pair), and
+# the DPD hash's 32-bit integer operations, which Hopper issues at half the
+# float32 rate (64 INT32 lanes against 128 FP32 lanes per SM, NVIDIA's
+# Hopper white paper). DPD: rsqrt, w, v.r, the variate, the force and its
+# sums into both particles (36); the three hashes, min/max and conversions
+# (121 integer). SPH density: sqrt, q, the spline and its sums (17); SPH
+# force: dv.dr, viscosity, sqrt, q, dW/dq, the force and its sums (41); LJ
+# mixture: mixing, per-pair cutoff, clamp, radial and sums (25, masked 27).
+# #1's observable mode adds the energy, virial and six stress sums (37) to
+# OPS_PAIR_FORCE.
+OPS_DPD, OPS_DPD_INT = 36, 121
+OPS_SPH_DENSITY, OPS_SPH_FORCE = 17, 41
+OPS_LJ_MIX, OPS_LJ_MIX_MASKED = 25, 27
+OPS_PAIR_OBS = OPS_PAIR_FORCE + 37
+# float64 peak outside the tensor cores (H100 SXM data sheet), for the
+# Lanczos eigensolve (about 9 m^3 operations)
+PEAK_FP64_FLOPS = 34e12
+SQRT_TOL = 1e-10
+
+
+def fcc_start(n, L, jitter, seed):
+    """fcc sites moved by a Gaussian of ``jitter`` per axis (numpy)."""
+    import numpy as np
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    rng = np.random.default_rng(seed)
+    return np.asarray(lattice(n, L, "fcc")) + jitter * rng.standard_normal((n, 3))
+
+
+def zero_momentum(n, scale, seed):
+    """``scale`` N(0, 1) velocities with their mean removed (numpy float32)."""
+    import numpy as np
+
+    v = scale * np.random.default_rng(seed).standard_normal((n, 3))
+    return (v - v.mean(axis=0)).astype(np.float32)
+
+
+def outs_err(ref, test) -> float:
+    """max|d| over every output / max|ref|."""
+    scale = max(float(a.abs().max()) for a in ref)
+    return max(float((a - b).abs().max()) for a, b in zip(ref, test)) / scale
+
+
+def check_functor(spec, fn, args, what, control=None, info=None):
+    """#2 with ``fn`` against its plain version on ``args`` (x, y, z,
+    channels), max|d| < CHANNEL_TOL x max|ref|; ``control`` (a
+    JAX-signature pair_fn with a planted fault) must fail the bound.
+    Returns (rel err, control rel err, max abs err).
+
+    With ``info`` (a dict, filled in) the bound's scale is instead the
+    largest per-slot sum of the terms' magnitudes, sum_j |term_ij|: a sum
+    whose terms cancel (SPH's pressure force in a uniform bulk) differs
+    between two float32 summation orders by a few ulp of that scale, not of
+    its small result. ``info`` also gets the max|ref| ratio and both
+    float32 versions against a float64 plain evaluation."""
+    from uammd_tpu_torch.engine import pair_kernel
+
+    got = pair_kernel.make_pair_channel_kernel(spec, fn)(*args)
+    want = pair_kernel.channel_plain(spec, fn, fn.n_out, *args[:3], args[3:])
+    for a in got:
+        check(bool(a.isfinite().all()), f"{what}: outputs finite")
+    err_abs = max(float((a - b).abs().max()) for a, b in zip(want, got))
+    scale = max(float(a.abs().max()) for a in want)
+    if info is not None:
+        absum = pair_kernel.channel_plain(
+            spec, lambda *a: tuple(t.abs() for t in fn(*a)), fn.n_out, *args[:3], args[3:])
+        f64 = pair_kernel.channel_plain(spec, fn, fn.n_out, *(a.double() for a in args[:3]),
+                                        [c.double() for c in args[3:]])
+        info.update({"rel_err_vs_max_ref": err_abs / scale,
+                     "rel_err_vs_float64_plain": {"kernel": outs_err(f64, got),
+                                                  "plain": outs_err(f64, want)}})
+        scale = max(float(a.max()) for a in absum)
+        info["scale_sum_abs_terms"] = scale
+        del absum, f64
+    err = err_abs / scale
+    check(err < CHANNEL_TOL, f"{what}: #2 vs plain {err:.3g} < {CHANNEL_TOL}")
+    c = None
+    if control is not None:
+        wrong = pair_kernel.channel_plain(spec, control, fn.n_out, *args[:3], args[3:])
+        c = max(float((a - b).abs().max()) for a, b in zip(wrong, got)) / scale
+        check(c > CHANNEL_TOL, f"{what}: control fails the bound ({c:.3g})")
+    return err, c, err_abs
+
+
+def dpd_args(md, gs):
+    return (gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz, gs.pid.float(), gs.step.float())
+
+
+def sph_args(md, gs):
+    """The channels of both SPH sweeps at ``gs``: (density args, force args)."""
+    import numpy as np
+    import torch
+
+    p = md.params
+    m = gs.mask
+    mch = md._mass_channel(gs)
+    rho = md.density(gs)
+    rho_s = torch.where(m, rho, torch.ones_like(rho))
+    pr = float(np.float32(p.gas_stiffness)) * (rho_s - float(np.float32(p.rest_density)))
+    pdr = torch.where(m, pr / (rho_s * rho_s), torch.zeros_like(rho))
+    return (gs.x, gs.y, gs.z, mch), (gs.x, gs.y, gs.z, pdr, gs.vx, gs.vy, gs.vz, mch)
+
+
+def dpd_control(fn):
+    """DPD hashed with the step counter off by one."""
+    return lambda r2, dx, dy, dz, ci, cj: fn(r2, dx, dy, dz, ci[:4] + [ci[4] + 1.0], cj)
+
+
+def sph_control(fn):
+    """SPH's force with p_j dropped."""
+    import torch
+
+    return lambda r2, dx, dy, dz, ci, cj: fn(r2, dx, dy, dz, ci,
+                                             [torch.zeros_like(cj[0])] + list(cj[1:]))
+
+
+def mix_control(fn_plain):
+    """The masked mixture with the small-small mask ignored."""
+    return lambda r2, dx, dy, dz, ci, cj: fn_plain(r2, dx, dy, dz, ci[:2], cj[:2])
+
+
+def hierarchy_system():
+    """HIER_SMALL sigma-0.5 and HIER_LARGE sigma-4 particles placed uniformly
+    at random in the HIER_L box, each rejected while it sits closer than
+    0.9 sigma_ij to one placed before (the test's uniform placement without
+    the deep overlaps whose clamped forces would swamp a relative bound):
+    every pair class interacts."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    sigma = np.concatenate([np.full(HIER_LARGE, 4.0), np.full(HIER_SMALL, 0.5)])
+    eps = np.concatenate([np.full(HIER_LARGE, 0.6), np.full(HIER_SMALL, 1.0)])
+    pos = np.zeros((len(sigma), 3))
+    for i in range(len(sigma)):
+        while True:
+            p = (rng.random(3) - 0.5) * HIER_L
+            d = pos[:i] - p
+            d -= HIER_L * np.round(d / HIER_L)
+            if not ((d * d).sum(1) < (0.45 * (sigma[:i] + sigma[i])) ** 2).any():
+                break
+        pos[i] = p
+    return pos.astype(np.float32), eps, sigma
+
+
+def obs_check(gs, what):
+    """#1's observable mode against its plain version on a repack of
+    ``gs`` (every output within CHANNEL_TOL x its max|ref|), trace(stress)
+    = virial, and the control (the energy not halved) that must fail."""
+    from uammd_tpu_torch.engine import layout, md, pair_kernel
+
+    pos = layout.unpack(gs)[0]
+    spec0 = layout.choose_spec(gs.spec.box_size, gs.n, gs.spec.cutoff, skin=gs.spec.skin,
+                               pos=pos.cpu().numpy(), n_strag=0)
+    g0 = layout.pack(spec0, pos, device=gs.device)
+    kern = pair_kernel.make_pair_force_kernel(spec0, md.lj_g(), md.lj_e(), compute_virial=True,
+                                              compute_stress=True)
+    got = kern(g0.x, g0.y, g0.z)
+    want = pair_kernel.pair_force_plain(spec0, md.lj_g(), g0.x, g0.y, g0.z, e_fn=md.lj_e(),
+                                        compute_virial=True, compute_stress=True)
+    m = g0.mask
+    errs = []
+    for a, b in zip(got, want):
+        errs.append(float((a[m] - b[m]).abs().max() / b[m].abs().max()))
+    err = max(errs)
+    check(err < CHANNEL_TOL, f"{what}: #1 observables vs plain {err:.3g} < {CHANNEL_TOL}")
+    vir = got[4][m]
+    trace = (got[5] + got[8] + got[10])[m]
+    tr = float((trace - vir).abs().max() / vir.abs().max())
+    check(tr < CHANNEL_TOL, f"{what}: trace(stress) = virial {tr:.3g} < {CHANNEL_TOL}")
+    c = float((got[3][m] - 2.0 * want[3][m]).abs().max() / want[3][m].abs().max())
+    check(c > CHANNEL_TOL, f"{what}: control, the energy not halved, fails ({c:.3g})")
+    return {"rel_err": err, "trace_vs_virial": tr, "control_energy_not_halved": c,
+            "max_abs_err": max(float((a[m] - b[m]).abs().max()) for a, b in zip(got, want)),
+            "spec": list(spec0.array_shape)}, g0, kern
+
+
+def lanczos_checks(dev):
+    """The Jacobi sqrt(T) e1 kernel against eigh with the clamp on
+    indefinite tridiagonals (the 2 x 2 of ROADMAP's fault 1 and random ones
+    up to m 48)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.solvers import lanczos
+
+    errs = {}
+    for e in (1e-7, 1e-4):
+        a = torch.tensor([0.5, 0.5], dtype=torch.float64)
+        b = torch.tensor([0.0, 0.5 + e], dtype=torch.float64)
+        got = lanczos._sqrt_e1(a.to(dev), b.to(dev), 2).cpu()
+        want = lanczos.sqrt_e1_plain(a, b, 2)
+        check(bool(got.isfinite().all()), f"sqrt(T) e1 finite on the indefinite 2 x 2 (e {e})")
+        errs[f"2x2_e{e}"] = float((got - want).abs().max())
+        check(errs[f"2x2_e{e}"] < SQRT_TOL, f"sqrt(T) e1 2 x 2 (e {e}) vs eigh")
+    rng = np.random.default_rng(5)
+    for m in (4, 16, 48):
+        a, b = torch.tensor(rng.normal(size=m)), torch.tensor(rng.normal(size=m))
+        got = lanczos._sqrt_e1(a.to(dev), b.to(dev), m).cpu()
+        want = lanczos.sqrt_e1_plain(a, b, m)
+        errs[f"random_m{m}"] = float((got - want).abs().max() / want.abs().max())
+        check(errs[f"random_m{m}"] < SQRT_TOL,
+              f"sqrt(T) e1 on an indefinite m {m} vs eigh {errs[f'random_m{m}']:.3g}")
+    return errs
+
+
+def slice_d_kernel_checks(dev):
+    """Phase 2d: the five new functors of #2 and #1's observable mode against
+    their plain versions on small systems, with a control each that must
+    fail the bound; the Lanczos sqrt kernel on indefinite tridiagonals."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout, mixtures
+    from uammd_tpu_torch.engine.dpd import GridDPD
+    from uammd_tpu_torch.engine.sph import GridSPH
+    from uammd_tpu_torch.interactors.sph import SPHParams
+
+    out = {"phase": "slice_d_kernels_vs_plain", "tol": CHANNEL_TOL}
+    n = 4000
+    L = (n / DPD_RHO) ** (1.0 / 3.0)
+    pos = fcc_start(n, L, 0.1, 1)
+    md = GridDPD.create(L, n, pos=pos, device=dev, **DPD_KW)
+    gs = layout.pack(md.spec, pos, vel=zero_momentum(n, 1.0, 2), device=dev).replace(
+        step=torch.tensor(7, dtype=torch.int32, device=dev))
+    out["dpd_n4000"] = check_functor(md.spec, md.kern.fn, dpd_args(md, gs), "DPD n 4000",
+                                     dpd_control(md.kern.fn))[:2]
+    L = (n / SPH_RHO) ** (1.0 / 3.0)
+    pos = fcc_start(n, L, 0.1, 3)
+    ms = GridSPH.create(L, n, SPHParams(**SPH_KW), dt=SPH_DT, pos=pos, device=dev)
+    gs = layout.pack(ms.spec, pos, vel=zero_momentum(n, SPH_V0, 4), device=dev)
+    a_rho, a_f = sph_args(ms, gs)
+    out["sph_density_n4000"] = check_functor(ms.spec, ms.rho_kern.fn, a_rho,
+                                             "SPH density n 4000")[:2]
+    out["sph_force_n4000"] = check_functor(ms.spec, ms.f_kern.fn, a_f, "SPH force n 4000",
+                                           sph_control(ms.f_kern.fn))[:2]
+    L = (n / MIX_RHO) ** (1.0 / 3.0)
+    pos = fcc_start(n, L, 0.1, 5)
+    rng = np.random.default_rng(6)
+    t = rng.integers(0, 2, n)
+    eps, sig = np.where(t == 0, 1.0, 0.5), np.where(t == 0, 1.0, 1.6)
+    mx = mixtures.MixtureLJ.create(L, n, eps, sig, cut_scale=MIX_CUT, device=dev)
+    cg = layout.pack_channels(mx.spec, torch.tensor(pos, dtype=torch.float32, device=dev),
+                              mixtures._channels(eps, sig, dev))
+    out["lj_mix_n4000"] = check_functor(mx.spec, mx.kern.fn, (cg.x, cg.y, cg.z, *cg.channels),
+                                        "LJ mixture n 4000")[:2]
+    pos, eps, sig = hierarchy_system()
+    mh = mixtures.MixtureLJHierarchical.create(HIER_L, len(pos), eps, sig, cut_scale=MIX_CUT,
+                                               device=dev)
+    flag = torch.zeros(len(pos), dtype=torch.float32, device=dev)
+    flag[list(mh.small_idx)] = 1.0
+    cg = layout.pack_channels(mh.coarse_spec, torch.tensor(pos, device=dev),
+                              mixtures._channels(eps, sig, dev, flag))
+    fn = mh.kern_coarse.fn
+    out["lj_mix_masked_hierarchy"] = check_functor(
+        mh.coarse_spec, fn, (cg.x, cg.y, cg.z, *cg.channels), "masked LJ mixture hierarchy",
+        mix_control(mixtures.LJMixturePair(MIX_CUT)))[:2]
+    fine = mh.fine
+    cgf = layout.pack_channels(fine.spec, torch.tensor(pos[list(mh.small_idx)], device=dev),
+                               mixtures._channels(eps[list(mh.small_idx)],
+                                                  sig[list(mh.small_idx)], dev))
+    out["lj_mix_fine_grid"] = check_functor(fine.spec, fine.kern.fn,
+                                            (cgf.x, cgf.y, cgf.z, *cgf.channels),
+                                            "LJ mixture fine grid")[:2]
+    # #1 with every output on a jittered sc lattice at rho 0.5 (spacing
+    # 1.26, no pair closer than 0.86)
+    n1 = 4096
+    L1 = (n1 / 0.5) ** (1.0 / 3.0)
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    p1 = np.asarray(lattice(n1, L1, "sc")) + np.random.default_rng(8).uniform(
+        -0.2, 0.2, (n1, 3))
+    g1 = layout.pack(layout.choose_spec(L1, n1, 2.5, pos=p1), p1, device=dev)
+    out["pair_force_obs_n4096"] = obs_check(g1, "#1 observables n 4096")[0]
+    out["lanczos_sqrt"] = lanczos_checks(dev)
+    out["ok"] = True
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def host_reads(step, steps: int) -> list:
+    """The synchronising CUDA calls of ``steps`` calls of ``step()``, found
+    by PyTorch's sync debug mode: for each, the innermost frame of the
+    repo's code (file:line) that led to it. A sync with no frame of the
+    port's code on the stack is not the step's (one shows up once, on the
+    first counted call), so chip_smoke's own frames are left out; garbage
+    from earlier phases is freed first, so that no finalizer runs inside
+    the counted steps."""
+    import gc
+    import traceback
+    import warnings
+    import torch
+
+    where = []
+
+    def show(message, category, filename, lineno, *args, **kw):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "uammd_tpu_torch" in f.filename or "chip_smoke" in f.filename]
+            f = frames[-1] if frames else None
+            where.append(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}" if f else
+                         f"{filename.rsplit('/', 1)[-1]}:{lineno}")
+
+    gc.collect()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [w for w in where if not w.startswith("chip_smoke")]
+
+
+def engine_path(what, md, gs, counted, per_step, on_drift, t_fn=None):
+    """D_WARM + D_TIMED steps of a DPD or SPH engine with the launch counts
+    zeroed just before; the mean of ``t_fn`` over the timed steps is kept on
+    the card. Returns the run's record."""
+    import torch
+
+    for k in counted.values():
+        k.launches = 0
+    for _ in range(D_WARM):
+        gs = md.step(gs)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in counted.items()}
+    rebins = counted["rebin"].launches
+    t_sum = torch.zeros((), dtype=torch.float64, device=gs.device)
+    t0 = time.perf_counter()
+    for _ in range(D_TIMED):
+        gs = md.step(gs)
+        if t_fn is not None:
+            t_sum += t_fn(gs)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    timed = {k: launches[k] - before[k] for k in counted}
+    rebins = counted["rebin"].launches - rebins
+    reads = host_reads(lambda: md.step(gs), D_HOST_READ_STEPS)
+    n_kept = int((gs.pid >= 0).sum())
+    mom = [float(a.double().sum()) / N for a in (gs.vx, gs.vy, gs.vz)]
+    check(not bool(gs.overflow), f"{what}: no overflow")
+    check(n_kept == N, f"{what}: all particles kept: {n_kept} == {N}")
+    check(all(bool(a.isfinite().all()) for a in (gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz)),
+          f"{what}: positions and velocities finite")
+    check(max(abs(p) for p in mom) < MOMENTUM_TOL,
+          f"{what}: |total momentum| / N {mom} < {MOMENTUM_TOL}")
+    for k in per_step:
+        check(timed[k] == D_TIMED, f"{what}: {k} launched {timed[k]} == {D_TIMED} times")
+    for k in on_drift:
+        check(timed[k] >= 1, f"{what}: {k} launched on drift ({timed[k]} >= 1)")
+    reads_per_step = len(reads) / D_HOST_READ_STEPS
+    check(reads_per_step <= 1, f"{what}: {reads_per_step} host reads per step {reads}")
+    return {"gs": gs, "timed_s": timed_s, "ms": 1e3 * timed_s / D_TIMED,
+            "launches": launches, "timed": timed, "rebins": rebins,
+            "t_mean": float(t_sum) / D_TIMED if t_fn is not None else None,
+            "momentum_per_particle": mom, "host_reads_per_step": reads_per_step,
+            "host_reads_at": reads, "particles_kept": n_kept}
+
+
+def dpd_main_path(dev):
+    """Phase 3e: Groot-Warren water at N = 2^20, number density 3."""
+    from uammd_tpu_torch.engine import pair_kernel, rebin_kernel
+    from uammd_tpu_torch.engine.dpd import GridDPD
+
+    # jitter 0.13: a start near the liquid's potential energy, so that the
+    # kinetic temperature settles within the warm-up (a near-perfect lattice
+    # starts cold, a strongly jittered one hot, and either takes a few time
+    # units to relax)
+    pos = fcc_start(N, DPD_L, 0.13, 11)
+    t0 = time.perf_counter()
+    md = GridDPD.create(DPD_L, N, pos=pos, device=dev, **DPD_KW)
+    gs = md.init(pos, vel=zero_momentum(N, math.sqrt(DPD_KW["temperature"]), 12))
+    counted = {"pair_channel_dpd": pair_kernel.PAIR_CHANNEL_DPD, "rebin": rebin_kernel.REBIN}
+    setup_s = time.perf_counter() - t0
+    run = engine_path("DPD path", md, gs, counted, ["pair_channel_dpd"], ["rebin"],
+                      t_fn=md.temperature_of)
+    t = run["t_mean"]
+    check(abs(t - DPD_KW["temperature"]) < DPD_T_TOL * DPD_KW["temperature"],
+          f"DPD path: mean kinetic T {t:.4f} within {DPD_T_TOL:.0%} of 1")
+    out = {"phase": "main_path_dpd", "n": N, "box": DPD_L, "density": DPD_RHO, **DPD_KW,
+           "spec": list(md.spec.array_shape), "warmup_steps": D_WARM, "timed_steps": D_TIMED,
+           "setup_seconds": setup_s, "timed_seconds": run["timed_s"], "ms_per_step": run["ms"],
+           "particle_steps_per_s": N * D_TIMED / run["timed_s"],
+           "temperature_mean_timed": t, "momentum_per_particle": run["momentum_per_particle"],
+           "particles_kept": run["particles_kept"], "overflow": False,
+           "rebins_timed": run["rebins"], "launches": run["launches"],
+           "timed_launches": run["timed"], "host_reads_per_step": run["host_reads_per_step"],
+           "host_reads_at": run["host_reads_at"],
+           "note": "the timed steps include summing the kinetic temperature on the card"}
+    print(json.dumps(out), flush=True)
+    run["md"] = md
+    return run
+
+
+def sph_main_path(dev):
+    """Phase 3f: the dam break's fluid as a periodic bulk at N = 2^20."""
+    from uammd_tpu_torch.engine import pair_kernel, rebin_kernel
+    from uammd_tpu_torch.engine.sph import GridSPH
+    from uammd_tpu_torch.interactors.sph import SPHParams
+
+    pos = fcc_start(N, SPH_L, 0.05, 13)
+    t0 = time.perf_counter()
+    md = GridSPH.create(SPH_L, N, SPHParams(**SPH_KW), dt=SPH_DT, pos=pos, device=dev)
+    gs = md.init(pos, vel=zero_momentum(N, SPH_V0, 14))
+    counted = {"pair_channel_sph_density": pair_kernel.PAIR_CHANNEL_SPH_DENSITY,
+               "pair_channel_sph_force": pair_kernel.PAIR_CHANNEL_SPH_FORCE,
+               "rebin": rebin_kernel.REBIN}
+    setup_s = time.perf_counter() - t0
+    run = engine_path("SPH path", md, gs, counted,
+                      ["pair_channel_sph_density", "pair_channel_sph_force"], [])
+    rho = md.density(run["gs"])[run["gs"].mask]
+    out = {"phase": "main_path_sph", "n": N, "box": SPH_L, "number_density": SPH_RHO,
+           **SPH_KW, "dt": SPH_DT, "spec": list(md.spec.array_shape), "warmup_steps": D_WARM,
+           "timed_steps": D_TIMED, "setup_seconds": setup_s, "timed_seconds": run["timed_s"],
+           "ms_per_step": run["ms"], "particle_steps_per_s": N * D_TIMED / run["timed_s"],
+           "momentum_per_particle": run["momentum_per_particle"],
+           "density_mean_min_max": [float(rho.mean()), float(rho.min()), float(rho.max())],
+           "particles_kept": run["particles_kept"], "overflow": False,
+           "rebins_timed": run["rebins"], "launches": run["launches"],
+           "timed_launches": run["timed"], "host_reads_per_step": run["host_reads_per_step"],
+           "host_reads_at": run["host_reads_at"]}
+    print(json.dumps(out), flush=True)
+    run["md"] = md
+    return run
+
+
+def functor_pairs(spec, x, y, z, pid, rc2_of) -> dict:
+    """The channel kernel's work on a state: unordered candidate pairs of
+    distinct particles in one 27-cell stencil, and those inside the
+    functor's cutoff (``rc2_of(i_slot_index, j_gather)`` gives the per-pair
+    cutoff squared; a float for a fixed one)."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+
+    rows = torch.arange(spec.cap, device=x.device)[None, None, :, None]
+    pid_i = pid[:, :, :, None, :]
+    home = [a[:, :, :, None, :] for a in (x, y, z)]
+    cand = inside = 0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                zs, ybs, lane, shifts = layout.stencil_sources(spec, dz, dy, dx, x.device)
+                pid_j = pid[zs, ybs, rows, lane][:, :, None]
+                both = (pid_i >= 0) & (pid_j >= 0) & (pid_i != pid_j)
+                r2 = sum(((a[zs, ybs, rows, lane] + s)[:, :, None] - h) ** 2
+                         for a, s, h in zip((x, y, z), shifts, home))
+                rc2 = rc2_of((zs, ybs, rows, lane)) if callable(rc2_of) else rc2_of
+                cand += int(both.sum())
+                inside += int((both & (r2 < rc2)).sum())
+    return {"candidates": cand // 2, "inside": inside // 2}
+
+
+def functor_row(name, rep, launches, err_abs, ms, plain_ms, pairs, ops, n_io, spec,
+                int_ops=0, extra=None):
+    """A kernels-line row for one #2 functor instantiation: the bound is the
+    larger of the operations (OPS_PAIR_TEST per candidate pair, ``ops``
+    float32 and ``int_ops`` integer operations per pair inside) and the
+    bytes (``n_io`` grids in and out)."""
+    ops_ms = 1e3 * ((OPS_PAIR_TEST * pairs["candidates"] + ops * pairs["inside"])
+                    / PEAK_FP32_FLOPS + int_ops * pairs["inside"] / (PEAK_FP32_FLOPS / 2))
+    bytes_ms = 1e3 * 4 * n_io * spec.n_slots / PEAK_HBM_BYTES
+    return {"name": name, "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/pair_channel.cu (+ channel_functors.cuh)",
+            "replaces": rep, "launches": launches, "max_abs_err": err_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "library_ms": None,
+            "pairs": pairs, **(extra or {})}
+
+
+def engine_breakdown(what, run, card, parts):
+    """Each part of a DPD / SPH step timed alone with CUDA events at the
+    path's final state, times its calls per step; ``parts`` holds the
+    channel-kernel sweeps' ms."""
+    import torch
+    from uammd_tpu_torch.engine.dpd import force_kick, kick_drift
+    from uammd_tpu_torch.engine.rebin_kernel import rebin_fast_noforce
+
+    md, gs = run["md"], run["gs"]
+    t, calls = dict(parts), {k: 1.0 for k in parts}
+    kd = cuda_ms(lambda: kick_drift(md, gs), reps=20)
+    t["update"] = kd + cuda_ms(lambda: force_kick(md, gs), reps=10) - sum(parts.values())
+    t["rebin"] = cuda_ms(lambda: rebin_fast_noforce(gs), reps=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        float(kick_drift(md, gs)[1])
+    t["drift_read"] = 1e3 * (time.perf_counter() - t0) / 20 - kd
+    calls.update({"update": 1.0, "rebin": run["rebins"] / D_TIMED, "drift_read": 1.0})
+    per_step = {k: t[k] * calls[k] for k in t}
+    print(json.dumps({
+        "phase": f"breakdown_{what}", "card": card, "ms_per_step": run["ms"],
+        "ms_per_call": t, "calls_per_step": calls, "ms_per_step_by_part": per_step,
+        "shares": {k: v / run["ms"] for k, v in per_step.items()},
+        "rest_ms": run["ms"] - sum(per_step.values()),
+        "note": "CUDA events on an idle card; update = both half kicks, the drift and the "
+                "pressure (SPH) without the sweeps; drift_read = host clock around a fresh "
+                "drift and its read, minus the drift's device time"}), flush=True)
+
+
+def slice_d_paths(dev, card, gs2, engine2):
+    """Phases 3e-3h and 4d: the DPD and SPH paths, the mixtures at N = 2^20
+    and the two-grid hierarchy, the observables on the v2 LJ path's final
+    state; the kernels at each one's final state; returns the kernels-line
+    rows of #2's five functors and #1's observable mode."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout, mixtures, pair_kernel
+    from uammd_tpu_torch.engine.observe import lj_pressure
+
+    rows = []
+    # DPD
+    dpd = dpd_main_path(dev)
+    md, gs = dpd["md"], dpd["gs"]
+    args = dpd_args(md, gs)
+    err, c, err_abs = check_functor(md.spec, md.kern.fn, args, "DPD path final state",
+                                    dpd_control(md.kern.fn))
+    fn = md.kern.fn
+    pair_ms = cuda_ms(lambda: md.kern(*args), reps=20)
+    plain_ms = cuda_ms(lambda: pair_kernel.channel_plain(md.spec, fn, 3, *args[:3], args[3:]),
+                       reps=1, warmup=1)
+    engine_breakdown("dpd", dpd, card, {"pair_channel_dpd": pair_ms})
+    pairs = functor_pairs(md.spec, gs.x, gs.y, gs.z, gs.pid, fn.rc2)
+    rows.append(functor_row("pair_channel_dpd",
+                            "uammd_tpu/engine/pair_kernel.py:538 (dpd_pair_fn, "
+                            "uammd_tpu/engine/dpd.py:72)",
+                            dpd["launches"]["pair_channel_dpd"], err_abs, pair_ms, plain_ms,
+                            pairs, OPS_DPD, 10, md.spec, int_ops=OPS_DPD_INT,
+                            extra={"rel_err": err, "control_step_off_by_one": c,
+                                   "shape": list(md.spec.array_shape)}))
+    del dpd, md, gs, args
+    # SPH
+    sph = sph_main_path(dev)
+    ms, gs = sph["md"], sph["gs"]
+    a_rho, a_f = sph_args(ms, gs)
+    e_rho, _, abs_rho = check_functor(ms.spec, ms.rho_kern.fn, a_rho, "SPH path density")
+    # the force of a uniform bulk is a sum of pressure terms that cancel: the
+    # bound's scale is sum_j |term| there (check_functor)
+    f_info = {}
+    e_f, c_f, abs_f = check_functor(ms.spec, ms.f_kern.fn, a_f, "SPH path force",
+                                    sph_control(ms.f_kern.fn), info=f_info)
+    rho_ms = cuda_ms(lambda: ms.rho_kern(*a_rho), reps=10)
+    f_ms = cuda_ms(lambda: ms.f_kern(*a_f), reps=10)
+    rho_plain = cuda_ms(lambda: pair_kernel.channel_plain(ms.spec, ms.rho_kern.fn, 1,
+                                                          *a_rho[:3], a_rho[3:]),
+                        reps=1, warmup=1)
+    f_plain = cuda_ms(lambda: pair_kernel.channel_plain(ms.spec, ms.f_kern.fn, 3, *a_f[:3],
+                                                        a_f[3:]), reps=1, warmup=1)
+    engine_breakdown("sph", sph, card, {"pair_channel_sph_density": rho_ms,
+                                        "pair_channel_sph_force": f_ms})
+    pairs = functor_pairs(ms.spec, gs.x, gs.y, gs.z, gs.pid, ms.f_kern.fn.cut2)
+    rep = "uammd_tpu/engine/pair_kernel.py:538 ({}, uammd_tpu/engine/sph.py:{})"
+    rows.append(functor_row("pair_channel_sph_density", rep.format("sph_density_pair_fn", 42),
+                            sph["launches"]["pair_channel_sph_density"], abs_rho, rho_ms,
+                            rho_plain, pairs, OPS_SPH_DENSITY, 5, ms.spec,
+                            extra={"rel_err": e_rho, "shape": list(ms.spec.array_shape)}))
+    rows.append(functor_row("pair_channel_sph_force", rep.format("sph_force_pair_fn", 55),
+                            sph["launches"]["pair_channel_sph_force"], abs_f, f_ms, f_plain,
+                            pairs, OPS_SPH_FORCE, 11, ms.spec,
+                            extra={"rel_err_vs_sum_abs_terms": e_f, **f_info,
+                                   "control_p_j_dropped": c_f,
+                                   "shape": list(ms.spec.array_shape)}))
+    del sph, ms, gs, a_rho, a_f
+    # LJ mixture at N = 2^20
+    rng = np.random.default_rng(15)
+    pos = torch.tensor(fcc_start(N, MIX_L, 0.1, 16), dtype=torch.float32, device=dev)
+    t = rng.integers(0, 2, N)
+    eps = torch.tensor(np.where(t == 0, 1.0, 0.5), dtype=torch.float32, device=dev)
+    sig = torch.tensor(np.where(t == 0, 1.0, 1.6), dtype=torch.float32, device=dev)
+    k_mix = pair_kernel.PAIR_CHANNEL_LJ_MIX
+    k_mix.launches = 0
+    mx = mixtures.MixtureLJ.create(MIX_L, N, eps.cpu().numpy(), sig.cpu().numpy(),
+                                   cut_scale=MIX_CUT, device=dev)
+    f_mix, ovf = mx.forces(pos, eps, sig)
+    mix_launches = k_mix.launches
+    check(not bool(ovf) and bool(f_mix.isfinite().all()), "mixture N = 2^20: no overflow, finite")
+    check(mix_launches == 1, f"mixture N = 2^20: #2 launched once ({mix_launches})")
+    forces_ms = cuda_ms(lambda: mx.forces(pos, eps, sig), reps=5)
+    cg = layout.pack_channels(mx.spec, pos, mixtures._channels(eps, sig, dev))
+    a_mix = (cg.x, cg.y, cg.z, *cg.channels)
+    e_mix, _, abs_mix = check_functor(mx.spec, mx.kern.fn, a_mix, "mixture N = 2^20")
+    mix_ms = cuda_ms(lambda: mx.kern(*a_mix), reps=10)
+    mix_plain = cuda_ms(lambda: pair_kernel.channel_plain(mx.spec, mx.kern.fn, 3, *a_mix[:3],
+                                                          a_mix[3:]), reps=1, warmup=1)
+    cs2 = mx.kern.fn.cs2
+    hs = cg.channels[1]
+    pairs = functor_pairs(mx.spec, cg.x, cg.y, cg.z, cg.pid,
+                          lambda ix: cs2 * (hs[:, :, :, None, :] + hs[ix][:, :, None]) ** 2)
+    rows.append(functor_row("pair_channel_lj_mix",
+                            "uammd_tpu/engine/pair_kernel.py:538 (lj_mixture_pair_fn, "
+                            "uammd_tpu/engine/mixtures.py:40)", mix_launches, abs_mix, mix_ms,
+                            mix_plain, pairs, OPS_LJ_MIX, 8, mx.spec,
+                            extra={"rel_err": e_mix, "shape": list(mx.spec.array_shape),
+                                   "forces_call_ms": forces_ms}))
+    print(json.dumps({"phase": "mixture_2^20", "n": N, "box": MIX_L, "density": MIX_RHO,
+                      "spec": list(mx.spec.array_shape), "forces_ms": forces_ms,
+                      "kernel_ms": mix_ms, "launches": mix_launches, "rel_err": e_mix,
+                      "pairs": pairs}), flush=True)
+    del cg, a_mix, f_mix, pos, eps, sig, mx
+    # the two-grid hierarchy
+    hp, he, hsig = hierarchy_system()
+    k_mask = pair_kernel.PAIR_CHANNEL_LJ_MIX_MASKED
+    k_mask.launches = k_mix.launches = 0
+    mh_c = mixtures.MixtureLJHierarchical.create(HIER_L, len(hp), he, hsig, cut_scale=MIX_CUT,
+                                                 device=dev)
+    f_h, ovf = mh_c.forces(hp, he, hsig)
+    hier_launches = {"masked": k_mask.launches, "fine": k_mix.launches}
+    mh_p = mixtures.MixtureLJHierarchical.create(HIER_L, len(hp), he, hsig, cut_scale=MIX_CUT,
+                                                 device="cpu")
+    f_hp, _ = mh_p.forces(hp, he, hsig)
+    e_h = float((f_h.cpu() - f_hp).abs().max() / f_hp.abs().max())
+    check(not bool(ovf) and e_h < CHANNEL_TOL,
+          f"hierarchy: forces through both kernels vs plain {e_h:.3g} < {CHANNEL_TOL}")
+    flag = torch.zeros(len(hp), dtype=torch.float32, device=dev)
+    flag[list(mh_c.small_idx)] = 1.0
+    cg = layout.pack_channels(mh_c.coarse_spec, torch.tensor(hp, device=dev),
+                              mixtures._channels(he, hsig, dev, flag))
+    a_h = (cg.x, cg.y, cg.z, *cg.channels)
+    fn = mh_c.kern_coarse.fn
+    e_m, c_m, abs_m = check_functor(mh_c.coarse_spec, fn, a_h, "hierarchy coarse grid",
+                                    mix_control(mixtures.LJMixturePair(MIX_CUT)))
+    masked_ms = cuda_ms(lambda: mh_c.kern_coarse(*a_h), reps=20)
+    masked_plain = cuda_ms(lambda: pair_kernel.channel_plain(mh_c.coarse_spec, fn, 3, *a_h[:3],
+                                                             a_h[3:]), reps=3, warmup=1)
+    hs = cg.channels[1]
+    pairs = functor_pairs(mh_c.coarse_spec, cg.x, cg.y, cg.z, cg.pid,
+                          lambda ix: fn.cs2 * (hs[:, :, :, None, :] + hs[ix][:, :, None]) ** 2)
+    rows.append(functor_row("pair_channel_lj_mix_masked",
+                            "uammd_tpu/engine/pair_kernel.py:538 (lj_mixture_pair_fn_masked, "
+                            "uammd_tpu/engine/mixtures.py:108)", hier_launches["masked"], abs_m,
+                            masked_ms, masked_plain, pairs, OPS_LJ_MIX_MASKED, 9,
+                            mh_c.coarse_spec,
+                            extra={"rel_err": e_m, "control_mask_ignored": c_m,
+                                   "shape": list(mh_c.coarse_spec.array_shape),
+                                   "note": "a kernel check on the hierarchy system, not a path"}))
+    print(json.dumps({"phase": "mixture_hierarchy", "n": len(hp), "box": HIER_L,
+                      "coarse_spec": list(mh_c.coarse_spec.array_shape),
+                      "fine_spec": list(mh_c.fine.spec.array_shape), "launches": hier_launches,
+                      "forces_rel_err": e_h, "coarse_rel_err": e_m, "control": c_m}),
+          flush=True)
+    # the observables on the v2 LJ path's final state
+    k_obs = pair_kernel.PAIR_FORCE_OBS
+    k_obs.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P, E = lj_pressure(gs2, md=engine2)
+    P, E = float(P), float(E)
+    pressure_s = time.perf_counter() - t0
+    obs_launches = k_obs.launches
+    check(math.isfinite(P) and math.isfinite(E), f"observables: P {P} and E {E} finite")
+    check(obs_launches >= 1, "observables: #1's observable mode launched")
+    obs, g0, kern = obs_check(gs2, "v2 LJ final state")
+    obs_ms = cuda_ms(lambda: kern(g0.x, g0.y, g0.z), reps=10)
+    from uammd_tpu_torch.engine import md as tmd
+
+    obs_plain = cuda_ms(lambda: pair_kernel.pair_force_plain(
+        g0.spec, tmd.lj_g(), g0.x, g0.y, g0.z, e_fn=tmd.lj_e(), compute_virial=True,
+        compute_stress=True), reps=1, warmup=1)
+    cand, inside = stencil_pairs(g0)
+    ops_ms = 1e3 * (OPS_PAIR_TEST * cand + OPS_PAIR_OBS * inside) / PEAK_FP32_FLOPS
+    bytes_ms = 1e3 * 4 * 14 * g0.spec.n_slots / PEAK_HBM_BYTES
+    print(json.dumps({"phase": "observables_v2_final_state", "n": N, "pressure": P,
+                      "potential_energy": E, "lj_pressure_seconds": pressure_s,
+                      "kernel_ms": obs_ms, "launches": obs_launches, **obs}), flush=True)
+    rows.append({"name": "pair_force_obs", "route": "cuda",
+                 "source": "uammd_tpu_torch/engine/csrc/pair_force.cu",
+                 "replaces": "uammd_tpu/engine/pair_kernel.py:272 (energy, virial, stress)",
+                 "launches": obs_launches, "max_abs_err": obs["max_abs_err"], "ms": obs_ms,
+                 "plain_ms": obs_plain, "bound_ms": max(ops_ms, bytes_ms),
+                 "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                 "library_ms": None, "pairs": {"candidates": cand, "inside": inside},
+                 "shape": obs["spec"], "rel_err": obs["rel_err"]})
+    return rows
+
+
+def lanczos_row(run, errs):
+    """The Lanczos sqrt(T) e1 kernel at the PSE path's final state: T from
+    an m-step Lanczos pass of the noise operator on a fresh draw, checked
+    against eigh with the clamp; and its kernels-line row."""
+    import torch
+    from uammd_tpu_torch.integrators.bdhi.pse_engine import _stack_flat
+    from uammd_tpu_torch.solvers import lanczos
+
+    be, st, p, gen = run["be"], run["st"], run["pos"], run["gen"]
+    m = be.lanczos_iterations
+    cg, _, _ = be._refresh(st, p)
+    z3, zs = be.draw_z(cg, gen)
+    zf = _stack_flat(z3, None if zs is None else tuple(zs))
+    _, al, bt = lanczos.lanczos_tridiag(be._krylov_mv(cg, noise=True), zf, m)
+    got = lanczos._sqrt_e1(al, bt, m)
+    want = lanczos.sqrt_e1_plain(al.cpu(), bt.cpu(), m)
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    check(err < SQRT_TOL, f"PSE path's T: sqrt(T) e1 kernel vs eigh {err:.3g} < {SQRT_TOL}")
+    ms = cuda_ms(lambda: lanczos._sqrt_e1(al, bt, m), reps=50)
+    plain = cuda_ms(lambda: lanczos.sqrt_e1_plain(al, bt, m), reps=10)
+    T = lanczos._tridiag(al, bt, m)
+    library = cuda_ms(lambda: torch.linalg.eigh(T), reps=10)
+    ops_ms = 1e3 * 9 * m ** 3 / PEAK_FP64_FLOPS
+    bytes_ms = 1e3 * 8 * 3 * m / PEAK_HBM_BYTES
+    return {"name": "lanczos_sqrt", "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/lanczos_sqrt.cu",
+            "replaces": "uammd_tpu/solvers/lanczos.py:74 (jnp.linalg.eigh; no pallas_call)",
+            "launches": run["launches"].get("lanczos_sqrt", 0),
+            "max_abs_err": float((got.cpu() - want).abs().max()), "ms": ms,
+            "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "library_ms": library,
+            "m": m, "rel_err": err, "indefinite_checks": errs,
+            "note": "library_ms: torch.linalg.eigh of T alone, which reads its error flag on "
+                    "the host"}
+
+
+def slice_d_only(dev, card) -> int:
+    """``--only-slice-d``: slice D's checks and paths alone, for working on
+    them, with the observables on the v2 engine's jittered fcc start (a
+    perfect lattice's forces cancel to round-off) instead of its path's
+    final state; prints no result line."""
+    from uammd_tpu_torch.engine import md2
+
+    slice_d_kernel_checks(dev)
+    pos = fcc_start(N, BOX, 0.1, 17)
+    engine2 = md2.make_lj_md2(BOX, N, dt=0.01, temperature=TEMPERATURE, pos=pos,
+                              n_strag=N_STRAG, noise="clt", fast_recip=True, device=dev)
+    rows = slice_d_paths(dev, card, engine2.init(pos, seed=1), engine2)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     only_pse = "--only-pse" in sys.argv[1:]
+    only_slice_d = "--only-slice-d" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1572,12 +2327,14 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))}),
           flush=True)
-    for name in ("newton_channel", "pair_channel"):
+    for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt"):
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
     if only_pse:
         return pse_only(dev, card)
+    if only_slice_d:
+        return slice_d_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -1678,6 +2435,7 @@ def main() -> int:
 
     fcm_errs = fcm_kernel_checks(dev)
     pse_errs = pse_kernel_checks(dev)
+    d_errs = slice_d_kernel_checks(dev)
 
     kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN,
                "newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
@@ -1896,6 +2654,9 @@ def main() -> int:
     for r in rows[:8]:  # the earlier kernels that the PSE path also runs
         if r["name"] in pse_path["launches"]:
             r["launches_pse_path"] = pse_path["launches"][r["name"]]
+    rows.append(lanczos_row(pse_path, d_errs["lanczos_sqrt"]))
+    # 3e-3h, 4d: slice D's paths, each with its own zeroed launch counts
+    rows += slice_d_paths(dev, card, gs2, engine2)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -116,6 +116,39 @@ def test_fcm_em_matches_generic_at_t0(system):
         np.testing.assert_allclose(sb.pos.numpy(), sa.pos.numpy(), atol=1e-9)
 
 
+@pytest.mark.parametrize("over", [False, True])
+def test_fcm_em_drift_threshold_in_state_dtype(over):
+    """fcm_em rebins when the x/y drift passes the threshold compared in the
+    state's dtype, as JAX compares it (``jnp.asarray(thr, state.dtype)``):
+    a float32 drift equal to float32(thr), which lies above the float64
+    thr, does not rebin; the next float32 value up does."""
+    L32 = next(Lb for Lb in np.arange(40.0, 48.0, 0.25)
+               if float(np.float32(thr_of(Lb))) > thr_of(Lb))
+    fcm = FCM.create(tbox(L32, dtype=torch.float32, device="cpu"), **FCM_KW)
+    thr32 = np.float32(thr_of(L32))
+    assert float(thr32) > thr_of(L32)
+
+    def zero_force(state, aux):
+        return ForceEnergyVirial(force=torch.zeros_like(state.pos)), aux
+
+    integ = tem.fcm_em(zero_force, fcm, dt=DT, temperature=0.0)
+    pos = torch.tensor((np.random.default_rng(9).random((N, 3)) - 0.5) * L32,
+                       dtype=torch.float32)
+    pos[0, 0] = 0.0
+    st, carry = integ.init(make_state(pos, dtype=torch.float32, device="cpu"), None)
+    assert carry[0] is not None, "the pencil path must engage at this N"
+    moved = pos.clone()
+    moved[0, 0] = float(np.nextafter(thr32, np.float32(1.0))) if over else float(thr32)
+    _, new = integ.step(st.replace(pos=moved), carry)
+    assert (new[0] is not carry[0]) == over
+
+
+def thr_of(Lb):
+    """fcm_em's threshold, slack 1 x the grid spacing, at box size ``Lb``."""
+    fcm = FCM.create(tbox(Lb, dtype=torch.float32, device="cpu"), **FCM_KW)
+    return min(fcm.box_size[0] / fcm.shape[0], fcm.box_size[1] / fcm.shape[1])
+
+
 def test_external_forces_match_jax():
     rng = np.random.default_rng(1)
     pos = rng.normal(size=(50, 3)) * 3.0

@@ -1,9 +1,11 @@
 """The port's Lanczos solver (uammd_tpu_torch.solvers.lanczos) against the
 JAX package's, float64 on both sides, on tests/test_solvers.py:74's dense
-SPD matrix (k 60, M = A A^T + k I) and its m 8/16/32 variant (:86). The
-port takes sqrt(T) e1 by a Newton-Schulz iteration (no host read on the
-card) where JAX takes an eigendecomposition: both agree to float64
-round-off, held here to 1e-10 relative; the tridiagonal to 1e-12."""
+SPD matrix (k 60, M = A A^T + k I) and its m 8/16/32 variant (:86). Both
+take sqrt(T) e1 from an eigendecomposition with the eigenvalues clamped at
+0 (on the card the port's is a one-block Jacobi kernel, held to this plain
+version by chip_smoke.py and the ``gpu`` test): they agree to float64
+round-off, held here to 1e-10 relative; the tridiagonal to 1e-12. An
+indefinite T gives JAX's finite answer."""
 
 import jax
 import jax.numpy as jnp
@@ -65,7 +67,7 @@ def test_tridiag_and_iterations_for_tolerance_match_jax():
 
 @pytest.mark.parametrize("cond", [1.0, 1e3, 1e7])
 def test_sqrt_e1_matches_eigh(cond):
-    """The Newton-Schulz sqrt(T) e1 against numpy's eigendecomposition on
+    """sqrt(T) e1 against numpy's eigendecomposition on
     tridiagonals of growing condition number, and a zero block (an
     exhausted Krylov space) stays finite."""
     rng = np.random.default_rng(1)
@@ -82,3 +84,43 @@ def test_sqrt_e1_matches_eigh(cond):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())
     z = tlz._sqrt_e1(torch.tensor([2.0, 1.0, 0.0, 0.0]), torch.tensor([0.0, 0.5, 0.0, 0.0]), 4)
     assert bool(torch.isfinite(z).all()) and float(z[2].abs() + z[3].abs()) == 0.0
+
+
+@pytest.mark.parametrize("e", [1e-7, 1e-4])
+def test_indefinite_t_matches_jax(e):
+    """T = [[0.5, 0.5 + e], [0.5 + e, 0.5]] has the eigenvalue -e: JAX clamps
+    it and returns [0.5, 0.5] (to O(e)); so must the port, finite."""
+    T = np.array([[0.5, 0.5 + e], [0.5 + e, 0.5]])
+    v = np.array([1.0, 0.0])
+    want, _ = _jax_sqrt(T, v, 2, None)
+    Tt = torch.tensor(T)
+    got, _ = tlz.lanczos_sqrt_apply(lambda x: Tt @ x, torch.tensor(v), m=2)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
+    np.testing.assert_allclose(got.numpy(), [0.5, 0.5], atol=2 * e)
+    sq = tlz._sqrt_e1(torch.tensor([0.5, 0.5], dtype=torch.float64),
+                      torch.tensor([0.0, 0.5 + e], dtype=torch.float64), 2)
+    np.testing.assert_allclose(sq.numpy(), want, rtol=1e-12, atol=1e-14)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 5, 16, 48])
+def test_cuda_sqrt_e1_matches_plain(cuda, m):
+    """The Jacobi kernel against ``torch.linalg.eigh`` with the clamp, on an
+    indefinite tridiagonal; one launch."""
+    rng = np.random.default_rng(m)
+    a, b = torch.tensor(rng.normal(size=m)), torch.tensor(rng.normal(size=m))
+    want = tlz.sqrt_e1_plain(a, b, m)
+    before = tlz.LANCZOS_SQRT.launches
+    got = tlz._sqrt_e1(a.to(cuda), b.to(cuda), m)
+    torch.cuda.synchronize()
+    assert tlz.LANCZOS_SQRT.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-10 * float(want.abs().max()))

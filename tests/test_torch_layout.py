@@ -203,6 +203,9 @@ def test_port_imports_no_jax():
         "import uammd_tpu_torch.interactors.external\n"
         "import uammd_tpu_torch.integrators.bdhi.pse_engine, uammd_tpu_torch.engine.pse_near\n"
         "import uammd_tpu_torch.solvers.lanczos, uammd_tpu_torch.integrators.bdhi.pse\n"
+        "import uammd_tpu_torch.engine.dpd, uammd_tpu_torch.engine.sph\n"
+        "import uammd_tpu_torch.engine.mixtures, uammd_tpu_torch.engine.observe\n"
+        "import uammd_tpu_torch.interactors.sph\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'uammd_tpu' or m.startswith('uammd_tpu.')]\n"
         "assert not bad, bad\n"

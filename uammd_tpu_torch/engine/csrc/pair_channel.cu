@@ -1,40 +1,44 @@
-// 27-stencil channel transverser with the PSE near-field functor, for
-// Hopper (sm_90a).
+// 27-stencil channel transverser over a pair functor, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel uammd_tpu/engine/pair_kernel.py:make_pair_channel_kernel
-// (pallas_call at :538) with pair_fn = the PSE near-field RPY remainder
-// (pse_engine.py:_pair_fn, device form in pse_near.cuh), NV = 1 or 2
-// stacked 3-vectors (3 or 6 channels in and out), periodic in z. Every home
-// slot sums the forward contributions of the 27 cells around it (its own
-// cell included: the self pair fails r2 > 1e-10) and of the straggler list
-// ([3 + 3 NV + 1, S]: x, y, z, channels, valid; minimum image per pair);
-// the straggler rows' reverse contributions are reduced straight into
-// spart [3 NV, S] (the JAX kernel returns per-program partials that its
-// caller sums over (z, yb, lane)). out = [3 NV, T]; spart is zeroed by the
-// caller. Other transversers (DPD, SPH, mixtures, the Poisson near field)
-// bring their own functors with their slices.
+// (pallas_call at :538): n_chan channels in, n_out sums out, periodic in z,
+// with the pair_fn chosen at compile time as a functor of
+// channel_functors.cuh (PSE near field at 1 or 2 stacked 3-vectors, DPD,
+// SPH density and force, LJ mixture and its masked form). Every home slot
+// sums the functor's contributions over the CAP slots of the 27 cells
+// around it (its own cell included: each functor's r2 > eps test drops the
+// self pair). With the PSE functor the straggler list ([3 + 3 NV + 1, S]:
+// x, y, z, channels, valid; minimum image per pair) adds its forward
+// contributions, and the rows' reverse contributions are reduced straight
+// into spart [3 NV, S] (the JAX kernel returns per-program partials that
+// its caller sums over (z, yb, lane)). The other functors run on
+// straggler-free specs (n_strag = 0), as the JAX engines build them.
 //
 // Design: as newton_channel.cu, one thread per home slot, blocks of `rows`
-// home rows x NLANE lanes staging kJ candidate rows of the three y-blocks
-// of slab z+dz for dz = -1, 0, 1 in shared memory; each home slot's sums
-// stay in registers and are written once.
+// home rows x NLANE lanes staging kJ candidate rows (3 + NG arrays) of the
+// three y-blocks of slab z+dz for dz = -1, 0, 1 in shared memory; each home
+// slot keeps its channels and NOUT sums in registers and writes once. Empty
+// home slots (at EMPTY_POS) skip the pair loop and write 0, as every
+// functor gives them.
 //
-// What bounds it: operations, 27 * CAP candidate slots per home slot (twice
-// the Newton kernel's), the radial only for pairs inside rcut. Registers
-// (ptxas -v with CUDA 12.8 for sm_90a): 40 at NV = 1, 48 at NV = 2, no spills.
+// What bounds it: operations, 27 * CAP candidate slots per home slot, the
+// functor's body only for the pairs inside its cutoff. Registers and
+// spills of each instantiation: ptxas -v, printed by chip_smoke.py.
 
-#include "pse_near.cuh"
+#include "channel_functors.cuh"
 
 namespace {
 
-template <int NV>
+template <class Fn>
 __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __restrict__ y,
                                     const float* __restrict__ z, const float* __restrict__ ch,
+                                    const float* __restrict__ uni,
                                     const float* __restrict__ strag, float* __restrict__ out,
-                                    float* __restrict__ spart, pse::Geom g, pse::Near p, int S,
+                                    float* __restrict__ spart, pse::Geom g, Fn fn, int S,
                                     int kJ) {
-  constexpr int NC = 3 * NV;
-  constexpr int NA = 3 + NC;
+  constexpr int NG = Fn::NG;
+  constexpr int NA = 3 + NG;
+  constexpr int NO = Fn::NOUT;
   extern __shared__ float smem[];  // [3 y-blocks][NA][kJ][nlane], then [NA + 1][S]
   const int nlane = g.nlane;
   const int arr_stride = kJ * nlane;
@@ -55,23 +59,27 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
 
-  for (int e = tid; e < (NA + 1) * S; e += nthreads) sstrag[e] = strag[e];
+  if (Fn::kStrag) {
+    for (int e = tid; e < (NA + 1) * S; e += nthreads) sstrag[e] = strag[e];
+  }
 
   float xi = 0.0f, yi = 0.0f, zi = 0.0f;
-  float Fi[NC];
+  float ci[NG + Fn::NU];
 #pragma unroll
-  for (int k = 0; k < NC; ++k) Fi[k] = 0.0f;
+  for (int k = 0; k < NG + Fn::NU; ++k) ci[k] = 0.0f;
   if (home) {
     xi = x[hidx];
     yi = y[hidx];
     zi = z[hidx];
 #pragma unroll
-    for (int k = 0; k < NC; ++k) Fi[k] = ch[k * T + hidx];
+    for (int k = 0; k < NG; ++k) ci[k] = ch[k * T + hidx];
+#pragma unroll
+    for (int k = 0; k < Fn::NU; ++k) ci[NG + k] = uni[k];
   }
   const bool active = home && xi < pse::kEmptyLimit;
-  float acc[NC];
+  float acc[NO];
 #pragma unroll
-  for (int k = 0; k < NC; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < NO; ++k) acc[k] = 0.0f;
 
   for (int dz = -1; dz <= 1; ++dz) {
     float shz;
@@ -92,7 +100,7 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
         dst[arr_stride] = y[src];
         dst[2 * arr_stride] = z[src];
 #pragma unroll
-        for (int k = 0; k < NC; ++k) dst[(3 + k) * arr_stride] = ch[k * T + src];
+        for (int k = 0; k < NG; ++k) dst[(3 + k) * arr_stride] = ch[k * T + src];
       }
       __syncthreads();
       if (!active) continue;
@@ -110,65 +118,77 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
             const float dxv = __fadd_rn(s[o], shx) - xi;
             const float dyv = __fadd_rn(s[arr_stride + o], shy) - yi;
             const float dzv = __fadd_rn(s[2 * arr_stride + o], shz) - zi;
-            float fr, gr;
-            if (!pse::radial(pse::dist2(dxv, dyv, dzv), p, &fr, &gr)) continue;
-            float Fj[NC];
-#pragma unroll
-            for (int k = 0; k < NC; ++k) Fj[k] = s[(3 + k) * arr_stride + o];
-            pse::apply<NV>(fr, gr, dxv, dyv, dzv, Fj, acc);
+            fn.fwd(pse::dist2(dxv, dyv, dzv), dxv, dyv, dzv, ci, s + 3 * arr_stride + o,
+                   arr_stride, acc);
           }
         }
       }
     }
   }
 
-  if (active) {
-    for (int s = 0; s < S; ++s) {
-      if (!(sstrag[NA * S + s] > 0.5f)) continue;
-      const float dxv = pse::min_image(sstrag[s] - xi, g.Lx, g.iLx);
-      const float dyv = pse::min_image(sstrag[S + s] - yi, g.Ly, g.iLy);
-      const float dzv = pse::min_image(sstrag[2 * S + s] - zi, g.Lz, g.iLz);
-      float fr, gr;
-      if (!pse::radial(pse::dist2(dxv, dyv, dzv), p, &fr, &gr)) continue;
-      float Fj[NC];
+  if constexpr (Fn::kStrag) {
+    if (active) {
+      for (int s = 0; s < S; ++s) {
+        if (!(sstrag[NA * S + s] > 0.5f)) continue;
+        const float dxv = pse::min_image(sstrag[s] - xi, g.Lx, g.iLx);
+        const float dyv = pse::min_image(sstrag[S + s] - yi, g.Ly, g.iLy);
+        const float dzv = pse::min_image(sstrag[2 * S + s] - zi, g.Lz, g.iLz);
+        float Fj[NG];
 #pragma unroll
-      for (int k = 0; k < NC; ++k) Fj[k] = sstrag[(3 + k) * S + s];
-      pse::apply<NV>(fr, gr, dxv, dyv, dzv, Fj, acc);
-      float rev[NC];
+        for (int k = 0; k < NG; ++k) Fj[k] = sstrag[(3 + k) * S + s];
+        float rev[NO];
 #pragma unroll
-      for (int k = 0; k < NC; ++k) rev[k] = 0.0f;
-      pse::apply<NV>(fr, gr, dxv, dyv, dzv, Fi, rev);
+        for (int k = 0; k < NO; ++k) rev[k] = 0.0f;
+        if (!fn.both(pse::dist2(dxv, dyv, dzv), dxv, dyv, dzv, ci, Fj, acc, rev)) continue;
 #pragma unroll
-      for (int k = 0; k < NC; ++k) atomicAdd(spart + k * S + s, rev[k]);
+        for (int k = 0; k < NO; ++k) atomicAdd(spart + k * S + s, rev[k]);
+      }
     }
   }
   if (home) {
 #pragma unroll
-    for (int k = 0; k < NC; ++k) out[k * T + hidx] = acc[k];
+    for (int k = 0; k < NO; ++k) out[k * T + hidx] = acc[k];
   }
 }
 
-template <int NV>
-int launch(const float* x, const float* y, const float* z, const float* ch, const float* strag,
-           float* out, float* spart, const pse::Geom& g, const pse::Near& p, int S, int rows,
-           int kJ, cudaStream_t st) {
+template <class Fn>
+int launch(const float* x, const float* y, const float* z, const float* ch, const float* uni,
+           const float* strag, float* out, float* spart, const pse::Geom& g, const Fn& fn,
+           int S, int rows, int kJ, cudaStream_t st) {
   const dim3 block(g.nlane, rows);
   const dim3 grid((g.cap + rows - 1) / rows, g.nyb, g.nz);
-  const size_t smem = sizeof(float) * (3 * (3 + 3 * NV) * kJ * g.nlane + (4 + 3 * NV) * S);
-  pair_channel_kernel<NV><<<grid, block, smem, st>>>(x, y, z, ch, strag, out, spart, g, p, S,
-                                                      kJ);
+  const size_t smem =
+      sizeof(float) * (3 * (3 + Fn::NG) * kJ * g.nlane + (Fn::kStrag ? (4 + Fn::NG) * S : 0));
+  pair_channel_kernel<Fn><<<grid, block, smem, st>>>(x, y, z, ch, uni, strag, out, spart, g, fn,
+                                                      S, kJ);
   return static_cast<int>(cudaGetLastError());
+}
+
+pse::Geom geom(int nx, int nyb, int nz, int F, int cap, float Lx, float Ly, float Lz, float iLx,
+               float iLy, float iLz) {
+  return pse::Geom{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, iLx, iLy, iLz};
+}
+
+template <class Fn>
+int launch_plain(void* x, void* y, void* z, void* ch, void* uni, void* out, int nx, int nyb,
+                 int nz, int F, int cap, int rows, int kJ, float Lx, float Ly, float Lz,
+                 const Fn& fn, void* stream) {
+  return launch<Fn>(static_cast<const float*>(x), static_cast<const float*>(y),
+                    static_cast<const float*>(z), static_cast<const float*>(ch),
+                    static_cast<const float*>(uni), nullptr, static_cast<float*>(out), nullptr,
+                    geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, 0.0f, 0.0f, 0.0f), fn, 0, rows, kJ,
+                    static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
-// ch: float32 [3 nv, T]; strag: float32 [3 + 3 nv + 1, S] or null when
-// S == 0; out: [3 nv, T]; spart: [3 nv, S], zeroed.
+// PSE near field. ch: float32 [3 nv, T]; strag: float32 [3 + 3 nv + 1, S]
+// or null when S == 0; out: [3 nv, T]; spart: [3 nv, S], zeroed.
 extern "C" int uammd_pair_channel(void* x, void* y, void* z, void* ch, void* strag, void* out,
                                   void* spart, int nv, int nx, int nyb, int nz, int F, int cap,
                                   int S, int rows, int kJ, float Lx, float Ly, float Lz,
                                   float iLx, float iLy, float iLz, pse::Near p, void* stream) {
-  const pse::Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, iLx, iLy, iLz};
+  const pse::Geom g = geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, iLx, iLy, iLz);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* fx = static_cast<const float*>(x);
   const float* fy = static_cast<const float*>(y);
@@ -177,7 +197,26 @@ extern "C" int uammd_pair_channel(void* x, void* y, void* z, void* ch, void* str
   const float* fs = static_cast<const float*>(strag);
   float* fo = static_cast<float*>(out);
   float* fp = static_cast<float*>(spart);
-  if (nv == 1) return launch<1>(fx, fy, fz, fc, fs, fo, fp, g, p, S, rows, kJ, st);
-  if (nv == 2) return launch<2>(fx, fy, fz, fc, fs, fo, fp, g, p, S, rows, kJ, st);
+  if (nv == 1)
+    return launch(fx, fy, fz, fc, nullptr, fs, fo, fp, g, chan::PSEFn<1>{p}, S, rows, kJ, st);
+  if (nv == 2)
+    return launch(fx, fy, fz, fc, nullptr, fs, fo, fp, g, chan::PSEFn<2>{p}, S, rows, kJ, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The straggler-free functors: ch float32 [NG, T] (the grid channels),
+// uni float32 [NU] on the card (the uniform channels) or null, out [NOUT, T].
+#define UAMMD_PAIR_CHANNEL_ENTRY(NAME, FN, PARAMS)                                             \
+  extern "C" int NAME(void* x, void* y, void* z, void* ch, void* uni, void* out, int nx,       \
+                      int nyb, int nz, int F, int cap, int rows, int kJ, float Lx, float Ly,    \
+                      float Lz, PARAMS p, void* stream) {                                      \
+    return launch_plain(x, y, z, ch, uni, out, nx, nyb, nz, F, cap, rows, kJ, Lx, Ly, Lz,      \
+                        FN{p}, stream);                                                        \
+  }
+
+UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_dpd, chan::DPDFn, chan::DPDParams)
+UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_sph_density, chan::SPHDensityFn, chan::SPHParams)
+UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_sph_force, chan::SPHForceFn, chan::SPHParams)
+UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_lj_mix, chan::LJMixFn<false>, chan::LJMixParams)
+UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_lj_mix_masked, chan::LJMixFn<true>,
+                         chan::LJMixParams)

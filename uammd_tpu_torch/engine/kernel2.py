@@ -481,7 +481,7 @@ class NewtonChannelKernel:
             return newton_channel_plain(spec, self.fn, nvec, x, y, z, channels, strag)
         ch, srows = channel_launch_args(spec, nvec, x, y, z, channels, strag,
                                         "the Newton channel kernel")
-        rows, kj = channel_launch_shape(spec, nvec)
+        rows, kj = channel_launch_shape(spec, 3 * nvec)
         nc = 3 * nvec
         T = spec.n_slots
         buf = torch.zeros(5 * nc * T + nc * S, dtype=torch.float32, device=x.device)

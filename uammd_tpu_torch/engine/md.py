@@ -19,7 +19,7 @@ import torch
 
 from ..device import resolve_device
 from .layout import GridSpec, GridState, choose_spec, needs_rebin, pack
-from .pair_kernel import LJRadial, make_pair_force_kernel
+from .pair_kernel import LJEnergy, LJRadial, make_pair_force_kernel
 from .rebin_kernel import rebin_fast, rebin_fast_noforce
 
 
@@ -39,6 +39,13 @@ def lj_g(epsilon: float = 1.0, sigma: float = 1.0) -> LJRadial:
     Callable on tensors (the plain version); the pair kernel evaluates the
     same expression in its device function from ``epsilon`` and ``sigma``."""
     return LJRadial(epsilon, sigma)
+
+
+def lj_e(epsilon: float = 1.0, sigma: float = 1.0, shift_rc=None) -> LJEnergy:
+    """12-6 LJ pair energy (JAX ``md.lj_e``), shifted to 0 at ``shift_rc``
+    when given. Callable on tensors (the plain version); the pair kernel's
+    observable mode evaluates the same expression in its device function."""
+    return LJEnergy(epsilon, sigma, shift_rc)
 
 
 class LJFused:

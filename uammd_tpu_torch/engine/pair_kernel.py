@@ -1,24 +1,32 @@
 """Short-range pair forces on the grid-resident layout.
 
-Port of ``uammd_tpu/engine/pair_kernel.py:make_pair_force_kernel`` (the
-force-only contract ``force(x, y, z) -> (fx, fy, fz)``; the energy, virial,
-stress and non-periodic-z halo outputs are not ported yet). For every home
-slot the force is the sum of ``g(r2) * d`` over all CAP slots of the 27
-neighbor cells, with ``d = r_j - r_i`` after the periodic image shift,
-``g = r2 < rc2 ? g_fn(max(r2, clamp_lo)) : 0``.
+Port of ``uammd_tpu/engine/pair_kernel.py:make_pair_force_kernel`` (#1):
+``force(x, y, z) -> (fx, fy, fz[, energy][, virial][, stress x 6])``. For
+every home slot the force is the sum of ``g(r2) * d`` over all CAP slots of
+the 27 neighbor cells, with ``d = r_j - r_i`` after the periodic image
+shift. Force only, ``g = r2 < rc2 ? g_fn(max(r2, clamp_lo)) : 0``; with any
+of the energy (``e_fn``, half to each particle), virial and 6-component
+stress outputs on, the clamp gives way to the mask
+``inside = (r2 < rc2) & (r2 > 1e-10)``, as in the JAX kernel. The
+non-periodic-z halo mode is not ported yet.
 
 On CUDA tensors the wrapper launches the hand-written kernel
-``csrc/pair_force.cu`` (which has the LJ radial compiled in, so ``g_fn``
-must be ``md.lj_g``); on CPU tensors it runs ``pair_force_plain``, the
-plain PyTorch version that the tests hold against the JAX kernel and that
-``chip_smoke.py`` holds the CUDA kernel against.
+``csrc/pair_force.cu`` (which has the LJ radial and energy compiled in, so
+``g_fn`` must be ``md.lj_g`` and ``e_fn`` ``md.lj_e``): ``uammd_pair_force``
+for the forces alone, ``uammd_pair_force_obs`` with every output; on CPU
+tensors it runs ``pair_force_plain``, the plain PyTorch version that the
+tests hold against the JAX kernel and that ``chip_smoke.py`` holds the CUDA
+kernel against.
 
 Also the port of ``make_pair_channel_kernel`` (#2) and
-``broadcast_strag_channels``: the 27-stencil transverser with
-per-particle payload channels, with the PSE near-field functor
-(``pse_near.PSENear``) on 1 or 2 stacked 3-vectors, periodic in z. CUDA
-tensors launch ``csrc/pair_channel.cu``; CPU tensors run
-``pair_channel_plain``.
+``broadcast_strag_channels``: the 27-stencil transverser with n_chan
+per-particle payload channels in and n_out sums out, periodic in z, over a
+pair functor: the PSE near field (``pse_near.PSENear``, on 1 or 2 stacked
+3-vectors, with the straggler block) or a ``ChannelFunctor`` (DPD, SPH
+density and force, the LJ mixtures; straggler-free specs). CUDA tensors
+launch ``csrc/pair_channel.cu`` instantiated for the functor; CPU tensors
+run ``pair_channel_plain`` (PSE) or ``channel_plain`` (a functor's plain
+form, which has the JAX ``pair_fn`` signature).
 """
 
 from __future__ import annotations
@@ -49,10 +57,47 @@ _P = ctypes.c_void_p
 PAIR_FORCE = _build.Kernel(
     "pair_force", "uammd_pair_force", [_P] * 6 + [_I] * 5 + [_F] * 7)
 
+# uammd_pair_force_obs(x, y, z, fx, fy, fz, obs, nx, nyb, nz, F, cap, Lx,
+#                      Ly, Lz, rc2, neg24eps, s2, c4eps, e_shift, stream)
+PAIR_FORCE_OBS = _build.Kernel(
+    "pair_force", "uammd_pair_force_obs", [_P] * 7 + [_I] * 5 + [_F] * 8)
+
 # uammd_pair_channel(x, y, z, ch, strag, out, spart, nv, nx, nyb, nz, F,
 #                    cap, S, rows, kJ, Lx, Ly, Lz, iLx, iLy, iLz, near, stream)
 PAIR_CHANNEL = _build.Kernel("pair_channel", "uammd_pair_channel",
                              [_P] * 7 + [_I] * 9 + [_F] * 6 + [_Struct])
+
+
+class DPDParams(ctypes.Structure):
+    """``chan::DPDParams`` of csrc/channel_functors.cuh."""
+
+    _fields_ = [(k, _F) for k in ("rc2", "inv_rc", "A", "gamma", "sigma", "sq6")]
+
+
+class SPHParams(ctypes.Structure):
+    """``chan::SPHParams`` of csrc/channel_functors.cuh."""
+
+    _fields_ = [(k, _F) for k in ("cut2", "h", "norm3", "norm4", "nu")]
+
+
+class LJMixParams(ctypes.Structure):
+    """``chan::LJMixParams`` of csrc/channel_functors.cuh."""
+
+    _fields_ = [(k, _F) for k in ("cs2", "lo")]
+
+
+def _functor_kernel(symbol: str, params) -> _build.Kernel:
+    # symbol(x, y, z, ch, uni, out, nx, nyb, nz, F, cap, rows, kJ, Lx, Ly,
+    #        Lz, params, stream)
+    return _build.Kernel("pair_channel", symbol, [_P] * 6 + [_I] * 7 + [_F] * 3 + [params])
+
+
+# one entry point, and one launch count, per functor instantiation of #2
+PAIR_CHANNEL_DPD = _functor_kernel("uammd_pair_channel_dpd", DPDParams)
+PAIR_CHANNEL_SPH_DENSITY = _functor_kernel("uammd_pair_channel_sph_density", SPHParams)
+PAIR_CHANNEL_SPH_FORCE = _functor_kernel("uammd_pair_channel_sph_force", SPHParams)
+PAIR_CHANNEL_LJ_MIX = _functor_kernel("uammd_pair_channel_lj_mix", LJMixParams)
+PAIR_CHANNEL_LJ_MIX_MASKED = _functor_kernel("uammd_pair_channel_lj_mix_masked", LJMixParams)
 
 # The kernel stages 9 * 8 candidate rows of NLANE floats in 48 KB of
 # shared memory.
@@ -78,11 +123,38 @@ class LJRadial:
         return self.neg24eps * t * (2.0 * inv6 * inv6 - inv6)
 
 
-def pair_force_plain(spec: GridSpec, g_fn, x, y, z, clamp_lo: float = 4e-3):
+class LJEnergy:
+    """12-6 LJ pair energy as ``md.lj_e`` computes it: inv6 = (s2 / r2)^3,
+    4 eps (inv6^2 - inv6) - e_shift in float32, e_shift the energy at
+    ``shift_rc`` (0 without). Called on a tensor it is the plain version;
+    the CUDA kernel reads ``c4eps``, ``s2`` and ``e_shift``."""
+
+    def __init__(self, epsilon: float = 1.0, sigma: float = 1.0, shift_rc=None):
+        self.c4eps = float(np.float32(4.0) * np.float32(epsilon))
+        self.s2 = float(np.float32(sigma * sigma))
+        self.e_shift = 0.0
+        if shift_rc is not None:
+            ic6 = float(sigma * sigma / (shift_rc * shift_rc)) ** 3
+            self.e_shift = float(np.float32(4.0 * epsilon * (ic6 * ic6 - ic6)))
+
+    def __call__(self, r2: torch.Tensor) -> torch.Tensor:
+        q = self.s2 / r2
+        inv6 = q * q * q
+        return self.c4eps * (inv6 * inv6 - inv6) - self.e_shift
+
+
+def pair_force_plain(spec: GridSpec, g_fn, x, y, z, clamp_lo: float = 4e-3, e_fn=None,
+                     compute_virial: bool = False, compute_stress: bool = False):
     """Plain PyTorch version of the kernel: for each of the 27 stencil cells,
     gather its CAP slots in home-cell order and form the all-pairs
     [nz, nyb, CAP_i, CAP_j, NLANE] block against the home slots, as the TPU
-    kernel forms [CAP_i, CAP_j, NLANE] blocks from lane rolls."""
+    kernel forms [CAP_i, CAP_j, NLANE] blocks from lane rolls. With
+    ``e_fn``, ``compute_virial`` or ``compute_stress`` it also returns the
+    energy (half of e_fn per pair), the virial (-g r2 / 2) and the stress
+    (xx, xy, xz, yy, yz, zz of -g d_a d_b / 2) grids, masking with
+    ``inside`` instead of clamping, as the JAX kernel does (:206-231)."""
+    if e_fn is not None or compute_virial or compute_stress:
+        return _pair_obs_plain(spec, g_fn, e_fn, compute_virial, compute_stress, x, y, z)
     dev = x.device
     cap = spec.cap
     rc2 = float(np.float32(spec.cutoff * spec.cutoff))
@@ -111,16 +183,68 @@ def pair_force_plain(spec: GridSpec, g_fn, x, y, z, clamp_lo: float = 4e-3):
     return fx, fy, fz
 
 
+def _pair_obs_plain(spec: GridSpec, g_fn, e_fn, compute_virial, compute_stress, x, y, z):
+    dev = x.device
+    cap = spec.cap
+    rc2 = float(np.float32(spec.cutoff * spec.cutoff))
+    rows = torch.arange(cap, device=dev)[None, None, :, None]
+    xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
+    f = [torch.zeros_like(x) for _ in range(3)]
+    en = torch.zeros_like(x)
+    vir = torch.zeros_like(x)
+    st = [torch.zeros_like(x) for _ in range(6)]
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    one = torch.ones((), dtype=x.dtype, device=dev)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
+                d = [(a[zs, ybs, rows, lane] + sh)[:, :, None] - h
+                     for a, sh, h in zip((x, y, z), (shx, shy, shz), (xi, yi, zi))]
+                r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+                inside = (r2 < rc2) & (r2 > 1e-10)
+                r2s = torch.where(inside, r2, one)
+                g = torch.where(inside, g_fn(r2s), zero)
+                f = [fc + (g * dc).sum(dim=3) for fc, dc in zip(f, d)]
+                if e_fn is not None:
+                    en = en + 0.5 * torch.where(inside, e_fn(r2s), zero).sum(dim=3)
+                if compute_virial:
+                    vir = vir + (-0.5 * g * r2s * inside).sum(dim=3)
+                if compute_stress:
+                    hg = -0.5 * g
+                    for c, (a, b) in enumerate(((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))):
+                        st[c] = st[c] + (hg * d[a] * d[b]).sum(dim=3)
+    out = tuple(f)
+    if e_fn is not None:
+        out += (en,)
+    if compute_virial:
+        out += (vir,)
+    if compute_stress:
+        out += tuple(st)
+    return out
+
+
 class PairForceKernel:
-    """``force(x, y, z) -> (fx, fy, fz)`` for one ``GridSpec``.
+    """``force(x, y, z) -> (fx, fy, fz[, energy][, virial][, stress x 6])``
+    for one ``GridSpec``.
 
     CPU tensors go to ``pair_force_plain``; CUDA tensors launch
-    ``csrc/pair_force.cu`` (counted in ``PAIR_FORCE.launches``) or raise."""
+    ``csrc/pair_force.cu`` (the force alone counted in
+    ``PAIR_FORCE.launches``, the observable mode in
+    ``PAIR_FORCE_OBS.launches``) or raise."""
 
-    def __init__(self, spec: GridSpec, g_fn, clamp_lo: float = 4e-3):
+    def __init__(self, spec: GridSpec, g_fn, clamp_lo: float = 4e-3, e_fn=None,
+                 compute_virial: bool = False, compute_stress: bool = False):
         self.spec = spec
         self.g_fn = g_fn
         self.clamp_lo = clamp_lo
+        self.e_fn = e_fn
+        self.compute_virial = bool(compute_virial)
+        self.compute_stress = bool(compute_stress)
+
+    @property
+    def observables(self) -> bool:
+        return self.e_fn is not None or self.compute_virial or self.compute_stress
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor):
         shape = self.spec.array_shape
@@ -128,11 +252,14 @@ class PairForceKernel:
             for name, t in (("x", x), ("y", y), ("z", z)):
                 if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
                     raise ValueError(f"{name} must be a float32 CPU tensor of shape {shape}")
-            return pair_force_plain(self.spec, self.g_fn, x, y, z, self.clamp_lo)
+            return pair_force_plain(self.spec, self.g_fn, x, y, z, self.clamp_lo, self.e_fn,
+                                    self.compute_virial, self.compute_stress)
         for name, t in (("x", x), ("y", y), ("z", z)):
             _build.check_cuda_tensor(t, name, shape)
         if not isinstance(self.g_fn, LJRadial):
             raise TypeError("the CUDA pair kernel computes the LJ radial only (md.lj_g)")
+        if self.e_fn is not None and not isinstance(self.e_fn, LJEnergy):
+            raise TypeError("the CUDA pair kernel computes the LJ energy only (md.lj_e)")
         spec = self.spec
         if spec.nlane > MAX_NLANE:
             raise ValueError(f"NLANE {spec.nlane} exceeds the kernel's {MAX_NLANE}")
@@ -140,21 +267,40 @@ class PairForceKernel:
         Lx, Ly, Lz = spec.box_size
         fx, fy, fz = (torch.empty_like(x) for _ in range(3))
         P = _build.ptr
-        PAIR_FORCE(
-            P(x), P(y), P(z), P(fx), P(fy), P(fz),
-            nx, spec.nyb, nz, spec.fold, spec.cap,
-            Lx, Ly, Lz,
-            float(np.float32(spec.cutoff * spec.cutoff)),
-            float(np.float32(self.clamp_lo)),
-            self.g_fn.neg24eps, self.g_fn.s2,
+        rc2 = float(np.float32(spec.cutoff * spec.cutoff))
+        if not self.observables:
+            PAIR_FORCE(
+                P(x), P(y), P(z), P(fx), P(fy), P(fz),
+                nx, spec.nyb, nz, spec.fold, spec.cap,
+                Lx, Ly, Lz, rc2,
+                float(np.float32(self.clamp_lo)),
+                self.g_fn.neg24eps, self.g_fn.s2,
+            )
+            return fx, fy, fz
+        # every output is computed; the ones not asked for are dropped
+        e = self.e_fn or LJEnergy(self.g_fn.epsilon, self.g_fn.sigma)
+        obs = torch.empty((8,) + shape, dtype=torch.float32, device=x.device)
+        PAIR_FORCE_OBS(
+            P(x), P(y), P(z), P(fx), P(fy), P(fz), P(obs),
+            nx, spec.nyb, nz, spec.fold, spec.cap, Lx, Ly, Lz, rc2,
+            self.g_fn.neg24eps, self.g_fn.s2, e.c4eps, e.e_shift,
         )
-        return fx, fy, fz
+        out = (fx, fy, fz)
+        if self.e_fn is not None:
+            out += (obs[0],)
+        if self.compute_virial:
+            out += (obs[1],)
+        if self.compute_stress:
+            out += tuple(obs[2:])
+        return out
 
 
-def make_pair_force_kernel(spec: GridSpec, g_fn, *, clamp_lo: float = 4e-3):
-    """Build ``force(x, y, z) -> (fx, fy, fz)`` on [nz, nyb, CAP, NLANE]
-    float32 tensors (``layout.GridState`` fields)."""
-    return PairForceKernel(spec, g_fn, clamp_lo)
+def make_pair_force_kernel(spec: GridSpec, g_fn, e_fn=None, *, compute_virial: bool = False,
+                           compute_stress: bool = False, clamp_lo: float = 4e-3):
+    """Build ``force(x, y, z) -> (fx, fy, fz[, energy][, virial][, stress
+    x 6])`` on [nz, nyb, CAP, NLANE] float32 tensors (``layout.GridState``
+    fields)."""
+    return PairForceKernel(spec, g_fn, clamp_lo, e_fn, compute_virial, compute_stress)
 
 
 def broadcast_strag_channels(spec: GridSpec, spos, schannels, spid):
@@ -166,18 +312,42 @@ def broadcast_strag_channels(spec: GridSpec, spos, schannels, spid):
     return stack[:, :, None].expand(stack.shape[0], spec.n_strag, spec.nlane)
 
 
-def pair_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channels,
-                       strag=None):
-    """Plain PyTorch version of the 27-stencil channel kernel (#2) with the
-    PSE near-field functor ``fn``: every home slot sums ``fn``'s forward
-    contributions over the 27 cells around it (``stencil_sources``, its
-    own cell included) and the straggler rows. Returns ``(out (3 nvec
-    grids), spart [3 nvec, S] or None)``: the straggler rows' reverse sums,
-    which the JAX kernel returns as per-program partial grids."""
+class ChannelFunctor:
+    """A pair functor of the channel kernel other than the PSE near field.
+
+    Calling it is its plain version, with the JAX ``pair_fn`` signature:
+    ``fn(r2, dxv, dyv, dzv, ch_i, ch_j) -> n_out per-pair terms``, the home
+    channels ``ch_i`` [nz, nyb, CAP, 1, NLANE] and the candidate channels
+    ``ch_j`` [nz, nyb, 1, CAP, NLANE]. Subclasses set ``n_chan`` (channels
+    in), ``n_out`` (sums out), ``n_uniform`` (how many trailing channels
+    hold one value for the whole launch: 0-d tensors on both paths, read on
+    the home side only), ``kernel`` (the ``_build.Kernel`` of their CUDA
+    instantiation in csrc/pair_channel.cu) and ``params()`` (its parameter
+    struct)."""
+
+    n_chan: int
+    n_out: int
+    n_uniform: int = 0
+    kernel: _build.Kernel
+
+    def params(self) -> ctypes.Structure:
+        raise NotImplementedError
+
+    def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
+        raise NotImplementedError
+
+
+def channel_plain(spec: GridSpec, pair_fn, n_out: int, x, y, z, channels):
+    """Plain PyTorch version of the 27-stencil channel kernel (#2) with a
+    JAX-signature ``pair_fn``: every home slot sums ``pair_fn``'s terms over
+    the CAP slots of the 27 cells around it (``stencil_sources``, its own
+    cell included), in the stencil order dz, dy, dx. 0-d channels are
+    uniform and go to ``pair_fn`` as they are on both sides."""
     dev = x.device
     rows = torch.arange(spec.cap, device=dev)[None, None, :, None]
     xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
-    out = [torch.zeros_like(x) for _ in range(3 * nvec)]
+    ch_i = [c if c.dim() == 0 else c[:, :, :, None, :] for c in channels]
+    out = [torch.zeros_like(x) for _ in range(n_out)]
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
@@ -185,38 +355,82 @@ def pair_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channels
                 dxv = (x[zs, ybs, rows, lane] + shx)[:, :, None] - xi
                 dyv = (y[zs, ybs, rows, lane] + shy)[:, :, None] - yi
                 dzv = (z[zs, ybs, rows, lane] + shz)[:, :, None] - zi
-                ch_j = [c[zs, ybs, rows, lane][:, :, None] for c in channels]
-                fwd = fn.pair(dxv * dxv + dyv * dyv + dzv * dzv, dxv, dyv, dzv, ch_j, nvec)
-                out = [o + t.sum(dim=3) for o, t in zip(out, fwd)]
+                ch_j = [c if c.dim() == 0 else c[zs, ybs, rows, lane][:, :, None]
+                        for c in channels]
+                terms = pair_fn(dxv * dxv + dyv * dyv + dzv * dzv, dxv, dyv, dzv, ch_i, ch_j)
+                out = [o + t.sum(dim=3) for o, t in zip(out, terms)]
+    return tuple(out)
+
+
+def pair_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channels,
+                       strag=None):
+    """Plain PyTorch version of the 27-stencil channel kernel (#2) with the
+    PSE near-field functor ``fn``: ``channel_plain`` over its forward
+    contributions, plus the straggler rows. Returns ``(out (3 nvec grids),
+    spart [3 nvec, S] or None)``: the straggler rows' reverse sums, which
+    the JAX kernel returns as per-program partial grids."""
+    out = channel_plain(spec, fn.pair_fn(nvec), 3 * nvec, x, y, z, channels)
     spart = None
     if spec.n_strag:
+        xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
         ch_i = [c[:, :, :, None, :] for c in channels]
         fwd, spart = strag_channel_block(spec, fn, nvec, xi, yi, zi, ch_i, strag[:, :, 0])
         out = [o + t for o, t in zip(out, fwd)]
     return tuple(out), spart
 
 
-class PairChannelKernel:
-    """``apply(x, y, z, *channels[, strag]) -> (3 nvec grids) [+ (3 nvec
-    straggler totals [S])]`` for one ``GridSpec``, the PSE near-field
-    functor ``fn`` and ``nvec`` (1 or 2) stacked 3-vectors: the 27-stencil
-    channel kernel (#2). The JAX kernel returns the straggler rows as
-    per-program partial grids that its caller sums over (z, yb, lane); here
-    they come summed. CPU tensors run ``pair_channel_plain``; CUDA tensors
-    launch ``csrc/pair_channel.cu`` (counted in ``PAIR_CHANNEL.launches``)
-    or raise."""
+def _check_functor_inputs(spec: GridSpec, fn: ChannelFunctor, x, y, z, channels, cuda: bool):
+    shape = spec.array_shape
+    if len(channels) != fn.n_chan:
+        raise ValueError(f"{type(fn).__name__} takes {fn.n_chan} channels, got {len(channels)}")
+    ng = fn.n_chan - fn.n_uniform
+    grids = (("x", x), ("y", y), ("z", z)) + tuple(
+        (f"channel {k}", t) for k, t in enumerate(channels[:ng]))
+    for k, t in enumerate(channels[ng:]):
+        if not (torch.is_tensor(t) and t.dim() == 0 and t.dtype == torch.float32
+                and t.device == x.device):
+            raise ValueError(f"uniform channel {ng + k} must be a 0-d float32 tensor "
+                             f"on {x.device}")
+    for name, t in grids:
+        if cuda:
+            _build.check_cuda_tensor(t, name, shape)
+        elif t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a float32 CPU tensor of shape {shape}")
 
-    def __init__(self, spec: GridSpec, fn: PSENear, nvec: int = 1):
-        if not isinstance(fn, PSENear):
-            raise TypeError("the channel kernels take the PSE near-field functor "
-                            "(engine.pse_near.PSENear)")
-        if nvec not in (1, 2):
+
+class PairChannelKernel:
+    """The 27-stencil channel kernel (#2) for one ``GridSpec`` and functor.
+
+    With the PSE near-field functor ``fn`` and ``nvec`` (1 or 2) stacked
+    3-vectors: ``apply(x, y, z, *channels[, strag]) -> (3 nvec grids) [+ (3
+    nvec straggler totals [S])]``. The JAX kernel returns the straggler rows
+    as per-program partial grids that its caller sums over (z, yb, lane);
+    here they come summed. CPU tensors run ``pair_channel_plain``; CUDA
+    tensors launch ``uammd_pair_channel`` (counted in
+    ``PAIR_CHANNEL.launches``) or raise.
+
+    With a ``ChannelFunctor``: ``apply(x, y, z, *channels) -> (n_out
+    grids)`` on a straggler-free spec. CPU tensors run ``channel_plain``;
+    CUDA tensors launch the functor's instantiation (counted in
+    ``fn.kernel.launches``) or raise."""
+
+    def __init__(self, spec: GridSpec, fn, nvec: int = 1):
+        if isinstance(fn, ChannelFunctor):
+            if spec.n_strag:
+                raise ValueError(f"{type(fn).__name__} runs on straggler-free specs "
+                                 f"(n_strag = 0), not {spec.n_strag}")
+        elif not isinstance(fn, PSENear):
+            raise TypeError("the channel kernel takes the PSE near-field functor "
+                            "(engine.pse_near.PSENear) or a pair_kernel.ChannelFunctor")
+        elif nvec not in (1, 2):
             raise ValueError(f"nvec must be 1 or 2, not {nvec}")
         self.spec = spec
         self.fn = fn
         self.nvec = nvec
 
     def __call__(self, x, y, z, *channels, strag=None):
+        if isinstance(self.fn, ChannelFunctor):
+            return self._functor(x, y, z, channels)
         spec, nvec = self.spec, self.nvec
         S = spec.n_strag
         if S and strag is None:
@@ -227,7 +441,7 @@ class PairChannelKernel:
         else:
             ch, srows = channel_launch_args(spec, nvec, x, y, z, channels, strag,
                                             "the channel kernel")
-            rows, kj = channel_launch_shape(spec, nvec)
+            rows, kj = channel_launch_shape(spec, 3 * nvec)
             nc = 3 * nvec
             T = spec.n_slots
             buf = torch.zeros(nc * T + nc * S, dtype=torch.float32, device=x.device)
@@ -245,7 +459,25 @@ class PairChannelKernel:
             return tuple(out) + tuple(spart)
         return tuple(out)
 
+    def _functor(self, x, y, z, channels):
+        spec, fn = self.spec, self.fn
+        cuda = x.device.type != "cpu"
+        _check_functor_inputs(spec, fn, x, y, z, channels, cuda)
+        if not cuda:
+            return channel_plain(spec, fn, fn.n_out, x, y, z, channels)
+        ng = fn.n_chan - fn.n_uniform
+        ch = torch.stack(channels[:ng])
+        uni = torch.stack(channels[ng:]) if fn.n_uniform else None
+        rows, kj = channel_launch_shape(spec, ng)
+        out = torch.empty((fn.n_out,) + spec.array_shape, dtype=torch.float32, device=x.device)
+        nx, _, nz = spec.shape
+        P = _build.ptr
+        fn.kernel(P(x), P(y), P(z), P(ch), P(uni) if uni is not None else _P(0), P(out),
+                  nx, spec.nyb, nz, spec.fold, spec.cap, rows, kj, *spec.box_size,
+                  fn.params())
+        return tuple(out)
 
-def make_pair_channel_kernel(spec: GridSpec, fn: PSENear, nvec: int = 1) -> PairChannelKernel:
+
+def make_pair_channel_kernel(spec: GridSpec, fn, nvec: int = 1) -> PairChannelKernel:
     """Build the 27-stencil channel kernel (see ``PairChannelKernel``)."""
     return PairChannelKernel(spec, fn, nvec)

@@ -114,6 +114,11 @@ class PSENear:
         gc = ginv2 * (fx * dx + fy * dy + fz * dz)
         return f * fx + gc * dx, f * fy + gc * dy, f * fz + gc * dz
 
+    def pair_fn(self, nvec: int):
+        """The forward contributions as a JAX-signature ``pair_fn(r2, dxv,
+        dyv, dzv, ch_i, ch_j)``."""
+        return lambda r2, dx, dy, dz, ch_i, ch_j: self.pair(r2, dx, dy, dz, ch_j, nvec)
+
     def pair(self, r2, dx, dy, dz, ch_j, nvec: int):
         """The forward contributions (3 nvec of them) onto the home rows."""
         f, ginv2 = self.radial(r2)
@@ -163,22 +168,23 @@ def strag_channel_block(spec: GridSpec, fn: PSENear, nvec: int, xi, yi, zi, ch_i
 
 
 # threads per block of the channel kernels (rows x NLANE) and their
-# shared-memory budget: 3 staged y-blocks of (3 + 3 nvec) arrays x kJ rows x
-# NLANE floats, plus the [3 + 3 nvec + 1, S] straggler rows
+# shared-memory budget: 3 staged y-blocks of (3 + n_chan) arrays x kJ rows x
+# NLANE floats, plus the [3 + n_chan + 1, S] straggler rows
 CHANNEL_THREADS = 512
 CHANNEL_SMEM = 48 * 1024
 
 
-def channel_launch_shape(spec: GridSpec, nvec: int):
-    """(rows, kJ) of a channel kernel launch; raises ValueError when not
-    even one staged row fits the shared-memory budget."""
-    na = 3 + 3 * nvec
+def channel_launch_shape(spec: GridSpec, n_chan: int):
+    """(rows, kJ) of a channel kernel launch staging ``n_chan`` channels
+    (3 nvec for the PSE functor); raises ValueError when not even one
+    staged row fits the shared-memory budget."""
+    na = 3 + n_chan
     strag_bytes = 4 * (na + 1) * spec.n_strag
     per_row = 4 * 3 * na * spec.nlane
     kj = min(8, spec.cap, (CHANNEL_SMEM - strag_bytes) // per_row)
     if kj < 1:
         raise ValueError(
-            f"the {3 * nvec}-channel kernel needs {per_row + strag_bytes} bytes of shared "
+            f"the {n_chan}-channel kernel needs {per_row + strag_bytes} bytes of shared "
             f"memory at NLANE {spec.nlane} and S {spec.n_strag}, over its {CHANNEL_SMEM}")
     rows = max(1, min(spec.cap, CHANNEL_THREADS // spec.nlane))
     return rows, kj

@@ -87,7 +87,10 @@ def fcm_em(force_fn, fcm, dt: float, temperature: float = 0.0, *, slack: int = 1
             else:
                 mf = fcm.compute_mf(state.pos, fev.force)
         else:
-            if float(torch.maximum(wdrift(state.pos, ref, 0), wdrift(state.pos, ref, 1))) > thr:
+            # compared in the state's dtype, as JAX compares it
+            # (``jnp.asarray(thr, state.dtype)``)
+            thr_d = float(torch.tensor(thr, dtype=state.pos.dtype))
+            if float(torch.maximum(wdrift(state.pos, ref, 0), wdrift(state.pos, ref, 1))) > thr_d:
                 bins, ref = fcm.pencil_bins(state.pos, slack=slack), state.pos
             if temperature > 0:
                 state, gen = next_key(state)

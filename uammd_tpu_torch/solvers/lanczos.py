@@ -7,26 +7,30 @@ Lanczos tridiagonalisation with full reorthogonalisation, then
 B v ~ |v| V sqrt(T) e1. Plain PyTorch (the JAX package needed no Pallas
 here); the fixed-count loop is a Python loop.
 
-sqrt(T) e1 of the small tridiagonal T is taken without a host read: a
+sqrt(T) e1 of the small tridiagonal T is taken as JAX takes it, from the
+eigendecomposition with the eigenvalues clamped at 0 (an indefinite T from
+float32 round-off gives finite numbers), without a host read on the card:
 ``torch.linalg.eigh`` on a CUDA tensor checks its error flag on the host,
-which waits for the card. ``_sqrt_e1`` runs the coupled Newton-Schulz
-iteration (Higham, Functions of Matrices, (6.35)) in float64 on T scaled by
-its Gershgorin bound, a fixed ``NS_ITERS`` times: the same square root as
-JAX's eigendecomposition to float64 round-off for condition numbers up to
-~1e8, and an eigenvalue of exactly 0 stays 0 (JAX clamps negative ones to
-0; Lanczos on a positive operator gives none).
+which waits for the card. ``_sqrt_e1`` launches the one-block Jacobi kernel
+``engine/csrc/lanczos_sqrt.cu`` (float64) on CUDA tensors and runs its
+plain version, ``torch.linalg.eigh`` with the same clamp, on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import partial
 
 import numpy as np
 import torch
 
-# Newton-Schulz steps: an eigenvalue lambda of the scaled T converges in
-# about log(1 / lambda) / log(2.25) + 6 steps
-NS_ITERS = 30
+from ..engine import _build
+
+# uammd_lanczos_sqrt_e1(alphas, betas, out, m, stream)
+LANCZOS_SQRT = _build.Kernel("lanczos_sqrt", "uammd_lanczos_sqrt_e1",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int])
+# the kernel keeps A and V ([m, m] float64 each) in 48 KB of shared memory
+MAX_M = 48
 
 
 def _tridiag(alphas, betas, m: int, dtype=torch.float64):
@@ -35,17 +39,28 @@ def _tridiag(alphas, betas, m: int, dtype=torch.float64):
     return torch.diag(a) + torch.diag(b, 1) + torch.diag(b, -1)
 
 
+def sqrt_e1_plain(alphas, betas, m: int):
+    """sqrt(T) e1 (float64) for T = tridiag(alphas[:m], betas[1:m]) by
+    ``torch.linalg.eigh``, eigenvalues clamped at 0 (JAX's
+    ``uammd_tpu/solvers/lanczos.py:74-75``)."""
+    evals, evecs = torch.linalg.eigh(_tridiag(alphas, betas, m))
+    return evecs @ (torch.sqrt(torch.clamp(evals, min=0.0)) * evecs[0, :])
+
+
 def _sqrt_e1(alphas, betas, m: int):
-    """sqrt(T) e1 (float64) for T = tridiag(alphas[:m], betas[1:m])."""
-    T = _tridiag(alphas, betas, m)
-    s = T.abs().sum(dim=1).max()
-    s = torch.where(s > 0, s, torch.ones_like(s))
-    eye = torch.eye(m, dtype=T.dtype, device=T.device)
-    Y, Z = T / s, eye
-    for _ in range(NS_ITERS):
-        H = torch.addmm(eye, Z, Y, beta=1.5, alpha=-0.5)
-        Y, Z = Y @ H, H @ Z
-    return torch.sqrt(s) * Y[:, 0]
+    """sqrt(T) e1 (float64): the plain version on CPU tensors, the Jacobi
+    kernel (counted in ``LANCZOS_SQRT.launches``) on CUDA tensors."""
+    if alphas.device.type == "cpu":
+        return sqrt_e1_plain(alphas, betas, m)
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"the sqrt kernel takes 1 <= m <= {MAX_M}, got {m}")
+    a = alphas[:m].to(torch.float64).contiguous()
+    b = betas[:m].to(torch.float64).contiguous()
+    _build.check_cuda_tensor(a, "alphas", (m,), torch.float64)
+    _build.check_cuda_tensor(b, "betas", (m,), torch.float64)
+    out = torch.empty(m, dtype=torch.float64, device=a.device)
+    LANCZOS_SQRT(_build.ptr(a), _build.ptr(b), _build.ptr(out), m)
+    return out
 
 
 def _lanczos_step(mv, V, alphas, betas, i: int, w=None):
