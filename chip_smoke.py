@@ -63,6 +63,21 @@ Imports nothing of JAX or of the JAX package. Phases:
      masked mixture with its mask ignored, #1's energy not halved; #1's
      trace(stress) = virial; the Lanczos sqrt(T) e1 kernel against eigh
      with the clamp on indefinite tridiagonals (within ``SQRT_TOL``).
+   - slice A3 (``unfused_kernel_checks``): the G-J update from folded
+     forces #11 against its plain version on identical counter noise at
+     T = 0 and T = 1 on the 2^20 perturbed fcc state at the v2 spec and on
+     the n 600 straggler system, within ``UNFUSED_TOL`` x max|ref|; the
+     one-shot straggler rebin #4 on the moved n 600 system: ``out``,
+     ``mini``, count and overflow exactly equal, every particle kept, and
+     ``rebin_fast2`` equal by pid to ``rebin_fast3`` and the sort rebin.
+     Controls: #11 with the seed off by one must fail the bound; #4 without
+     its straggler block must lose the stragglers from its count.
+   - slice E1 (``poisson_checks``): #2 with the Poisson functor against its
+     plain version on the electrolyte's packed state, without and with 64
+     straggler rows (``CHANNEL_TOL``), the straggler spec's near field
+     against the straggler-free one (``CHANNEL_TOL``), a control (the
+     candidates' charges dropped) that must fail; the isolated-charge Wigner energy (rtol
+     2e-3) and the two-charge Newton-3 check on the card.
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -103,6 +118,28 @@ Imports nothing of JAX or of the JAX package. Phases:
      (number density 0.3) and the hierarchy, against plain and timed;
      ``lj_pressure`` on the v2 path's final state (P and E finite, #1's
      observable mode launched, checked against plain there).
+   - v2 unfused (``main_path_v2_unfused``): ``make_lj_md2(fold_in_update=
+     False)`` on the melted liquid as the v2 path: 100 settle and 200 timed
+     steps. Gates: those of the v2 path, #6, #7 and #11 once per timed
+     step, #12 never, #5 on drift, one host read per step. In the settle
+     steps every state the engine hands its rebin also goes through
+     ``rebin_fast2`` (#4), which must keep the same particles by pid as
+     the engine's ``rebin_fast3``; #4 against its plain version on the last
+     of them and on the final liquid after a sub-cell drift, and #11 on
+     the final liquid; #7 + #11 against #12 on one
+     Newton output (``UNFUSED_TOL``, bit-equality reported); the fused
+     engine ("bm") against the unfused one for ``FUSED_STEPS`` steps from
+     one state: the same rebin steps and positions within ``fused_bound``.
+   - Poisson (``main_path_poisson``): the electrolyte (N = 131072 charges
+     of +-1 in a 192^3 box, gw 0.4, split 0.175 by generic_md.py:186-190's
+     rule: a 96^3 far grid and a [10, 3, 216, 30] near grid) under
+     ``brownian.euler_maruyama`` with ``PoissonSplit.sum`` as the force, dt
+     0.001: 20 warm-up and 100 timed steps. Gates: finite state, no near
+     overflow, |sum F| / (N rms F) < ``SUM_F_TOL``, #2 (Poisson), #13 and
+     #14 once per timed step; host reads per step printed. Split
+     invariance at the first configuration: splits 0.175 (with and without
+     stragglers) and 0.25 against the no-split solver (640^3), energies
+     within 2e-2 relative and forces within 2e-3 x max|f|.
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -115,14 +152,15 @@ Imports nothing of JAX or of the JAX package. Phases:
    velocity within 10 % of m_self |g|.
 4. Time each kernel and its plain version (CUDA events, after warm-up) at
    its path's final shapes, check them against each other once more there,
-   print the v2, FCM, PSE, DPD and SPH steps' breakdowns and the kernels'
-   JSON line (eleven kernels, the five new functors of #2, #1's observable
-   mode and the Lanczos sqrt kernel).
+   print the v2, FCM, PSE, DPD, SPH, unfused v2 and Poisson steps'
+   breakdowns and the kernels' JSON line (thirteen kernels, the six new
+   functors of #2, #1's observable mode and the Lanczos sqrt kernel).
 
 ``--only-pse`` runs the build and the PSE phases alone, ``--only-slice-d``
 the build and slice D's phases (the observables on the v2 engine's
-jittered fcc start); neither prints a result line (for work on those
-paths).
+jittered fcc start), ``--only-unfused`` the build, slice A3's checks, the
+v1 melt and the unfused v2 path, ``--only-poisson`` the build and slice
+E1's phases; none prints a result line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -131,6 +169,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -2294,11 +2333,750 @@ def slice_d_only(dev, card) -> int:
     return 0
 
 
+
+# ------------------------------------------------ slice A3: the v2 engine unfused
+# make_lj_md2(fold_in_update=False): the Newton pair #6, the fold #7 as a pass
+# of its own and the G-J update from folded forces #11, rebinning with
+# rebin_fast3 (#5) as the JAX engine does, on the melted 2^20 liquid of
+# main_path_v2; the one-shot straggler rebin #4 (rebin_fast2) is held
+# against it on the states the engine rebins. #11 has Box-Muller noise only:
+# its check and the fused comparison run "bm".
+UNFUSED_TOL = 2e-5  # #11 against plain, x max|ref| (the card's logf/sinf/cosf)
+FUSED_STEPS = 10
+FUSED_TOL = 1e-5  # fused against unfused positions after FUSED_STEPS
+# The Newton kernel adds its reactions with float atomics in an order that
+# changes from run to run, so two fused runs from one state end apart too
+# (1.14e-5 on an H100: one or two ulps of the coordinates, which reach 128):
+# the bound is FUSED_TOL, or this times that spread when larger, and never
+# more than FUSED_CAP.
+FUSED_SPREAD_RATIO = 2.0
+FUSED_CAP = 5e-5
+
+
+def fused_bound(spread: float) -> float:
+    return max(FUSED_TOL, min(FUSED_SPREAD_RATIO * spread, FUSED_CAP))
+
+
+def n600_straggler_system(dev, rng):
+    """tests/test_engine2.py:35's system (n 600, L 12, CAP 8, 128-row list),
+    its fcc sites moved by a clipped 0.15-sigma Gaussian, and the same state
+    after tests/test_engine2.py:96-102's displacement (a clipped 0.35-sigma
+    Gaussian: cells pass CAP, stragglers move), drawn from the torch
+    generator ``rng`` in that order."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    n_s, L_s = 600, 12.0
+    jit_s = (0.15 * torch.randn((n_s, 3), generator=rng, dtype=torch.float64)).clamp(-0.2, 0.2)
+    pos_s = lattice(n_s, L_s, "fcc") + jit_s.numpy()
+    spec_s = layout.choose_spec(L_s, n_s, 2.5, cap=8, pos=pos_s, n_strag=128)
+    gs_s = layout.pack(spec_s, pos_s, vel=torch.randn((n_s, 3), generator=rng).numpy(),
+                       device=dev)
+    return gs_s, engine2_drift(gs_s, rng)
+
+
+def engine2_drift(gs, rng):
+    """tests/test_engine2.py:96-102's sub-cell drift, drawn from the torch
+    generator ``rng``: x by a 0.35-sigma Gaussian clipped to 1, y by half
+    of it, z by -0.3 of it, and the stragglers by a 0.35-sigma Gaussian."""
+    import torch
+
+    dev = gs.device
+    dx = (0.35 * torch.randn(gs.x.shape, generator=rng).to(dev)).clamp(-1.0, 1.0) * gs.mask
+    sdx = 0.35 * torch.randn(gs.spos.shape, generator=rng).to(dev) * (gs.spid >= 0)[:, None]
+    return gs.replace(x=gs.x + dx, y=gs.y + 0.5 * dx, z=gs.z - 0.3 * dx, spos=gs.spos + sdx)
+
+
+def check_rebin2(gs, what: str):
+    """#4 against its plain version: out, mini, count and overflow equal
+    slot for slot, every particle kept without overflow; rebin_fast2's
+    state equal by pid to rebin_fast3's and the sort rebin's. Returns the
+    mini-grid's stragglers and the max abs difference."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    stacked, strag = stacked_of(gs, 7), strag_stack_of(gs)
+    got = rk.make_rebin_kernel2(gs.spec)(stacked, strag)
+    want = rk.rebin2_plain(gs.spec, stacked, strag)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{what}: one-shot rebin out and mini equal plain slot for slot")
+    check((int(got[2]), int(got[3])) == (int(want[2]), int(want[3])),
+          f"{what}: one-shot rebin count/overflow {int(got[2])}/{int(got[3])} == plain "
+          f"{int(want[2])}/{int(want[3])}")
+    check(int(got[2]) == gs.n and int(got[3]) == 0,
+          f"{what}: one-shot rebin keeps all {gs.n} particles without overflow")
+    r2 = rk.rebin_fast2(gs)
+    n_kept = int((r2.pid >= 0).sum()) + int((r2.spid >= 0).sum())
+    check(not bool(r2.overflow) and n_kept == gs.n, f"{what}: rebin_fast2 keeps every particle")
+    p2, v2, _ = layout.unpack(r2)
+    for name, other in (("rebin_fast3", rk.rebin_fast3(gs)), ("layout.rebin", layout.rebin(gs))):
+        p, v, _ = layout.unpack(other)
+        check(torch.equal(p2, p) and torch.equal(v2, v),
+              f"{what}: rebin_fast2 positions and velocities equal {name}'s by pid")
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    return int((got[1][6] > 0.5).sum()), err
+
+
+def gj_inputs(gs, seed: int):
+    """#11's arguments on ``gs``: random w, folded forces from the Newton
+    kernel and the fold, reference positions up to 0.2 away, and the
+    straggler rows."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+
+    home, groups, sf = newton_pair(gs)
+    folded = kernel2.make_fold_kernel(gs.spec)(home, groups)
+    a, _, ref, step = update_inputs(gs, home, groups, seed)
+    a = a[:6] + list(folded)
+    strag = None
+    if gs.spec.n_strag:
+        gen = torch.Generator(device=gs.device).manual_seed(seed + 1)
+        sv = (gs.spid >= 0)[:, None]
+        strag = (gs.spos, torch.randn(gs.svel.shape, generator=gen, device=gs.device) * sv,
+                 sf * sv, gs.spid)
+    return a, ref, step, strag
+
+
+def check_gj_update(gs, temperature: float, what: str, control: bool = False):
+    """#11 against gj_update_plain on identical counter noise: each output
+    (the six grids over occupied slots, the straggler rows over occupied
+    rows) within UNFUSED_TOL x its own max|ref|, the drift too. With
+    ``control`` the plain version's seed is off by one, which must fail
+    that bound (through the velocities: the noise moves a position by
+    about 1e-5 of the box). Returns the relative and absolute errors."""
+    from uammd_tpu_torch.engine import update_kernel as uk
+
+    kern = uk.make_gj_update_kernel(gs.spec, 0.01, temperature, 1.0, 1.0)
+    a, ref, step, strag = gj_inputs(gs, 20261)
+    got = kern(*a, *ref, step, strag)
+    want = uk.gj_update_plain(gs.spec, kern.coef, *a, *ref, step + 1 if control else step, strag)
+    m = gs.mask
+    pairs = [(x[m], y[m]) for x, y in zip(got[0], want[0])]
+    if strag is not None:
+        sm = gs.spid >= 0
+        pairs += [(x[sm], y[sm]) for x, y in zip(got[2], want[2])]
+    pairs.append((got[1].reshape(1), want[1].reshape(1)))
+    pairs = [(x, y) for x, y in pairs if y.numel()]
+    err = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30) for x, y in pairs)
+    err_abs = max(float((x - y).abs().max()) for x, y in pairs)
+    if control:
+        check(err > UNFUSED_TOL, f"{what}: control (seed off by one) fails the bound ({err:.3g})")
+    else:
+        check(err < UNFUSED_TOL, f"{what}: G-J update #11 (T = {temperature}) vs plain "
+                                 f"{err:.3g} < {UNFUSED_TOL}")
+        check(float(got[1]) > 0.0, f"{what}: #11 sees the drift")
+    return err, err_abs
+
+
+def unfused_kernel_checks(dev):
+    """#4 on the n 600 straggler system and #11 on the 2^20 perturbed fcc
+    state at the v2 spec, each against its plain version, with controls
+    that must fail."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    gs_s, moved = n600_straggler_system(dev, torch.Generator().manual_seed(31))
+    check(int((gs_s.spid >= 0).sum()) > 0, "n 600 CAP 8: the straggler list is used")
+    mini_s, r2_err = check_rebin2(moved, "n 600 stragglers moved")
+    check(mini_s > 0, "n 600 stragglers moved: the one-shot mini-grid holds stragglers")
+    # control: the straggler block zeroed loses the stragglers, which the
+    # count must flag
+    strag0 = torch.zeros_like(strag_stack_of(moved))
+    lost = rk.make_rebin_kernel2(moved.spec)(stacked_of(moved, 7), strag0)
+    n_strag = int((moved.spid >= 0).sum())
+    check(int(lost[2]) == moved.n - n_strag,
+          f"control: #4 without its straggler block counts {int(lost[2])} = "
+          f"{moved.n} - {n_strag}, which flags overflow")
+    crammed = gs_s.replace(**{k: torch.where(gs_s.mask, getattr(gs_s, k) * 0.05,
+                                             getattr(gs_s, k)) for k in ("x", "y", "z")})
+    check(bool(rk.rebin_fast2(crammed).overflow), "crammed n 600: rebin_fast2 latches overflow")
+
+    pos_fcc = fcc_start(N, BOX, 0.1, 21)
+    spec2 = layout.choose_spec(BOX, N, 2.5, pos=pos_fcc, n_strag=N_STRAG)
+    gs2 = layout.pack(spec2, pos_fcc, device=dev)
+    errs = {f"T{t}": check_gj_update(gs2, t, "2^20 perturbed fcc") for t in (0.0, 1.0)}
+    errs["n600_T1"] = check_gj_update(gs_s, 1.0, "n 600 stragglers")
+    control = check_gj_update(gs2, 1.0, "2^20 perturbed fcc", control=True)[0]
+    print(json.dumps({"phase": "unfused_kernel_checks", "ok": True,
+                      "gj_update_rel_and_abs_err": errs, "gj_update_tol": UNFUSED_TOL,
+                      "gj_update_control_seed_off_by_one": control,
+                      "rebin2": "exact (out, mini, count, overflow) on n 600 moved",
+                      "rebin2_n600_mini_stragglers": mini_s,
+                      "rebin2_control_no_straggler_block_count": int(lost[2]),
+                      "spec": list(spec2.array_shape)}), flush=True)
+    return {"gj_update": errs, "rebin2_err": r2_err}
+
+
+def unfused_counters() -> dict:
+    from uammd_tpu_torch.engine import kernel2, rebin_kernel, update_kernel
+
+    return {"newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
+            "gj_update": update_kernel.GJ_UPDATE, "gj_fold_update": update_kernel.GJ_FOLD_UPDATE,
+            "rebin2": rebin_kernel.REBIN2, "separable_rebin": rebin_kernel.SEP_REBIN}
+
+
+def melt(dev):
+    """bench.py's melt: 300 v1 steps at dt 0.004 from the fcc lattice; the
+    melted positions (numpy)."""
+    from uammd_tpu_torch.engine import layout, md
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    pos_fcc = lattice(N, BOX, "fcc")
+    md_melt = md.make_lj_md(BOX, N, dt=0.004, temperature=TEMPERATURE, pos=pos_fcc, device=dev)
+    gs = md_melt.run(md_melt.init(pos_fcc, seed=0), MELT_STEPS)
+    check(not bool(gs.overflow), "melt phase: no overflow")
+    return layout.unpack(gs)[0].cpu().numpy()
+
+
+def unfused_engine(dev, pos, **kw):
+    from uammd_tpu_torch.engine import md2
+
+    return md2.make_lj_md2(BOX, N, dt=0.01, temperature=TEMPERATURE, pos=pos, n_strag=N_STRAG,
+                           fast_recip=True, device=dev, **kw)
+
+
+@contextlib.contextmanager
+def rebin2_held(held: list):
+    """While open, every state the v2 engine hands its rebin (md2's
+    ``rebin_fast3``) also goes through ``rebin_fast2`` (#4), which must
+    keep every particle without overflow and give the same particles by
+    pid as ``rebin_fast3``; ``held`` keeps the number of states and the
+    last of them."""
+    from uammd_tpu_torch.engine import layout, md2
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    real = md2.rebin_fast3
+
+    def rebin(gs):
+        k = held[0] + 1 if held else 1
+        out = real(gs)
+        r2 = rk.rebin_fast2(gs)
+        n_kept = int((r2.pid >= 0).sum()) + int((r2.spid >= 0).sum())
+        check(not bool(r2.overflow) and n_kept == gs.n,
+              f"v2 unfused rebin {k}: rebin_fast2 keeps every particle")
+        (p2, v2, _), (p3, v3, _) = layout.unpack(r2), layout.unpack(out)
+        check(bool((p2 == p3).all()) and bool((v2 == v3).all()),
+              f"v2 unfused rebin {k}: rebin_fast2 equals rebin_fast3 by pid")
+        held[:] = [k, gs]
+        return out
+
+    md2.rebin_fast3 = rebin
+    try:
+        yield
+    finally:
+        md2.rebin_fast3 = real
+
+
+def unfused_main_path(dev, card, melted, errs):
+    """main_path_v2_unfused with #4 held on the states it rebins, #4 and
+    #11 against plain on its states, #7 + #11 against #12 on one Newton
+    output, the fused against unfused comparison, breakdown_unfused;
+    returns the kernels-line rows of #11 and #4."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2, layout
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+    from uammd_tpu_torch.engine import update_kernel as uk
+
+    counted = unfused_counters()
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    engine = unfused_engine(dev, melted, fold_in_update=False)
+    held = []
+    with rebin2_held(held):
+        gs = engine.run(engine.init(melted, seed=1), SETTLE_STEPS)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in counted.items()}
+    t0 = time.perf_counter()
+    gs = engine.run(gs, TIMED_STEPS)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    timed = {k: launches[k] - before[k] for k in counted}
+    steps = SETTLE_STEPS + TIMED_STEPS
+    n_kept, t_meas = gates(engine, gs, "v2 unfused path", steps, launches, [],
+                           ["separable_rebin", "rebin2"])
+    for k in ("newton_pair", "fold", "gj_update"):
+        check(timed[k] == TIMED_STEPS, f"v2 unfused: {k} launched {timed[k]} == {TIMED_STEPS} "
+                                       f"times in the timed steps")
+    check(timed["gj_fold_update"] == 0 and launches["gj_fold_update"] == 0,
+          "v2 unfused: the fused update #12 never launched")
+    n_held = held[0] if held else 0
+    check(n_held >= 1 and launches["rebin2"] == n_held and timed["rebin2"] == 0,
+          f"v2 unfused: #4 launched {launches['rebin2']} times, once on each of the {n_held} "
+          f"states rebinned in the settle steps")
+    check(all(bool(a.isfinite().all()) for a in layout.unpack(gs)), "v2 unfused: state finite")
+    reads = host_reads(lambda: engine.step(gs), HOST_READ_STEPS)
+    reads_per_step = len(reads) / HOST_READ_STEPS
+    check(reads_per_step <= 1, f"v2 unfused: {reads_per_step} host reads per step {reads}")
+    ms = 1e3 * timed_s / TIMED_STEPS
+    print(json.dumps({
+        "phase": "main_path_v2_unfused", "n": N, "box": BOX, "n_strag": N_STRAG,
+        "fold_in_update": False, "rebin": "rebin_fast3 (#5); rebin_fast2 (#4) held against it "
+                                          "in the settle steps",
+        "noise": "bm (#11 has no other)",
+        "fast_recip": True, "spec": list(engine.spec.array_shape),
+        "settle_steps": SETTLE_STEPS, "timed_steps": TIMED_STEPS, "timed_seconds": timed_s,
+        "ms_per_step": ms, "particle_steps_per_s": N * TIMED_STEPS / timed_s,
+        "temperature": t_meas, "particles_kept": n_kept,
+        "stragglers": int((gs.spid >= 0).sum()), "overflow": False, "launches": launches,
+        "timed_launches": timed, "timed_launches_per_step":
+            {k: v / TIMED_STEPS for k, v in timed.items()},
+        "rebins_held_against_rebin_fast2": n_held,
+        "host_reads_per_step": reads_per_step, "host_reads_at": reads}), flush=True)
+
+    # #4 on the last state the path rebinned and on its final liquid after
+    # tests/test_engine2.py:96-102's sub-cell drift, #11 on its final liquid
+    moved = held[1]
+    del held[:]
+    mini_l, r2_err = check_rebin2(moved, "2^20 unfused liquid, last state rebinned in settle")
+    mini_d, r2_err_d = check_rebin2(engine2_drift(gs, torch.Generator().manual_seed(16)),
+                                    "2^20 unfused liquid displaced")
+    r2_err = max(r2_err, r2_err_d)
+    upd_err = check_gj_update(gs, TEMPERATURE, "2^20 unfused liquid")
+
+    # #7 + #11 against #12 on one Newton output and one noise key: both
+    # folds add home + the 4 reaction groups in fold.cu's order and both
+    # updates run gj_common.cuh's arithmetic (bit-equality is reported)
+    fused_upd = uk.make_gj_fold_update_kernel(engine.spec, 0.01, TEMPERATURE, 1.0, 1.0,
+                                              noise="bm")
+    home, groups, sf = newton_pair(gs)
+    a, grp, ref, step = update_inputs(gs, home, groups, 43)
+    s_rows = (gs.spos, gs.svel, sf * (gs.spid >= 0)[:, None], gs.spid)
+    one = engine.update(*a[:6], *engine.fold(home, groups), *ref, step, s_rows)
+    two = fused_upd(*a, grp, *ref, step, s_rows)
+    pairs = list(zip(one[0], two[0])) + [(one[1], two[1])] + list(zip(one[2], two[2]))
+    one_step_equal = all(torch.equal(u, v) for u, v in pairs)
+    one_step_err = max(float((u - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                       for u, v in pairs)
+    check(one_step_err < UNFUSED_TOL, f"one step: #7 + #11 against #12 on one Newton output "
+                                      f"{one_step_err:.3g} < {UNFUSED_TOL}")
+
+    # fused against unfused from one state (both "bm"), with a second fused
+    # run for the spread of the fused engine against itself
+    pos_now = layout.unpack(gs)[0].cpu().numpy()
+    engines = {"fused": unfused_engine(dev, pos_now, noise="bm"),
+               "fused_again": unfused_engine(dev, pos_now, noise="bm"),
+               "unfused": unfused_engine(dev, pos_now, fold_in_update=False)}
+    states = {k: e.init(pos_now, seed=5) for k, e in engines.items()}
+    flags = {k: [] for k in engines}
+    for _ in range(FUSED_STEPS):
+        for k, e in engines.items():
+            before_ref = states[k].ref_x
+            states[k] = e.step(states[k])
+            flags[k].append(not torch.equal(states[k].ref_x, before_ref))
+    pp = {k: layout.unpack(g)[0] for k, g in states.items()}
+
+    def gap_of(a, b):
+        d = pp[a] - pp[b]
+        return float((d - BOX * torch.round(d / BOX)).abs().max())
+
+    gap, spread = gap_of("fused", "unfused"), gap_of("fused", "fused_again")
+    check(flags["fused"] == flags["unfused"],
+          f"fused and unfused rebin at the same steps {flags}")
+    bound = fused_bound(spread)
+    check(gap < bound, f"fused against unfused after {FUSED_STEPS} steps: {gap:.3g} < "
+                       f"{bound:.3g} (fused against itself {spread:.3g})")
+    bit_equal = bool(torch.equal(pp["fused"], pp["unfused"]))
+    print(json.dumps({"phase": "fused_vs_unfused", "steps": FUSED_STEPS, "noise": "bm",
+                      "one_step_bit_equal": one_step_equal, "one_step_rel_err": one_step_err,
+                      "max_abs_position_gap": gap, "fused_run_to_run_gap": spread,
+                      "within_fused_tol": gap < FUSED_TOL, "bound": bound,
+                      "bit_equal": bit_equal,
+                      "rebin_steps": [k for k, f in enumerate(flags["fused"]) if f],
+                      "note": "on one Newton output the two folds and updates agree bit for "
+                              "bit; over several steps the Newton kernel's float atomics "
+                              "make no two runs bit-equal, fused or not"}), flush=True)
+    del engines, states, pp
+
+    # breakdown_unfused and the kernels' rows, at the path's final state
+    spec = engine.spec
+    slot = 4 * spec.n_slots
+    S = spec.n_strag
+    strag = kernel2.broadcast_stragglers(spec, gs.spos, gs.spid)
+    newton = engine.pair
+    fold = engine.fold
+    a, ref, step, s_rows = gj_inputs(gs, 41)
+    upd = engine.update
+    stacked, srows = stacked_of(moved, 7), strag_stack_of(moved)
+    r2k = rk.make_rebin_kernel2(spec)
+    t = {"newton_pair": cuda_ms(lambda: newton(gs.x, gs.y, gs.z, strag), reps=20),
+         "fold": cuda_ms(lambda: fold(home, groups), reps=20),
+         "gj_update": cuda_ms(lambda: upd(*a, *ref, step, s_rows), reps=20),
+         "rebin_fast3": cuda_ms(lambda: rk.rebin_fast3(moved), reps=20)}
+    r2_ms = cuda_ms(lambda: r2k(stacked, srows), reps=20)
+    plain = {"gj_update": cuda_ms(lambda: uk.gj_update_plain(spec, upd.coef, *a, *ref, step,
+                                                             s_rows), reps=5, warmup=1),
+             "rebin2": cuda_ms(lambda: rk.rebin2_plain(spec, stacked, srows), reps=3, warmup=1)}
+    per_step = {k: timed[k] / TIMED_STEPS for k in ("newton_pair", "fold", "gj_update")}
+    per_step["rebin_fast3"] = timed["separable_rebin"] / TIMED_STEPS
+    by_part = {k: t[k] * per_step[k] for k in t}
+    print(json.dumps({
+        "phase": "breakdown_unfused", "card": card, "ms_per_step": ms,
+        "ms_per_call": t, "calls_per_step": per_step, "ms_per_step_by_part": by_part,
+        "shares": {k: v / ms for k, v in by_part.items()},
+        "rest_ms": ms - sum(by_part.values()), "rebin2_ms_per_call": r2_ms,
+        "rebin2_mini_stragglers_liquid": [mini_l, mini_d],
+        "note": "CUDA events on an idle card at the path's final state (the rebins on the "
+                "last state the path rebinned); rebin_fast3 = #5 with its packing; rest = "
+                "the straggler pairs, the drift read, compute_forces' bookkeeping"}),
+          flush=True)
+    mini_bytes = 4 * 7 * spec.n_slots // spec.cap * rk.OCAP
+    upd_bytes_ms = 1e3 * (18 * slot + 64 * S + 8) / PEAK_HBM_BYTES
+    r2_bytes_ms = 1e3 * (2 * 7 * slot + mini_bytes + 7 * 4 * S + 8) / PEAK_HBM_BYTES
+    del moved, stacked, srows
+    src = "uammd_tpu_torch/engine/csrc/"
+    return [
+        {"name": "gj_update", "route": "cuda", "source": src + "gj_update.cu (+ gj_common.cuh)",
+         "replaces": "uammd_tpu/engine/update_kernel.py:134", "launches": launches["gj_update"],
+         "max_abs_err": upd_err[1], "ms": t["gj_update"], "plain_ms": plain["gj_update"],
+         "bound_ms": upd_bytes_ms, "bound_by": "bytes", "library_ms": None,
+         "rel_err": upd_err[0], "checks": errs["gj_update"]},
+        {"name": "rebin2", "route": "cuda", "source": src + "rebin2.cu",
+         "replaces": "uammd_tpu/engine/rebin_kernel.py:522", "launches": launches["rebin2"],
+         "max_abs_err": r2_err, "ms": r2_ms, "plain_ms": plain["rebin2"],
+         "bound_ms": r2_bytes_ms, "bound_by": "bytes", "library_ms": None,
+         "launches_note": "held against rebin_fast3 on each state the unfused path rebinned "
+                          "in its settle steps"},
+    ], {"ms": ms, "fold_launches": launches["fold"], "fold_ms": t["fold"],
+        "newton_launches": launches["newton_pair"],
+        "sep_rebin_launches": launches["separable_rebin"]}
+
+
+def unfused_only(dev, card) -> int:
+    """``--only-unfused``: slice A3's checks and path alone (after the v1
+    melt), for working on them; prints no result line."""
+    errs = unfused_kernel_checks(dev)
+    rows, _ = unfused_main_path(dev, card, melt(dev), errs)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
+# ------------------------------------------------ slice E1: Poisson electrostatics under BD
+# The electrolyte: N = 131072 charges of +-1 (alternating) at uniform random
+# positions (numpy's default_rng(0)) in a cube of L = 192, the number
+# density of examples/interaction_modules.py:60-64's Poisson block (32
+# charges in L = 12) scaled to N; gw 0.4, eps 1, tolerance 1e-4; the split
+# 0.07 / gw = 0.175 of generic_md.py:186-190 (max L / gw = 480 >= 128);
+# Brownian dynamics (euler_maruyama) at viscosity 1, hydrodynamic radius 1,
+# T 1, dt 0.001 with PoissonSplit.sum (force and energy) as the force.
+E_N = 131072
+E_L = 192.0
+E_GW = 0.4
+E_SPLIT = 0.07 / E_GW
+E_TOL = 1e-4
+E_STRAG = 64
+E_DT, E_T, E_VISC, E_RH = 0.001, 1.0, 1.0, 1.0
+E_WARM, E_TIMED = 20, 100
+SPLIT_E_RTOL = 2e-2  # examples/interaction_modules.py:72
+SPLIT_F_TOL = 2e-3  # tests/test_electrostatics.py:144, x max|f|
+SUM_F_TOL = 1e-5  # |sum F| / (N rms F)
+WIGNER_RTOL = 2e-3  # tests/test_electrostatics.py:91
+# float32 operations per pair inside the Poisson near field's cutoff:
+# rsqrt, q (2), the piece test, u (2), two degree-20 Horner sums (40 FMAs,
+# 80 operations), g q_j and e q_j (2), g q_j d (3) and the four sums (4)
+OPS_POISSON = 95
+
+
+def electrolyte(dev):
+    """(positions as float32 on the card, charges, positions as numpy)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    pos = rng.uniform(-E_L / 2, E_L / 2, (E_N, 3))
+    q = np.where(np.arange(E_N) % 2 == 0, 1.0, -1.0)
+    return (torch.tensor(pos, dtype=torch.float32, device=dev),
+            torch.tensor(q, dtype=torch.float32, device=dev), pos)
+
+
+def poisson_split(dev, pos_np, split=E_SPLIT, n_strag=0):
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.electrostatics.poisson import PoissonSplit
+
+    return PoissonSplit.create(box(E_L, device=dev), E_N, gw=E_GW, split=split,
+                               tolerance=E_TOL, pos=pos_np, n_strag=n_strag)
+
+
+def near_args(ps, pos, q):
+    """The near field's packed state: (kernel, (x, y, z, q grid), the
+    straggler block or None, the ChannelGrid)."""
+    from uammd_tpu_torch.engine import layout, pair_kernel
+
+    near = ps.near
+    cg = layout.pack_channels(near.spec, pos, q[:, None])
+    check(not bool(cg.overflow), "electrolyte: the near grid packs without overflow")
+    blk = None
+    if near.spec.n_strag:
+        blk = pair_kernel.broadcast_strag_channels(near.spec, cg.spos, cg.schannels, cg.spid)
+    return near._kernel(), (cg.x, cg.y, cg.z, *cg.channels), blk, cg
+
+
+def check_poisson_functor(ps, pos, q, what: str):
+    """#2 with the Poisson functor against its plain version on the packed
+    state (with the straggler rows when the spec has them), max|d| <
+    CHANNEL_TOL x max|ref|; the control (every q_j = 1: the charge of the
+    candidates dropped) must fail it. Returns (rel err, abs err, control)."""
+    import torch
+    from uammd_tpu_torch.engine import pair_kernel
+
+    kern, args, blk, cg = near_args(ps, pos, q)
+    got = kern(*args, strag=blk)
+    rows = None if blk is None else blk[:, :, 0]
+    want = pair_kernel.functor_plain(ps.spec, ps.near.pair_fn(), *args[:3], args[3:], rows)
+    check(all(bool(a.isfinite().all()) for a in got), f"{what}: outputs finite")
+    err = outs_err(want, got)
+    err_abs = max(float((a - b).abs().max()) for a, b in zip(want, got))
+    check(err < CHANNEL_TOL, f"{what}: Poisson functor vs plain {err:.3g} < {CHANNEL_TOL}")
+    occupied = (cg.pid >= 0).to(torch.float32)
+    cblk = None
+    if blk is not None:
+        cblk = blk.clone()
+        cblk[3] = (cg.spid >= 0).to(torch.float32)[:, None]
+    wrong = kern(*args[:3], occupied, strag=cblk)
+    control = outs_err(want, wrong)
+    check(control > CHANNEL_TOL, f"{what}: control (q_j dropped) fails the bound "
+                                 f"({control:.3g})")
+    return err, err_abs, control
+
+
+def check_strag_apply(ps0, ps1, pos, q) -> dict:
+    """The near field of the straggler spec against the straggler-free
+    one, within CHANNEL_TOL x max|ref|: a straggler row's pairs round as
+    the same pairs between grid particles (pse_near.strag_channel_block),
+    so the two differ by float32 summation order."""
+    a0, a1 = ps0.near.apply(pos, q), ps1.near.apply(pos, q)
+    gap = float((a0 - a1).abs().max()) / float(a0.abs().max())
+    check(gap < CHANNEL_TOL, f"straggler spec's near field against the straggler-free one "
+                             f"{gap:.3g} < {CHANNEL_TOL}")
+    return {"gap_over_max_ref": gap, "tol": CHANNEL_TOL}
+
+
+def poisson_checks(dev):
+    """The Poisson functor on the path's first state without and with
+    stragglers; the straggler spec's apply against the straggler-free one;
+    the isolated-charge Wigner energy and the two-charge Newton-3 check on
+    the card."""
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.core.types import Computables
+    from uammd_tpu_torch.electrostatics.poisson import Poisson
+
+    pos, q, pos_np = electrolyte(dev)
+    ps0 = poisson_split(dev, pos_np)
+    ps1 = poisson_split(dev, pos_np, n_strag=E_STRAG)
+    n_s = int((near_args(ps1, pos, q)[3].spid >= 0).sum())
+    check(n_s > 0, f"n_strag {E_STRAG}: {n_s} stragglers in the list")
+    errs = {"n_strag_0": check_poisson_functor(ps0, pos, q, "electrolyte"),
+            f"n_strag_{E_STRAG}": check_poisson_functor(ps1, pos, q, "electrolyte stragglers")}
+    apply_errs = check_strag_apply(ps0, ps1, pos, q)
+    # tests/test_electrostatics.py:81-91 and :68-78 on the card (float64)
+    f64 = torch.float64
+    p = Poisson.create(box(40.0, dtype=f64, device=dev), gw=1.2, tolerance=1e-5)
+    fev = p.sum(torch.zeros((1, 3), dtype=f64, device=dev), torch.ones(1, dtype=f64, device=dev),
+                Computables(False, True))
+    want = 1.0 / (8.0 * math.pi**1.5 * 1.2) - 2.83729748 / (8.0 * math.pi * 40.0)
+    wigner = abs(float(fev.energy.sum()) - want) / abs(want)
+    check(wigner < WIGNER_RTOL, f"isolated charge: energy within {wigner:.3g} < {WIGNER_RTOL}")
+    p2 = Poisson.create(box(24.0, dtype=f64, device=dev), gw=0.9)
+    fev2 = p2.sum(torch.tensor([[0.0, 0, 0], [5.0, 0, 0]], dtype=f64, device=dev),
+                  torch.tensor([1.0, -1.0], dtype=f64, device=dev), Computables(True, True))
+    f = fev2.force.cpu()
+    newton3 = float((f[0] + f[1]).abs().max())
+    check(float(f[0, 0]) > 0 and newton3 < 1e-10,
+          f"two charges attract and F0 = -F1 ({newton3:.3g})")
+    info = {"far_grid": list(ps0.far.shape), "far_support": ps0.far.support,
+            "ngw": ps0.ngw, "rcut": ps0.rcut, "near_spec": list(ps0.spec.array_shape),
+            "near_spec_strag": list(ps1.spec.array_shape), "stragglers": n_s,
+            "fit_error": ps0.fit_error}
+    print(json.dumps({"phase": "poisson_checks", "ok": True, **info,
+                      "functor_rel_abs_control": errs, "tol": CHANNEL_TOL,
+                      "strag_apply": apply_errs, "wigner_rel_err": wigner,
+                      "newton3_abs": newton3}), flush=True)
+    return {"functor": errs, "apply": apply_errs, "info": info}
+
+
+def poisson_counters() -> dict:
+    from uammd_tpu_torch.engine import pair_kernel
+    from uammd_tpu_torch.solvers import pencil_ibm
+
+    return {"pair_channel_poisson": pair_kernel.PAIR_CHANNEL_POISSON,
+            "pencil_spread": pencil_ibm.SPREAD, "pencil_interp": pencil_ibm.INTERP}
+
+
+def poisson_main_path(dev, card, checks):
+    """main_path_poisson, the split-invariance gate and breakdown_poisson;
+    returns the kernels-line row of the Poisson functor."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.core.types import Computables, ForceEnergyVirial
+    from uammd_tpu_torch.electrostatics.poisson import Poisson
+    from uammd_tpu_torch.engine import layout, pair_kernel
+    from uammd_tpu_torch.integrators import brownian
+    from uammd_tpu_torch.solvers import pencil_ibm
+
+    pos, q, pos_np = electrolyte(dev)
+    ps = poisson_split(dev, pos_np)
+    fe = Computables(force=True, energy=True)
+
+    def force_fn(s, ovf):
+        fev = ps.sum(s.pos, q, fe)
+        return fev, ovf | ps.near.last_overflow
+
+    integ = brownian.euler_maruyama(force_fn, dt=E_DT, temperature=E_T, viscosity=E_VISC,
+                                    hydrodynamic_radius=E_RH)
+    counted = poisson_counters()
+    for k in counted.values():
+        k.launches = 0
+    st = make_state(pos_np, charge=q.cpu().numpy(), seed=0, device=dev)
+    st, ovf = integ.init(st, torch.zeros((), dtype=torch.bool, device=dev))
+    for _ in range(E_WARM):
+        st, ovf = integ.step(st, ovf)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in counted.items()}
+    t0 = time.perf_counter()
+    for _ in range(E_TIMED):
+        st, ovf = integ.step(st, ovf)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    timed = {k: launches[k] - before[k] for k in counted}
+    reads = host_reads(lambda: integ.step(st, ovf), HOST_READ_STEPS)
+    f64 = st.force.double()
+    sum_f = float(f64.sum(dim=0).abs().max())
+    rms_f = float(f64.pow(2).sum(dim=1).mean().sqrt())
+    check(not bool(ovf), "Poisson path: no near-grid overflow")
+    check(bool(st.pos.isfinite().all()) and bool(st.force.isfinite().all()),
+          "Poisson path: positions and forces finite (a pencil overflow NaN-poisons)")
+    check(sum_f / (E_N * rms_f) < SUM_F_TOL,
+          f"Poisson path: |sum F| / (N rms F) = {sum_f / (E_N * rms_f):.3g} < {SUM_F_TOL}")
+    for k in counted:
+        check(timed[k] == E_TIMED, f"Poisson path: {k} launched {timed[k]} == {E_TIMED} times")
+    ms = 1e3 * timed_s / E_TIMED
+    print(json.dumps({
+        "phase": "main_path_poisson", "n": E_N, "box": E_L, "gw": E_GW, "split": E_SPLIT,
+        "dt": E_DT, "warm_steps": E_WARM, "timed_steps": E_TIMED, "timed_seconds": timed_s,
+        "ms_per_step": ms, "particle_steps_per_s": E_N * E_TIMED / timed_s,
+        **checks["info"], "launches": launches, "timed_launches": timed,
+        "sum_f_over_n_rms_f": sum_f / (E_N * rms_f), "rms_f": rms_f,
+        "host_reads_per_step": len(reads) / HOST_READ_STEPS, "host_reads_at": reads,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+
+    # split invariance at the path's first configuration
+    settings = {"split_0.175": ps, f"split_0.175_strag{E_STRAG}":
+                poisson_split(dev, pos_np, n_strag=E_STRAG),
+                "split_0.25": poisson_split(dev, pos_np, split=0.25)}
+    res = {}
+    for name, solver in settings.items():
+        fev = solver.sum(pos, q, fe)
+        res[name] = (fev.force, float(fev.energy.double().sum()))
+    del settings
+    torch.cuda.empty_cache()
+    nosplit = Poisson.create(box(E_L, device=dev), gw=E_GW, tolerance=E_TOL)
+    fev = nosplit.sum(pos, q, fe)  # the first call makes the FFT plans and k-space factors
+    del fev
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fev = nosplit.sum(pos, q, fe)
+    torch.cuda.synchronize()
+    nosplit_s = time.perf_counter() - t0
+    f_ref, e_ref = fev.force, float(fev.energy.double().sum())
+    fmax = float(f_ref.abs().max())
+    inv = {}
+    for name, (f, e) in res.items():
+        inv[name] = {"energy": e, "energy_rel_gap": abs(e - e_ref) / max(1.0, abs(e_ref)),
+                     "force_gap_over_max_f": float((f - f_ref).abs().max()) / fmax}
+        check(inv[name]["energy_rel_gap"] < SPLIT_E_RTOL,
+              f"split invariance: {name} energy {e:.6g} vs no-split {e_ref:.6g}")
+    gaps = [v["force_gap_over_max_f"] for v in inv.values()]
+    forces_ok = max(gaps) < SPLIT_F_TOL
+    print(json.dumps({"phase": "split_invariance", "no_split_grid": list(nosplit.shape),
+                      "no_split_support": nosplit.support, "no_split_energy": e_ref,
+                      "no_split_sum_seconds": nosplit_s, "settings": inv,
+                      "energy_rtol": SPLIT_E_RTOL, "force_tol": SPLIT_F_TOL,
+                      "forces_within_tol": forces_ok,
+                      "fit_error": ps.fit_error}), flush=True)
+    check(forces_ok, f"split invariance: forces within {SPLIT_F_TOL} x max|f| ({gaps})")
+    del fev, f_ref, res, nosplit
+    torch.cuda.empty_cache()
+
+    # breakdown_poisson at the path's final state
+    p = st.pos
+    far = ps.far
+    kern_g = far._kernel()
+    kern, args, blk, cg = near_args(ps, p, q)
+    bins = pencil_ibm.bin_pencils(p, far.shape, far.box)
+    rho, _ = pencil_ibm.spread_pencil_fused(kern_g, p, q, far.shape, far.box, bins)
+    f4 = torch.fft.irfftn(torch.stack([torch.fft.rfftn(rho)] * 4), s=far.shape, dim=(1, 2, 3))
+    f4v = f4.permute(1, 2, 3, 0)
+    fev = ps.sum(p, q, fe)
+    t = {
+        "near_pair_channel_poisson": cuda_ms(lambda: kern(*args, strag=blk), reps=10),
+        "spread": cuda_ms(lambda: pencil_ibm.spread_pencil_fused(
+            kern_g, p, q, far.shape, far.box, bins), reps=10),
+        "interpolate": cuda_ms(lambda: pencil_ibm.interpolate_pencil_fused(
+            kern_g, p, f4v, far.box, bins), reps=10),
+        "ffts": cuda_ms(lambda: torch.fft.irfftn(
+            torch.stack([torch.fft.rfftn(rho)] * 4), s=far.shape, dim=(1, 2, 3)), reps=10),
+        "pencil_bins": cuda_ms(lambda: pencil_ibm.bin_pencils(p, far.shape, far.box), reps=10),
+        "near_pack_unpack": cuda_ms(lambda: layout.unpack_values(
+            cg, layout.pack_channels(ps.spec, p, q[:, None]).channels * 4), reps=10),
+    }
+    cached = ForceEnergyVirial(force=fev.force, energy=fev.energy)
+    bd = brownian.euler_maruyama(lambda s, a: (cached, a), dt=E_DT, temperature=E_T,
+                                 viscosity=E_VISC, hydrodynamic_radius=E_RH)
+    t["bd_update"] = cuda_ms(lambda: bd.step(st, None), reps=20)
+    by_part = dict(t)
+    print(json.dumps({
+        "phase": "breakdown_poisson", "card": card, "ms_per_step": ms, "ms_per_call": t,
+        "shares": {k: v / ms for k, v in by_part.items()},
+        "rest_ms": ms - sum(by_part.values()),
+        "note": "each part once per step, timed alone with CUDA events at the path's final "
+                "state; ffts = one rfftn and one 4-channel irfftn; near_pack_unpack = "
+                "pack_channels and unpack_values of the near grid; rest = the k-space "
+                "products, the straggler pairs, the force and energy sums"}), flush=True)
+
+    # the Poisson functor's row at the path's final state
+    fn = ps.near.pair_fn()
+    want = pair_kernel.functor_plain(ps.spec, fn, *args[:3], args[3:])
+    got = kern(*args, strag=blk)
+    err_abs = max(float((a - b).abs().max()) for a, b in zip(want, got))
+    check(err_abs / max(float(a.abs().max()) for a in want) < CHANNEL_TOL,
+          "Poisson path's final state: functor vs plain")
+    plain_ms = cuda_ms(lambda: pair_kernel.functor_plain(ps.spec, fn, *args[:3], args[3:]),
+                       reps=2, warmup=1)
+    pairs = functor_pairs(ps.spec, cg.x, cg.y, cg.z, cg.pid,
+                          float(np.float32(ps.spec.cutoff ** 2)))
+    row = functor_row("pair_channel_poisson", "uammd_tpu/engine/pair_kernel.py:538 "
+                      "(poisson.py:350-395 functor)", launches["pair_channel_poisson"], err_abs,
+                      t["near_pair_channel_poisson"], plain_ms, pairs, OPS_POISSON, 8, ps.spec,
+                      extra={"checks": checks["functor"],
+                             "launches_per_timed_step": timed["pair_channel_poisson"] / E_TIMED})
+    return row, {"ms": ms, "launches": launches, "spread_ms": t["spread"],
+                 "interp_ms": t["interpolate"]}
+
+
+def poisson_only(dev, card) -> int:
+    """``--only-poisson``: slice E1's checks and path alone, for working on
+    them; prints no result line."""
+    checks = poisson_checks(dev)
+    row, _ = poisson_main_path(dev, card, checks)
+    print(json.dumps({"kernels": [row]}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     only_pse = "--only-pse" in sys.argv[1:]
     only_slice_d = "--only-slice-d" in sys.argv[1:]
+    only_unfused = "--only-unfused" in sys.argv[1:]
+    only_poisson = "--only-poisson" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2327,7 +3105,8 @@ def main() -> int:
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "sources": sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))}),
           flush=True)
-    for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt"):
+    for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt", "gj_update",
+                 "rebin2"):
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
@@ -2335,6 +3114,10 @@ def main() -> int:
         return pse_only(dev, card)
     if only_slice_d:
         return slice_d_only(dev, card)
+    if only_unfused:
+        return unfused_only(dev, card)
+    if only_poisson:
+        return poisson_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -2375,13 +3158,11 @@ def main() -> int:
     # 8 below the largest occupancy, so about 100 particles are stragglers),
     # its fcc sites (nearest neighbours 1.41 apart) moved by a 0.15-sigma
     # Gaussian clipped to 0.2 per axis, so no pair is closer than 0.84 and
-    # the largest force stays a few hundred
-    n_s, L_s = 600, 12.0
-    jit_s = (0.15 * torch.randn((n_s, 3), generator=rng, dtype=torch.float64)).clamp(-0.2, 0.2)
-    pos_s = lattice(n_s, L_s, "fcc") + jit_s.numpy()
-    spec_s = layout.choose_spec(L_s, n_s, 2.5, cap=8, pos=pos_s, n_strag=128)
-    gs_s = layout.pack(spec_s, pos_s, vel=torch.randn((n_s, 3), generator=rng).numpy(),
-                       device=dev)
+    # the largest force stays a few hundred; and the same state after
+    # tests/test_engine2.py:96-102's displacement (cells pass CAP and
+    # stragglers move)
+    gs_s, moved_s = n600_straggler_system(dev, rng)
+    n_s, spec_s = gs_s.n, gs_s.spec
     n_strag_s = int((gs_s.spid >= 0).sum())
     check(n_strag_s > 0, "n 600 CAP 8: the straggler list is used")
     all_modes = ((False, False), (False, True), (True, False), (True, True))
@@ -2393,12 +3174,6 @@ def main() -> int:
     check_fold(spec_s, home, groups, "n 600 stragglers")
     upd_err = {f"n600_{nz}": check_update(gs_s, home, groups, nz, "n 600 stragglers")
                for nz in update_kernel.NOISES}
-    # tests/test_engine2.py:96-102's displacement: every particle by a
-    # clipped 0.35-sigma Gaussian, so cells pass CAP and stragglers move
-    dx = (0.35 * torch.randn(gs_s.x.shape, generator=rng).to(dev)).clamp(-1.0, 1.0) * gs_s.mask
-    sdx = 0.35 * torch.randn(gs_s.spos.shape, generator=rng).to(dev) * (gs_s.spid >= 0)[:, None]
-    moved_s = gs_s.replace(x=gs_s.x + dx, y=gs_s.y + 0.5 * dx, z=gs_s.z - 0.3 * dx,
-                           spos=gs_s.spos + sdx)
     sep_s = check_sep_rebin(moved_s, "n 600 stragglers moved")
     check(sep_s[2] > 0, "n 600 stragglers moved: the mini-grid holds stragglers")
     r3 = rebin_kernel.rebin_fast3(moved_s)
@@ -2436,6 +3211,8 @@ def main() -> int:
     fcm_errs = fcm_kernel_checks(dev)
     pse_errs = pse_kernel_checks(dev)
     d_errs = slice_d_kernel_checks(dev)
+    a3_errs = unfused_kernel_checks(dev)
+    e1_checks = poisson_checks(dev)
 
     kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN,
                "newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
@@ -2657,6 +3434,18 @@ def main() -> int:
     rows.append(lanczos_row(pse_path, d_errs["lanczos_sqrt"]))
     # 3e-3h, 4d: slice D's paths, each with its own zeroed launch counts
     rows += slice_d_paths(dev, card, gs2, engine2)
+    del gs2, engine2
+    # 3i, 4e: slice A3's unfused v2 path and slice E1's Poisson path, each
+    # with its own zeroed launch counts
+    a3_rows, a3 = unfused_main_path(dev, card, melted, a3_errs)
+    unfused_launches = {"newton_pair": a3["newton_launches"], "fold": a3["fold_launches"],
+                        "separable_rebin": a3["sep_rebin_launches"]}
+    for r in rows:  # the earlier kernels that the unfused path also runs
+        if r["name"] in unfused_launches:
+            r["launches_v2_unfused_path"] = unfused_launches[r["name"]]
+    rows += a3_rows
+    e1_row, _ = poisson_main_path(dev, card, e1_checks)
+    rows.append(e1_row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@
 //   SPHForceFn      uammd_tpu/engine/sph.py:sph_force_pair_fn      (5 in, 3 out)
 //   LJMixFn<MASKED> uammd_tpu/engine/mixtures.py:lj_mixture_pair_fn (2 in, 3 out)
 //                   and lj_mixture_pair_fn_masked                  (3 in, 3 out)
+//   PoissonFn       uammd_tpu/electrostatics/poisson.py:GaussianNearField._pair_fn
+//                                                                  (1 in, 4 out)
 //
 // A functor declares NG grid channels (staged for home and candidate slots),
 // NU uniform channels (home side only, one value for the whole launch: the
@@ -20,7 +22,9 @@
 //
 // Bit-level edges: r2 comes rounded as the plain version rounds it
 // (pse::dist2), and so does the mixture's per-pair cutoff
-// rc2 = cs2 (hs_i + hs_j)^2, at which the truncated LJ force jumps. DPD's
+// rc2 = cs2 (hs_i + hs_j)^2, at which the truncated LJ force jumps, and the
+// Poisson functor's q = r / rcut and u = a q + b, whose polynomial pieces
+// meet at qb up to the fit error, and its Horner steps. DPD's
 // weight and SPH's kernel are continuous at their cutoffs. The DPD pair
 // noise is an integer counter hash, equal bit for bit to JAX's.
 
@@ -48,17 +52,6 @@ struct PSEFn {
 #pragma unroll
     for (int k = 0; k < NG; ++k) Fj[k] = cj[k * cs];
     pse::apply<NV>(fr, gr, dx, dy, dz, Fj, acc);
-  }
-
-  // both directions off one radial: forward onto i, reverse onto j; false
-  // when the pair contributes nothing
-  __device__ __forceinline__ bool both(float r2, float dx, float dy, float dz, const float* Fi,
-                                       const float* Fj, float* acc, float* rev) const {
-    float fr, gr;
-    if (!pse::radial(r2, p, &fr, &gr)) return false;
-    pse::apply<NV>(fr, gr, dx, dy, dz, Fj, acc);
-    pse::apply<NV>(fr, gr, dx, dy, dz, Fi, rev);
-    return true;
   }
 };
 
@@ -207,6 +200,62 @@ struct LJMixFn {
     acc[0] += g * dx;
     acc[1] += g * dy;
     acc[2] += g * dz;
+  }
+};
+
+// ---------------------------------------------------------------- Poisson
+// The Ewald near-field correction of the split spectral Poisson solver: G
+// and G'/r of the difference of two Gaussian-charge Green's functions as
+// two-piece polynomials of degree up to kPoissonNCoef - 1 in u = a q + b,
+// q = r / rcut, pieces split at qb.
+constexpr int kPoissonNCoef = 21;
+
+struct PoissonParams {
+  float c[4 * kPoissonNCoef];  // e1, e2, g1, g2; lowest degree first, zero padded
+  float a1, b1, a2, b2, qb, rc2, inv_rcut;
+};
+
+// channel (charge q); sums (q_j g dx, q_j g dy, q_j g dz, q_j G) onto i
+struct PoissonFn {
+  static constexpr int NG = 1;
+  static constexpr int NU = 0;
+  static constexpr int NOUT = 4;
+  static constexpr bool kStrag = true;
+  PoissonParams p;
+
+  // (g, e) of a pair inside the cutoff; false otherwise (and on the self pair)
+  __device__ __forceinline__ bool radial(float r2, float* g, float* e) const {
+    if (!(r2 < p.rc2 && r2 > 1e-10f)) return false;
+    const float rinv = rsqrtf(r2);
+    const float q = __fmul_rn(__fmul_rn(r2, rinv), p.inv_rcut);
+    const bool near = q < p.qb;
+    const float u = near ? __fadd_rn(__fmul_rn(p.a1, q), p.b1)
+                         : __fadd_rn(__fmul_rn(p.a2, q), p.b2);
+    constexpr int N = kPoissonNCoef;
+    float ae = near ? p.c[N - 1] : p.c[2 * N - 1];
+    float ag = near ? p.c[3 * N - 1] : p.c[4 * N - 1];
+    // rounded as the plain version rounds them (no FMA): the power-basis
+    // coefficients of a degree-20 fit cancel, so a contracted Horner step
+    // moves the sum by about 1e-4 of its size
+#pragma unroll
+    for (int k = N - 2; k >= 0; --k) {
+      ae = __fadd_rn(__fmul_rn(ae, u), near ? p.c[k] : p.c[N + k]);
+      ag = __fadd_rn(__fmul_rn(ag, u), near ? p.c[2 * N + k] : p.c[3 * N + k]);
+    }
+    *g = ag;
+    *e = ae;
+    return true;
+  }
+
+  __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float*,
+                                      const float* cj, int, float* acc) const {
+    float g, e;
+    if (!radial(r2, &g, &e)) return;
+    const float gq = g * cj[0];
+    acc[0] += gq * dx;
+    acc[1] += gq * dy;
+    acc[2] += gq * dz;
+    acc[3] += e * cj[0];
   }
 };
 

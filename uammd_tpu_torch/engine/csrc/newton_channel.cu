@@ -14,7 +14,8 @@
 //     REACTION_GROUPS = ((1,-1), (1,0), (1,1), (0,1)), stored at the HOME
 //     block index: the fold (fold.cu, uammd_fold_n) adds G_g[z - dz, yb - dyb];
 //   - the straggler list ([3 + 3 NV + 1, S]: x, y, z, channels, valid), a
-//     candidate of every home slot with the minimum image taken per pair:
+//     candidate of every home slot, each direction's displacement rounded
+//     as for a grid candidate of an image cell (pse::image_pair):
 //     forward onto the home slot, reverse reduced straight into
 //     spart [3 NV, S] (the JAX kernel returns per-program partials that its
 //     caller sums over (z, yb, lane)).
@@ -173,19 +174,22 @@ __global__ void newton_channel_kernel(const float* __restrict__ x, const float* 
   if (!active) return;
   for (int s = 0; s < S; ++s) {
     if (!(sstrag[(NA) * S + s] > 0.5f)) continue;
-    const float dxv = pse::min_image(sstrag[s] - xi, g.Lx, g.iLx);
-    const float dyv = pse::min_image(sstrag[S + s] - yi, g.Ly, g.iLy);
-    const float dzv = pse::min_image(sstrag[2 * S + s] - zi, g.Lz, g.iLz);
+    float d[3], e[3];  // onto the home slot, onto the row
+    pse::image_pair(sstrag[s], xi, g.Lx, g.iLx, &d[0], &e[0]);
+    pse::image_pair(sstrag[S + s], yi, g.Ly, g.iLy, &d[1], &e[1]);
+    pse::image_pair(sstrag[2 * S + s], zi, g.Lz, g.iLz, &d[2], &e[2]);
     float fr, gr;
-    if (!pse::radial(pse::dist2(dxv, dyv, dzv), p, &fr, &gr)) continue;
-    float Fj[NC];
+    if (pse::radial(pse::dist2(d[0], d[1], d[2]), p, &fr, &gr)) {
+      float Fj[NC];
 #pragma unroll
-    for (int k = 0; k < NC; ++k) Fj[k] = sstrag[(3 + k) * S + s];
-    pse::apply<NV>(fr, gr, dxv, dyv, dzv, Fj, acc);
+      for (int k = 0; k < NC; ++k) Fj[k] = sstrag[(3 + k) * S + s];
+      pse::apply<NV>(fr, gr, d[0], d[1], d[2], Fj, acc);
+    }
+    if (!pse::radial(pse::dist2(e[0], e[1], e[2]), p, &fr, &gr)) continue;
     float rev[NC];
 #pragma unroll
     for (int k = 0; k < NC; ++k) rev[k] = 0.0f;
-    pse::apply<NV>(fr, gr, dxv, dyv, dzv, Fi, rev);
+    pse::apply<NV>(fr, gr, e[0], e[1], e[2], Fi, rev);
 #pragma unroll
     for (int k = 0; k < NC; ++k) atomicAdd(spart + k * S + s, rev[k]);
   }

@@ -4,15 +4,18 @@
 // (pallas_call at :538): n_chan channels in, n_out sums out, periodic in z,
 // with the pair_fn chosen at compile time as a functor of
 // channel_functors.cuh (PSE near field at 1 or 2 stacked 3-vectors, DPD,
-// SPH density and force, LJ mixture and its masked form). Every home slot
+// SPH density and force, LJ mixture and its masked form, the Poisson near
+// field). Every home slot
 // sums the functor's contributions over the CAP slots of the 27 cells
 // around it (its own cell included: each functor's r2 > eps test drops the
-// self pair). With the PSE functor the straggler list ([3 + 3 NV + 1, S]:
-// x, y, z, channels, valid; minimum image per pair) adds its forward
-// contributions, and the rows' reverse contributions are reduced straight
-// into spart [3 NV, S] (the JAX kernel returns per-program partials that
-// its caller sums over (z, yb, lane)). The other functors run on
-// straggler-free specs (n_strag = 0), as the JAX engines build them.
+// self pair). With a functor that serves stragglers (kStrag: PSE, Poisson)
+// the straggler list ([3 + NG + 1, S]: x, y, z, channels, valid; each
+// direction's displacement rounded as for a grid candidate of an image
+// cell, pse::image_pair) adds its forward contributions, and the rows' reverse
+// contributions are reduced straight into spart [NOUT, S] (the JAX kernel
+// returns per-program partials that its caller sums over (z, yb, lane)).
+// The other functors run on straggler-free specs (n_strag = 0), as the JAX
+// engines build them.
 //
 // Design: as newton_channel.cu, one thread per home slot, blocks of `rows`
 // home rows x NLANE lanes staging kJ candidate rows (3 + NG arrays) of the
@@ -130,16 +133,22 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
     if (active) {
       for (int s = 0; s < S; ++s) {
         if (!(sstrag[NA * S + s] > 0.5f)) continue;
-        const float dxv = pse::min_image(sstrag[s] - xi, g.Lx, g.iLx);
-        const float dyv = pse::min_image(sstrag[S + s] - yi, g.Ly, g.iLy);
-        const float dzv = pse::min_image(sstrag[2 * S + s] - zi, g.Lz, g.iLz);
+        float d[3], e[3];  // onto the home slot, onto the row
+        pse::image_pair(sstrag[s], xi, g.Lx, g.iLx, &d[0], &e[0]);
+        pse::image_pair(sstrag[S + s], yi, g.Ly, g.iLy, &d[1], &e[1]);
+        pse::image_pair(sstrag[2 * S + s], zi, g.Lz, g.iLz, &d[2], &e[2]);
         float Fj[NG];
 #pragma unroll
         for (int k = 0; k < NG; ++k) Fj[k] = sstrag[(3 + k) * S + s];
+        fn.fwd(pse::dist2(d[0], d[1], d[2]), d[0], d[1], d[2], ci, Fj, 1, acc);
         float rev[NO];
 #pragma unroll
         for (int k = 0; k < NO; ++k) rev[k] = 0.0f;
-        if (!fn.both(pse::dist2(dxv, dyv, dzv), dxv, dyv, dzv, ci, Fj, acc, rev)) continue;
+        fn.fwd(pse::dist2(e[0], e[1], e[2]), e[0], e[1], e[2], Fj, ci, 1, rev);
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < NO; ++k) any |= rev[k] != 0.0f;
+        if (!any) continue;  // outside the cutoff: no atomics
 #pragma unroll
         for (int k = 0; k < NO; ++k) atomicAdd(spart + k * S + s, rev[k]);
       }
@@ -220,3 +229,18 @@ UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_sph_force, chan::SPHForceFn, chan::S
 UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_lj_mix, chan::LJMixFn<false>, chan::LJMixParams)
 UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_lj_mix_masked, chan::LJMixFn<true>,
                          chan::LJMixParams)
+
+// The Poisson near field, with the straggler rows: ch float32 [1, T] (the
+// charges); strag float32 [5, S] (x, y, z, charge, valid) or null when
+// S == 0; out [4, T]; spart [4, S], zeroed.
+extern "C" int uammd_pair_channel_poisson(void* x, void* y, void* z, void* ch, void* strag,
+                                          void* out, void* spart, int nx, int nyb, int nz,
+                                          int F, int cap, int S, int rows, int kJ, float Lx,
+                                          float Ly, float Lz, float iLx, float iLy, float iLz,
+                                          chan::PoissonParams p, void* stream) {
+  return launch(static_cast<const float*>(x), static_cast<const float*>(y),
+                static_cast<const float*>(z), static_cast<const float*>(ch), nullptr,
+                static_cast<const float*>(strag), static_cast<float*>(out),
+                static_cast<float*>(spart), geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, iLx, iLy, iLz),
+                chan::PoissonFn{p}, S, rows, kJ, static_cast<cudaStream_t>(stream));
+}

@@ -72,9 +72,17 @@ __device__ __forceinline__ void apply(float f, float ginv2, float dx, float dy, 
   }
 }
 
-// Minimum-image displacement of a straggler, as the JAX kernels take it.
-__device__ __forceinline__ float min_image(float d, float L, float iL) {
-  return __fsub_rn(d, __fmul_rn(L, rintf(__fmul_rn(d, iL))));
+// The displacements of a home coordinate xi and a straggler row's xs, each
+// rounded as the grid rounds a candidate of an image cell: with the minimum
+// image's shift L rint((xs - xi) / L) (the float32 1/L), *fwd = (xs - shift)
+// - xi from the home slot and *rev = (xi + shift) - xs from the row, so that
+// a pair gives the same value whether its partner is a straggler or a grid
+// particle.
+__device__ __forceinline__ void image_pair(float xs, float xi, float L, float iL, float* fwd,
+                                           float* rev) {
+  const float shift = __fmul_rn(L, rintf(__fmul_rn(__fsub_rn(xs, xi), iL)));
+  *fwd = __fsub_rn(__fsub_rn(xs, shift), xi);
+  *rev = __fsub_rn(__fadd_rn(xi, shift), xs);
 }
 
 __device__ __forceinline__ int wrap_index(int s, int n, float L, float* shift) {

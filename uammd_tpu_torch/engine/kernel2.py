@@ -441,7 +441,8 @@ def newton_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channe
 
     spart = None
     if spec.n_strag:
-        fwd, spart = strag_channel_block(spec, fn, nvec, xi, yi, zi, ch_i, strag[:, :, 0])
+        fwd, spart = strag_channel_block(spec, fn.pair_fn(nvec), 3 * nvec, xi, yi, zi,
+                                         ch_i, strag[:, :, 0])
         home = [h + t for h, t in zip(home, fwd)]
     groups = tuple(tuple(grp[key]) for key in REACTION_GROUPS)
     return tuple(home), groups, spart
@@ -479,7 +480,7 @@ class NewtonChannelKernel:
         if x.device.type == "cpu":
             check_cpu_inputs(spec, nvec, x, y, z, channels, "the Newton channel kernel")
             return newton_channel_plain(spec, self.fn, nvec, x, y, z, channels, strag)
-        ch, srows = channel_launch_args(spec, nvec, x, y, z, channels, strag,
+        ch, srows = channel_launch_args(spec, 3 * nvec, x, y, z, channels, strag,
                                         "the Newton channel kernel")
         rows, kj = channel_launch_shape(spec, 3 * nvec)
         nc = 3 * nvec

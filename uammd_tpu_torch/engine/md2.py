@@ -1,20 +1,27 @@
-"""v2 high-throughput MD engine: Newton pair kernel + stragglers + fused
-fold and Gronbech-Jensen update.
+"""v2 high-throughput MD engine: Newton pair kernel + stragglers + the
+reaction fold and the Gronbech-Jensen update, fused or not.
 
 Port of ``uammd_tpu/engine/md2.py`` (``GridMD2`` / ``make_lj_md2``), the
 engine ``bench.py`` times on the reference workload
 (examples/misc/benchmark.cu): CAP sized to the bulk occupancy with the tail
-in a straggler side list, the Newton-halved pair kernel, and one fused
-kernel that folds the reactions and applies the G-J update with in-kernel
-noise.
+in a straggler side list, the Newton-halved pair kernel, and the G-J update
+with in-kernel noise.
 
 Velocity convention: the state's (vx, vy, vz) carry the pre-half-kick
 velocity w(t) = v(t) - (dt/2m) f(t); ``velocities_of`` and
-``temperature_of`` reconstruct the physical v. The fold always happens in
-the update (the JAX package's ``fold_in_update``, on for the TPU): the
-state keeps the home force in fx, fy, fz and the 12 reaction-group grids in
-``fgrp``. On the CPU the update's plain version folds and then updates,
-which computes the same thing.
+``temperature_of`` reconstruct the physical v.
+
+``fold_in_update`` has the JAX package's meaning. On (the default, as on
+the TPU) the fold happens in the update: the state keeps the home force in
+fx, fy, fz and the 12 reaction-group grids in ``fgrp``, and a step launches
+the fused fold + update kernel (#12); on the CPU its plain version folds
+and then updates, which computes the same thing. Off, ``compute_forces``
+folds with the fold kernel (#7) and stores the folded forces (``fgrp`` is
+``()``), and a step launches the update from folded forces (#11), which
+has Box-Muller noise whatever ``noise`` says (the JAX kernel has no
+switch). Both updates draw from the same counter streams. Either way the
+straggler-aware rebin is ``rebin_fast3`` (three one-axis passes), as in
+the JAX engine (md2.py:244).
 
 ``lax.scan`` becomes a Python loop and the ``lax.cond`` on the drift one
 host read per step. The noise is the counter hash of ``update_kernel``
@@ -39,7 +46,7 @@ from .kernel2 import (
 from .layout import GridSpec, GridState, choose_spec, pack
 from .md import LJFused, lj_g, lj_g_fused
 from .rebin_kernel import rebin_fast3, rebin_fast_noforce
-from .update_kernel import make_gj_fold_update_kernel
+from .update_kernel import make_gj_fold_update_kernel, make_gj_update_kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,39 +64,52 @@ class GridMD2:
     pair: object
     fold: object
     update: object
+    fold_in_update: bool = True
 
     @staticmethod
     def create(spec: GridSpec, g_fn, *, dt, temperature, g_fn_kernel: LJFused,
                friction=1.0, mass=1.0, noise: str = "bm", self_half: bool = False,
-               strag_cellcenter: bool = False, device=None) -> "GridMD2":
+               strag_cellcenter: bool = False, fold_in_update: bool | None = None,
+               device=None) -> "GridMD2":
         """``g_fn_kernel`` is the fused LJ radial inside the pair kernel
-        (``md.lj_g_fused``); ``g_fn`` serves the O(S^2) straggler pairs."""
+        (``md.lj_g_fused``); ``g_fn`` serves the O(S^2) straggler pairs.
+        ``fold_in_update`` None means on (see the module docstring)."""
+        fused = fold_in_update is None or bool(fold_in_update)
+        if fused:
+            update = make_gj_fold_update_kernel(spec, dt, temperature, friction, mass,
+                                                noise=noise)
+        else:
+            update = make_gj_update_kernel(spec, dt, temperature, friction, mass)
         return GridMD2(
             spec=spec, g_fn=g_fn, dt=dt, temperature=temperature,
             friction=friction, mass=mass, noise=noise, device=resolve_device(device),
             pair=make_newton_pair_kernel(
                 spec, g_fn_kernel, self_half=self_half, strag_cellcenter=strag_cellcenter),
-            fold=make_fold_kernel(spec),
-            update=make_gj_fold_update_kernel(spec, dt, temperature, friction, mass,
-                                              noise=noise),
+            fold=make_fold_kernel(spec), update=update, fold_in_update=fused,
         )
 
     # ----------------------------------------------------------- forces
     def compute_forces(self, gs: GridState) -> GridState:
-        """Home forces and the unfolded reaction groups (``fgrp``), plus the
-        straggler forces."""
+        """Home forces and the unfolded reaction groups (``fgrp``), or with
+        ``fold_in_update`` off the folded forces, plus the straggler
+        forces."""
         S = self.spec.n_strag
         strag = broadcast_stragglers(self.spec, gs.spos, gs.spid) if S else None
         home, groups, sf = self.pair(gs.x, gs.y, gs.z, strag)
-        rep = dict(fx=home[0], fy=home[1], fz=home[2],
-                   fgrp=tuple(c for g in groups for c in g))
+        if self.fold_in_update:
+            rep = dict(fx=home[0], fy=home[1], fz=home[2],
+                       fgrp=tuple(c for g in groups for c in g))
+        else:
+            fx, fy, fz = self.fold(home, groups)
+            rep = dict(fx=fx, fy=fy, fz=fz, fgrp=())
         if S:
             sf = sf + straggler_pair_forces(self.spec, self.g_fn, gs.spos, gs.spid)
             rep["sforce"] = sf * (gs.spid >= 0)[:, None]
         return gs.replace(**rep)
 
     def folded_forces(self, gs: GridState):
-        """Physical (folded) grid forces."""
+        """Physical (folded) grid forces: the stored ones when nothing is
+        left to fold (``fold_in_update`` off)."""
         if not gs.fgrp:
             return gs.fx, gs.fy, gs.fz
         groups = [gs.fgrp[3 * i: 3 * i + 3] for i in range(4)]
@@ -124,8 +144,12 @@ class GridMD2:
         strag = (gs.spos, gs.svel, gs.sforce, gs.spid) if spec.n_strag else None
         # the grid and the straggler rows in one update, noise keyed by the
         # step seed (the JAX engine's _strag_update, md2.py:190, runs inside)
-        res = self.update(gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz, gs.fx, gs.fy, gs.fz,
-                          gs.fgrp, gs.ref_x, gs.ref_y, gs.ref_z, gs.step, strag)
+        grids = (gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz, gs.fx, gs.fy, gs.fz)
+        refs = (gs.ref_x, gs.ref_y, gs.ref_z)
+        if self.fold_in_update:
+            res = self.update(*grids, gs.fgrp, *refs, gs.step, strag)
+        else:
+            res = self.update(*grids, *refs, gs.step, strag)
         (x, y, z, wx, wy, wz), drift = res[:2]
         gs = gs.replace(x=x, y=y, z=z, vx=wx, vy=wy, vz=wz, step=gs.step + 1)
         if spec.n_strag:
@@ -177,6 +201,7 @@ def make_lj_md2(
     noise: str = "bm",
     self_half: bool = True,
     strag_cellcenter: bool = True,
+    fold_in_update: bool | None = None,
     device=None,
 ) -> GridMD2:
     """v2 engine on the reference benchmark system
@@ -184,12 +209,14 @@ def make_lj_md2(
     ``fast_recip`` takes the hardware approximate reciprocal inside the CUDA
     pair kernel's fused LJ radial; ``self_half`` and ``strag_cellcenter``
     choose the CUDA kernel's self-cell and straggler enumeration (the plain
-    version computes the same forces either way)."""
+    version computes the same forces either way); ``fold_in_update`` as
+    ``GridMD2`` takes it."""
     dev = resolve_device(device)
     spec = choose_spec(box_size, n, cutoff, skin=skin, cap=cap, pos=pos, n_strag=n_strag)
     gk = lj_g_fused(epsilon, sigma, rc2=cutoff * cutoff, approx=fast_recip)
     return GridMD2.create(
         spec, lj_g(epsilon, sigma), dt=dt, temperature=temperature,
         friction=friction, mass=mass, g_fn_kernel=gk, noise=noise,
-        self_half=self_half, strag_cellcenter=strag_cellcenter, device=dev,
+        self_half=self_half, strag_cellcenter=strag_cellcenter,
+        fold_in_update=fold_in_update, device=dev,
     )

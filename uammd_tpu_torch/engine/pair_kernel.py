@@ -23,10 +23,12 @@ Also the port of ``make_pair_channel_kernel`` (#2) and
 per-particle payload channels in and n_out sums out, periodic in z, over a
 pair functor: the PSE near field (``pse_near.PSENear``, on 1 or 2 stacked
 3-vectors, with the straggler block) or a ``ChannelFunctor`` (DPD, SPH
-density and force, the LJ mixtures; straggler-free specs). CUDA tensors
-launch ``csrc/pair_channel.cu`` instantiated for the functor; CPU tensors
-run ``pair_channel_plain`` (PSE) or ``channel_plain`` (a functor's plain
-form, which has the JAX ``pair_fn`` signature).
+density and force, the LJ mixtures on straggler-free specs; the Poisson
+near field, ``electrostatics.poisson.PoissonNear``, also with the
+straggler block). CUDA tensors launch ``csrc/pair_channel.cu``
+instantiated for the functor; CPU tensors run ``pair_channel_plain``
+(PSE) or ``functor_plain`` (a functor's plain form, which has the JAX
+``pair_fn`` signature).
 """
 
 from __future__ import annotations
@@ -98,6 +100,24 @@ PAIR_CHANNEL_SPH_DENSITY = _functor_kernel("uammd_pair_channel_sph_density", SPH
 PAIR_CHANNEL_SPH_FORCE = _functor_kernel("uammd_pair_channel_sph_force", SPHParams)
 PAIR_CHANNEL_LJ_MIX = _functor_kernel("uammd_pair_channel_lj_mix", LJMixParams)
 PAIR_CHANNEL_LJ_MIX_MASKED = _functor_kernel("uammd_pair_channel_lj_mix_masked", LJMixParams)
+
+POISSON_NCOEF = 21  # chan::kPoissonNCoef: polynomials up to degree 20
+
+
+class PoissonParams(ctypes.Structure):
+    """``chan::PoissonParams`` of csrc/channel_functors.cuh."""
+
+    _fields_ = [("c", _F * (4 * POISSON_NCOEF))] + [
+        (k, _F) for k in ("a1", "b1", "a2", "b2", "qb", "rc2", "inv_rcut")]
+
+
+def _strag_functor_kernel(symbol: str, params) -> _build.Kernel:
+    # symbol(x, y, z, ch, strag, out, spart, nx, nyb, nz, F, cap, S, rows, kJ,
+    #        Lx, Ly, Lz, iLx, iLy, iLz, params, stream)
+    return _build.Kernel("pair_channel", symbol, [_P] * 7 + [_I] * 8 + [_F] * 6 + [params])
+
+
+PAIR_CHANNEL_POISSON = _strag_functor_kernel("uammd_pair_channel_poisson", PoissonParams)
 
 # The kernel stages 9 * 8 candidate rows of NLANE floats in 48 KB of
 # shared memory.
@@ -323,11 +343,15 @@ class ChannelFunctor:
     hold one value for the whole launch: 0-d tensors on both paths, read on
     the home side only), ``kernel`` (the ``_build.Kernel`` of their CUDA
     instantiation in csrc/pair_channel.cu) and ``params()`` (its parameter
-    struct)."""
+    struct). A functor with ``strag = True`` (no uniform channels) also
+    serves straggler-capable specs: its kernel entry takes the straggler
+    rows, and the plain version evaluates it both ways
+    (``pse_near.strag_channel_block``)."""
 
     n_chan: int
     n_out: int
     n_uniform: int = 0
+    strag: bool = False
     kernel: _build.Kernel
 
     def params(self) -> ctypes.Structure:
@@ -374,9 +398,25 @@ def pair_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channels
     if spec.n_strag:
         xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
         ch_i = [c[:, :, :, None, :] for c in channels]
-        fwd, spart = strag_channel_block(spec, fn, nvec, xi, yi, zi, ch_i, strag[:, :, 0])
+        fwd, spart = strag_channel_block(spec, fn.pair_fn(nvec), 3 * nvec, xi, yi, zi,
+                                         ch_i, strag[:, :, 0])
         out = [o + t for o, t in zip(out, fwd)]
     return tuple(out), spart
+
+
+def functor_plain(spec: GridSpec, fn: ChannelFunctor, x, y, z, channels, strag_rows=None):
+    """Plain PyTorch version of #2 with a ``ChannelFunctor``: ``channel_plain``
+    and, with the straggler rows [3 + n_chan + 1, S], their forward terms
+    and reverse totals (``pse_near.strag_channel_block``). Returns (n_out
+    grids) [+ (n_out straggler totals [S])], as the kernel's wrapper
+    does."""
+    out = channel_plain(spec, fn, fn.n_out, x, y, z, channels)
+    if strag_rows is None:
+        return out
+    xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
+    ch_i = [c[:, :, :, None, :] for c in channels]
+    fwd, spart = strag_channel_block(spec, fn, fn.n_chan, xi, yi, zi, ch_i, strag_rows)
+    return tuple(o + t for o, t in zip(out, fwd)) + tuple(spart)
 
 
 def _check_functor_inputs(spec: GridSpec, fn: ChannelFunctor, x, y, z, channels, cuda: bool):
@@ -409,14 +449,15 @@ class PairChannelKernel:
     tensors launch ``uammd_pair_channel`` (counted in
     ``PAIR_CHANNEL.launches``) or raise.
 
-    With a ``ChannelFunctor``: ``apply(x, y, z, *channels) -> (n_out
-    grids)`` on a straggler-free spec. CPU tensors run ``channel_plain``;
-    CUDA tensors launch the functor's instantiation (counted in
-    ``fn.kernel.launches``) or raise."""
+    With a ``ChannelFunctor``: ``apply(x, y, z, *channels[, strag]) ->
+    (n_out grids) [+ (n_out straggler totals [S])]``, on a straggler-free
+    spec unless the functor has ``strag``. CPU tensors run
+    ``functor_plain``; CUDA tensors launch the functor's instantiation
+    (counted in ``fn.kernel.launches``) or raise."""
 
     def __init__(self, spec: GridSpec, fn, nvec: int = 1):
         if isinstance(fn, ChannelFunctor):
-            if spec.n_strag:
+            if spec.n_strag and not fn.strag:
                 raise ValueError(f"{type(fn).__name__} runs on straggler-free specs "
                                  f"(n_strag = 0), not {spec.n_strag}")
         elif not isinstance(fn, PSENear):
@@ -429,37 +470,41 @@ class PairChannelKernel:
         self.nvec = nvec
 
     def __call__(self, x, y, z, *channels, strag=None):
-        if isinstance(self.fn, ChannelFunctor):
-            return self._functor(x, y, z, channels)
-        spec, nvec = self.spec, self.nvec
+        spec, fn, nvec = self.spec, self.fn, self.nvec
         S = spec.n_strag
         if S and strag is None:
             raise ValueError("a straggler-capable spec needs the strag block")
+        if isinstance(fn, ChannelFunctor) and not fn.strag:
+            return self._functor(x, y, z, channels)
+        pse = isinstance(fn, PSENear)
+        n_chan = 3 * nvec if pse else fn.n_chan
         if x.device.type == "cpu":
-            check_cpu_inputs(spec, nvec, x, y, z, channels, "the channel kernel")
-            out, spart = pair_channel_plain(spec, self.fn, nvec, x, y, z, channels, strag)
-        else:
-            ch, srows = channel_launch_args(spec, nvec, x, y, z, channels, strag,
-                                            "the channel kernel")
-            rows, kj = channel_launch_shape(spec, 3 * nvec)
-            nc = 3 * nvec
-            T = spec.n_slots
-            buf = torch.zeros(nc * T + nc * S, dtype=torch.float32, device=x.device)
-            out_t = buf[: nc * T].view((nc,) + spec.array_shape)
-            spart = buf[nc * T:].view(nc, S)
-            nx, _, nz = spec.shape
-            P = _build.ptr
-            PAIR_CHANNEL(
-                P(x), P(y), P(z), P(ch), P(srows) if S else _P(0), P(out_t), P(spart),
-                nvec, nx, spec.nyb, nz, spec.fold, spec.cap, S, rows, kj,
-                *spec.box_size, *_strag_inv(spec), self.fn.struct(),
-            )
-            out = tuple(out_t)
-        if S:
-            return tuple(out) + tuple(spart)
-        return tuple(out)
+            if pse:
+                check_cpu_inputs(spec, nvec, x, y, z, channels, "the channel kernel")
+                out, spart = pair_channel_plain(spec, fn, nvec, x, y, z, channels, strag)
+                return tuple(out) + (tuple(spart) if S else ())
+            _check_functor_inputs(spec, fn, x, y, z, channels, False)
+            return functor_plain(spec, fn, x, y, z, channels, strag[:, :, 0] if S else None)
+        # PSE, or a straggler-serving functor: one entry signature
+        ch, srows = channel_launch_args(spec, n_chan, x, y, z, channels, strag,
+                                        "the channel kernel")
+        n_out = n_chan if pse else fn.n_out
+        rows, kj = channel_launch_shape(spec, n_chan)
+        T = spec.n_slots
+        buf = torch.zeros(n_out * (T + S), dtype=torch.float32, device=x.device)
+        out = buf[: n_out * T].view((n_out,) + spec.array_shape)
+        spart = buf[n_out * T:].view(n_out, S)
+        nx, _, nz = spec.shape
+        P = _build.ptr
+        kernel, lead, params = ((PAIR_CHANNEL, (nvec,), fn.struct()) if pse
+                                else (fn.kernel, (), fn.params()))
+        kernel(P(x), P(y), P(z), P(ch), P(srows) if S else _P(0), P(out), P(spart), *lead,
+               nx, spec.nyb, nz, spec.fold, spec.cap, S, rows, kj, *spec.box_size,
+               *_strag_inv(spec), params)
+        return tuple(out) + (tuple(spart) if S else ())
 
     def _functor(self, x, y, z, channels):
+        """A straggler-free functor's launch (its entry takes no rows)."""
         spec, fn = self.spec, self.fn
         cuda = x.device.type != "cpu"
         _check_functor_inputs(spec, fn, x, y, z, channels, cuda)

@@ -143,28 +143,38 @@ def _strag_inv(spec: GridSpec):
     return tuple(float(np.float32(1.0 / L)) for L in spec.box_size)
 
 
-def strag_channel_block(spec: GridSpec, fn: PSENear, nvec: int, xi, yi, zi, ch_i, strag):
-    """Home slots against the straggler list, both directions (minimum
-    image per pair, invalid rows and empty home slots masked): returns
-    (forward [3 nvec] of [nz, nyb, CAP, NLANE], reverse [3 nvec, S]).
-    ``xi``.. are [nz, nyb, CAP, 1, NLANE], ``strag`` the [3 + 3 nvec + 1, S]
-    rows (x, y, z, channels, valid)."""
-    Lx, Ly, Lz = spec.box_size
-    iLx, iLy, iLz = _strag_inv(spec)
-    na = 3 + 3 * nvec
-    sx, sy, sz = (strag[k][None, None, None, :, None] for k in range(3))
-    ch_s = [strag[3 + k][None, None, None, :, None] for k in range(3 * nvec)]
-    sval = strag[na][None, None, None, :, None]
-    dxv, dyv, dzv = sx - xi, sy - yi, sz - zi
-    dxv = dxv - Lx * torch.round(dxv * iLx)
-    dyv = dyv - Ly * torch.round(dyv * iLy)
-    dzv = dzv - Lz * torch.round(dzv * iLz)
-    r2 = dxv * dxv + dyv * dyv + dzv * dzv
-    ok = (sval > 0.5) & (xi < 1.0e8)
-    r2m = torch.where(ok, r2, torch.full_like(r2, 1.0e18))
-    fwd, bwd = fn.pair_both(r2m, dxv, dyv, dzv, ch_i, ch_s, nvec)
+def strag_channel_block(spec: GridSpec, pair_fn, n_chan: int, xi, yi, zi, ch_i, rows):
+    """Home slots against the straggler rows, both directions: returns
+    (forward, a list of [nz, nyb, CAP, NLANE] grids; reverse [n_out, S]).
+    ``pair_fn(r2, dx, dy, dz, ch_i, ch_j)`` gives the functor's terms onto
+    i (the JAX signature); ``xi``.. are [nz, nyb, CAP, 1, NLANE] and
+    ``rows`` the [3 + n_chan + 1, S] rows (x, y, z, channels, valid).
+    Invalid rows and empty home slots go to r2 = 1e18.
+
+    Each direction takes its displacement as the grid takes a candidate of
+    an image cell (csrc/pse_near.cuh:image_pair): with the minimum image's
+    shift L round((x_s - x_i) / L) (the float32 1/L), (x_s - shift) - x_i
+    onto the home slot and (x_i + shift) - x_s onto the row, each with its
+    own r2. A pair then rounds as it does when the row is a grid particle:
+    the power-basis Horner sums of the fitted functors turn one ulp of r2
+    into about 1e-6 of their value. (The JAX kernels round the difference
+    first and negate it for the reverse.)"""
+    home = (xi, yi, zi)
+    d, e = [], []
+    for k, (L, iL) in enumerate(zip(spec.box_size, _strag_inv(spec))):
+        s = rows[k][None, None, None, :, None]
+        shift = L * torch.round((s - home[k]) * iL)
+        d.append((s - shift) - home[k])
+        e.append((home[k] + shift) - s)
+    ok = (rows[3 + n_chan][None, None, None, :, None] > 0.5) & (xi < 1.0e8)
+    far = torch.full_like(d[0], 1.0e18)
+    r2 = torch.where(ok, d[0] * d[0] + d[1] * d[1] + d[2] * d[2], far)
+    r2e = torch.where(ok, e[0] * e[0] + e[1] * e[1] + e[2] * e[2], far)
+    ch_s = [rows[3 + k][None, None, None, :, None] for k in range(n_chan)]
+    fwd = pair_fn(r2, d[0], d[1], d[2], ch_i, ch_s)
+    bwd = pair_fn(r2e, e[0], e[1], e[2], ch_s, ch_i)
     return ([t.sum(dim=3) for t in fwd],
-            torch.stack([t.sum(dim=(0, 1, 2, 4)) for t in bwd]))
+            torch.stack([t.expand(r2.shape).sum(dim=(0, 1, 2, 4)) for t in bwd]))
 
 
 # threads per block of the channel kernels (rows x NLANE) and their
@@ -190,12 +200,12 @@ def channel_launch_shape(spec: GridSpec, n_chan: int):
     return rows, kj
 
 
-def channel_launch_args(spec: GridSpec, nvec: int, x, y, z, channels, strag, what: str):
+def channel_launch_args(spec: GridSpec, n_chan: int, x, y, z, channels, strag, what: str):
     """Check a channel kernel's CUDA inputs; returns (stacked channels,
-    the [3 + 3 nvec + 1, S] straggler rows or None)."""
+    the [3 + n_chan + 1, S] straggler rows or None)."""
     shape = spec.array_shape
-    if len(channels) != 3 * nvec:
-        raise ValueError(f"{what} takes {3 * nvec} channels, got {len(channels)}")
+    if len(channels) != n_chan:
+        raise ValueError(f"{what} takes {n_chan} channels, got {len(channels)}")
     for name, t in (("x", x), ("y", y), ("z", z)):
         _build.check_cuda_tensor(t, name, shape)
     for k, t in enumerate(channels):
@@ -204,7 +214,7 @@ def channel_launch_args(spec: GridSpec, nvec: int, x, y, z, channels, strag, wha
     rows_s = None
     if spec.n_strag:
         rows_s = strag[:, :, 0].to(torch.float32).contiguous()
-        _build.check_cuda_tensor(rows_s, "strag", (3 + 3 * nvec + 1, spec.n_strag))
+        _build.check_cuda_tensor(rows_s, "strag", (3 + n_chan + 1, spec.n_strag))
     return ch, rows_s
 
 

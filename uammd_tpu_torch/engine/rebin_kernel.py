@@ -26,6 +26,12 @@ along its axis at the wide capacity CAP + OCAP; ranks CAP .. CAP+OCAP-1 of
 the x pass form the overflow mini-grid that becomes the next straggler
 list. CUDA tensors launch ``csrc/sep_rebin.cu``, CPU tensors run
 ``separable_rebin_plain``.
+
+The one-shot alternative is the port of ``make_rebin_kernel2`` (#4) with
+``rebin_fast2``: each cell pulls from its 27 neighbor cells, as the v1
+rebin does, and then from the whole straggler list; ranks CAP ..
+CAP+OCAP-1 form the overflow mini-grid. CUDA tensors launch
+``csrc/rebin2.cu``, CPU tensors run ``rebin2_plain``.
 """
 
 from __future__ import annotations
@@ -177,6 +183,26 @@ def rebin_fast(gs: GridState) -> GridState:
 SEP_REBIN = _build.Kernel("sep_rebin", "uammd_sep_rebin", [_P] * 7 + [_I] * 8 + [_F] * 6)
 
 
+def _rank_into(out: torch.Tensor, base: torch.Tensor, vals: torch.Tensor,
+               valid: torch.Tensor):
+    """Place the valid candidates ``vals`` [Q, nz, nyb, R, NLANE] of each
+    cell at their ranks, ``base`` plus the count of valid candidates
+    before them along R, in ``out`` [Q, nz, nyb, depth, NLANE]; ranks past
+    depth are dropped. Returns (the new base, the valid count, the count
+    past depth)."""
+    depth = out.shape[3]
+    shape = valid.shape  # [nz, nyb, R, NLANE]
+    v = valid.to(torch.int64)
+    rank = base + torch.cumsum(v, dim=2) - v
+    put = valid & (rank < depth)
+    dev = out.device
+    zd = torch.arange(shape[0], device=dev)[:, None, None, None].expand(shape)
+    yd = torch.arange(shape[1], device=dev)[None, :, None, None].expand(shape)
+    ld = torch.arange(shape[3], device=dev)[None, None, None, :].expand(shape)
+    out[:, zd[put], yd[put], rank[put], ld[put]] = vals[:, put]
+    return base + v.sum(dim=2, keepdim=True), v.sum(), (valid & (rank >= depth)).sum()
+
+
 def _sep_pass(spec: GridSpec, w: torch.Tensor, axis: int, depth: int, strag=None):
     """One pass of the separable rebin, fixing cell axis ``axis`` (0 = x,
     1 = y, 2 = z) from the 3 neighbor cells along it: candidates in the
@@ -204,18 +230,9 @@ def _sep_pass(spec: GridSpec, w: torch.Tensor, axis: int, depth: int, strag=None
 
     def place(cand, valid):
         nonlocal base, count, over
-        shape = valid.shape  # [nz, nyb, R, nlane]
-        v = valid.to(torch.int64)
-        rank = base + torch.cumsum(v, dim=2) - v
-        base = base + v.sum(dim=2, keepdim=True)
-        count = count + v.sum()
-        over = over + (valid & (rank >= depth)).sum()
-        put = valid & (rank < depth)
-        zd = torch.arange(nz, device=dev)[:, None, None, None].expand(shape)
-        yd = torch.arange(nyb, device=dev)[None, :, None, None].expand(shape)
-        ld = lane[None, None, None, :].expand(shape)
-        vals = torch.stack([c.expand(shape) + 0.0 for c in cand])
-        out[:, zd[put], yd[put], rank[put], ld[put]] = vals[:, put]
+        vals = torch.stack([c.expand(valid.shape) + 0.0 for c in cand])
+        base, n, o = _rank_into(out, base, vals, valid)
+        count, over = count + n, over + o
 
     for k in (-1, 0, 1):
         off = [0, 0, 0]
@@ -313,6 +330,118 @@ def make_separable_rebin(spec: GridSpec, ocap: int = OCAP) -> SeparableRebinKern
     return SeparableRebinKernel(spec, ocap)
 
 
+# uammd_rebin2(in, strag, out, mini, counts, Q, S, nx, nyb, nz, F, cap, ocap,
+#              Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz, stream)
+REBIN2 = _build.Kernel("rebin2", "uammd_rebin2", [_P] * 5 + [_I] * 8 + [_F] * 6)
+
+
+def rebin2_plain(spec: GridSpec, stacked: torch.Tensor, strag: torch.Tensor,
+                 ocap: int = OCAP):
+    """Plain PyTorch version of the one-shot straggler-aware rebin (#4):
+    every cell ranks its candidates from the 27 neighbor cells in the
+    kernel's order (dz, dy, dx, source slots ascending), then the straggler
+    rows ``strag`` [Q, S] in order, by an exclusive cumsum per cell; ranks
+    below CAP go to ``out``, CAP .. CAP+ocap-1 to the mini-grid. Returns
+    (out, mini, count of valid candidates, count of ranks past CAP + ocap)."""
+    n_q = stacked.shape[0]
+    nx, ny, nz = spec.shape
+    F, cap, nlane, nyb = spec.fold, spec.cap, spec.nlane, spec.nyb
+    Ls = spec.box_size
+    ncell = (nx, ny, nz)
+    wide = cap + ocap
+    dev = stacked.device
+    lane = torch.arange(nlane, device=dev)
+    my_c = (
+        (lane // F).to(torch.float32)[None, None, None, :],
+        (torch.arange(nyb, device=dev)[:, None] * F + lane[None, :] % F)
+        .to(torch.float32)[None, :, None, :],
+        torch.arange(nz, device=dev).to(torch.float32)[:, None, None, None],
+    )
+    rows = torch.arange(cap, device=dev)[None, None, :, None]
+    out = torch.zeros((n_q, nz, nyb, wide, nlane), dtype=torch.float32, device=dev)
+    base = torch.zeros((nz, nyb, 1, nlane), dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    over = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def place(pos, rest):
+        nonlocal base, count, over
+        valid = rest[-1] > 0.5
+        for d in range(3):
+            valid = valid & (_dest_cell(pos[d], Ls[d], ncell[d]) == my_c[d])
+        shape = valid.shape
+        vals = torch.stack([_wrap_pos(p, L).expand(shape) for p, L in zip(pos, Ls)]
+                           + [c.expand(shape) + 0.0 for c in rest])
+        base, n, o = _rank_into(out, base, vals, valid)
+        count, over = count + n, over + o
+
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                zs, ybs, ls, shifts = stencil_sources(spec, dz, dy, dx, dev)
+                cand = stacked[:, zs, ybs, rows, ls]  # [Q, nz, nyb, cap, nlane]
+                place([cand[d] + shifts[d] for d in range(3)], list(cand[3:]))
+    sc = [strag[q][None, None, :, None] for q in range(n_q)]
+    place(sc[:3], sc[3:])
+    unfilled = torch.arange(wide, device=dev)[None, None, :, None] >= base
+    out[:3] = torch.where(unfilled, torch.full_like(out[:3], EMPTY_POS), out[:3])
+    return (out[:, :, :, :cap].contiguous(), out[:, :, :, cap:].contiguous(), count, over)
+
+
+class RebinKernel2:
+    """``rebin(stacked [Q, nz, nyb, CAP, NLANE], strag) -> (out, mini,
+    count, overflow)`` for one ``GridSpec`` with ``n_strag > 0``; ``strag``
+    is the [Q, S] straggler rows or the JAX kernel's broadcast [Q, S,
+    NLANE] block of them (its first lane is read).
+
+    CPU tensors go to ``rebin2_plain``; CUDA tensors launch
+    ``csrc/rebin2.cu`` (counted in ``REBIN2.launches``) or raise."""
+
+    def __init__(self, spec: GridSpec, ocap: int = OCAP):
+        if spec.n_strag <= 0:
+            raise ValueError("the one-shot straggler rebin needs a straggler-capable spec")
+        self.spec = spec
+        self.ocap = ocap
+
+    def __call__(self, stacked: torch.Tensor, strag: torch.Tensor):
+        spec = self.spec
+        if stacked.dim() != 5 or stacked.shape[0] < 4:
+            raise ValueError("stacked must be [Q >= 4, nz, nyb, CAP, NLANE]")
+        n_q = stacked.shape[0]
+        shape = (n_q,) + spec.array_shape
+        if strag.dim() == 3:
+            if tuple(strag.shape) != (n_q, spec.n_strag, spec.nlane):
+                raise ValueError(f"the straggler block must be {(n_q, spec.n_strag, spec.nlane)}")
+            strag = strag[:, :, 0]
+        sshape = (n_q, spec.n_strag)
+        if stacked.device.type == "cpu":
+            if (stacked.dtype != torch.float32 or tuple(stacked.shape) != shape
+                    or strag.dtype != torch.float32 or tuple(strag.shape) != sshape):
+                raise ValueError(f"stacked must be float32 {shape}, strag {sshape}")
+            return rebin2_plain(spec, stacked, strag, self.ocap)
+        _build.check_cuda_tensor(stacked, "stacked", shape)
+        strag = strag.contiguous()
+        _build.check_cuda_tensor(strag, "strag", sshape)
+        nx, _, nz = spec.shape
+        dev = stacked.device
+        out = torch.empty_like(stacked)
+        mini = torch.empty((n_q, nz, spec.nyb, self.ocap, spec.nlane), dtype=torch.float32,
+                           device=dev)
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        Lx, Ly, Lz = spec.box_size
+        P = _build.ptr
+        REBIN2(
+            P(stacked), P(strag), P(out), P(mini), P(counts),
+            n_q, spec.n_strag, nx, spec.nyb, nz, spec.fold, spec.cap, self.ocap,
+            Lx, Ly, Lz, recip32(Lx), recip32(Ly), recip32(Lz),
+        )
+        return out, mini, counts[0], counts[1]
+
+
+def make_rebin_kernel2(spec: GridSpec, ocap: int = OCAP) -> RebinKernel2:
+    """Build the one-shot straggler-aware rebin for one spec."""
+    return RebinKernel2(spec, ocap)
+
+
 def _compact_mini(mini: torch.Tensor, S: int):
     """[Q, nz, nyb, OCAP, NLANE] overflow mini-grid -> the dense [S]
     straggler rows: the occupied entries in flat index order, the first S
@@ -356,20 +485,20 @@ def compact_mini_pids(mini: torch.Tensor, S: int):
     dense.scatter_(0, target, torch.where(take, pidf.to(torch.int32) - 1, -1).to(torch.int32))
     return dense[:S], count
 
-def rebin_fast3(gs: GridState) -> GridState:
-    """Straggler-aware rebin through the separable kernel: re-absorbs the
+def _strag_rebin(gs: GridState, kernel) -> GridState:
+    """A straggler-aware rebin of (pos, vel, pid) through ``kernel``
+    (stacked, strag rows) -> (out, mini, count, overflow): re-absorbs the
     straggler list into cells, emits the new overflow set as the next
     straggler list and drops forces (the v2 engine recomputes them right
     after). Latches overflow on any rank past a capacity, a particle lost
     (moved more than one cell) or more than S stragglers."""
-    spec = gs.spec
-    S = spec.n_strag
+    S = gs.spec.n_strag
     stacked = torch.stack([gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz,
                            (gs.pid + 1).to(torch.float32)])
     strag = torch.stack([gs.spos[:, 0], gs.spos[:, 1], gs.spos[:, 2],
                          gs.svel[:, 0], gs.svel[:, 1], gs.svel[:, 2],
                          (gs.spid + 1).to(torch.float32)])
-    out, mini, count, ovf = SeparableRebinKernel(spec)(stacked, strag)
+    out, mini, count, ovf = kernel(stacked, strag)
     pid = out[6].to(torch.int32) - 1
     spos, svel, spid, s_count = _compact_mini(mini, S)
     overflow = gs.overflow | (ovf > 0) | (count != gs.n) | (s_count > S)
@@ -382,6 +511,16 @@ def rebin_fast3(gs: GridState) -> GridState:
         overflow=overflow,
         spos=spos, svel=svel, sforce=torch.zeros_like(gs.sforce), spid=spid,
     )
+
+
+def rebin_fast3(gs: GridState) -> GridState:
+    """Straggler-aware rebin through the separable kernel (#5)."""
+    return _strag_rebin(gs, SeparableRebinKernel(gs.spec))
+
+
+def rebin_fast2(gs: GridState) -> GridState:
+    """Straggler-aware rebin through the one-shot kernel (#4)."""
+    return _strag_rebin(gs, RebinKernel2(gs.spec))
 
 
 def rebin_fast_noforce(gs: GridState) -> GridState:

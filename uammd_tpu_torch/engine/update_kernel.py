@@ -1,7 +1,9 @@
-"""Fused reaction fold + Gronbech-Jensen Langevin update with in-kernel noise.
+"""Gronbech-Jensen Langevin updates with in-kernel noise, fused with the
+reaction fold or not.
 
-Port of ``uammd_tpu/engine/update_kernel.py:make_gj_fold_update_kernel``.
-One elementwise pass per step: fold the Newton pair kernel's reaction
+Port of ``uammd_tpu/engine/update_kernel.py:make_gj_fold_update_kernel``
+(#12) and ``make_gj_update_kernel`` (#11). #12 is one elementwise pass per
+step: fold the Newton pair kernel's reaction
 groups into the home force, complete the deferred half kick
 (v = w + (dt/2m) f), apply the G-J update (reference:
 src/Integrator/VerletNVT/GronbechJensen.cu:20-62), write x, y, z and the new
@@ -25,6 +27,17 @@ per-row noise arithmetic of its own.
 
 On CUDA tensors the wrapper launches ``csrc/gj_fold_update.cu``; on CPU
 tensors it runs ``gj_fold_update_plain``.
+
+#11 (``GJUpdateKernel``) is the same update from already folded forces,
+which the v2 engine runs when the fold is a pass of its own
+(``fold_in_update=False``). It has Box-Muller noise only (the JAX kernel
+has no switch) from the same counter hash, key, slot counters and streams
+as #12, and updates the straggler rows in the same call, so a fused and an
+unfused run draw the same numbers. CUDA tensors launch
+``csrc/gj_update.cu``; CPU tensors run ``gj_update_plain``, and
+``gj_update_z`` takes the three standard-normal fields from the caller
+(the CPU tests feed it ``jax.random``'s draws, as ``gj_update_jnp``
+makes them).
 """
 
 from __future__ import annotations
@@ -53,6 +66,12 @@ NOISES = ("clt", "bm")
 GJ_FOLD_UPDATE = _build.Kernel(
     "gj_fold_update", "uammd_gj_fold_update",
     [_PP, _PP, _P, _P, _PP, _PP] + [_I] * 7 + [_F] * 8)
+
+# uammd_gj_update(ins[12], outs[6], seed, drift_bits, strag_ins[4],
+#                 strag_outs[2], n, S, noisy, hv, bdt, c_x, dt, a, hva, bm,
+#                 amp, stream)
+GJ_UPDATE = _build.Kernel(
+    "gj_update", "uammd_gj_update", [_PP, _PP, _P, _P, _PP, _PP] + [_I] * 3 + [_F] * 8)
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -171,22 +190,55 @@ def gj_fold_update_plain(spec: GridSpec, coef: GJCoefficients, noise: str,
     (spos', svel'), updated with noise stream 1."""
     grp = [tuple(groups[3 * i: 3 * i + 3]) for i in range(4)]
     fx, fy, fz = fold_reactions_plain((hfx, hfy, hfz), grp)
+    return _update_plain(spec, coef, noise, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
+                         seed, strag)
+
+
+def _grid_update(coef: GJCoefficients, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
+                 noise_fields):
+    """((x', y', z', wx', wy', wz'), drift) of the grid slots from folded
+    forces and noise fields of standard deviation ``coef.amp``."""
     mask = (x < 1.0e8).to(torch.float32)
-    noise_fields = _noise(coef, noise, seed, spec.n_slots, x.device, 0)
     out = [_gj(coef, p, w, f, n_.reshape(x.shape), mask) for p, w, f, n_ in
            zip((x, y, z), (wx, wy, wz), (fx, fy, fz), noise_fields)]
     (xo, wxo), (yo, wyo), (zo, wzo) = out
     dinf = mask * torch.maximum(torch.abs(xo - rx),
                                 torch.maximum(torch.abs(yo - ry), torch.abs(zo - rz)))
-    grid = ((xo, yo, zo, wxo, wyo, wzo), dinf.max())
+    return (xo, yo, zo, wxo, wyo, wzo), dinf.max()
+
+
+def _update_plain(spec: GridSpec, coef: GJCoefficients, noise: str, x, y, z, wx, wy, wz,
+                  fx, fy, fz, rx, ry, rz, seed, strag):
+    """The update of both plain versions from folded forces, with counter
+    noise (stream 0 on the grid slots, 1 on the straggler rows)."""
+    fields = _noise(coef, noise, seed, spec.n_slots, x.device, 0)
+    grid = _grid_update(coef, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, fields)
     if strag is None:
         return grid
+    return grid + (_strag_plain(coef, noise, seed, strag),)
+
+
+def _strag_plain(coef: GJCoefficients, noise: str, seed, strag):
+    """The straggler rows' (spos', svel'), with noise stream 1."""
     spos, svel, sforce, spid = strag
     smask = (spid >= 0).to(torch.float32)
-    sn = _noise(coef, noise, seed, spid.shape[0], x.device, 1)
+    sn = _noise(coef, noise, seed, spid.shape[0], spos.device, 1)
     sout = [_gj(coef, spos[:, c], svel[:, c], sforce[:, c], sn[c], smask) for c in range(3)]
-    return grid + ((torch.stack([o[0] for o in sout], dim=-1),
-                    torch.stack([o[1] for o in sout], dim=-1)),)
+    return (torch.stack([o[0] for o in sout], dim=-1),
+            torch.stack([o[1] for o in sout], dim=-1))
+
+
+def _strag_launch_args(strag, dev):
+    """(S, the 4 straggler input pointers, the [2, S, 3] output) of an
+    update launch; S = 0 without stragglers."""
+    S = 0 if strag is None else strag[3].shape[0]
+    if S:
+        for name, t in zip(("spos", "svel", "sforce"), strag[:3]):
+            _build.check_cuda_tensor(t, name, (S, 3))
+        _build.check_cuda_tensor(strag[3], "spid", (S,), dtype=torch.int32)
+    sout = torch.empty((2, S, 3), dtype=torch.float32, device=dev)
+    sins = (_P * 4)(*((t.data_ptr() for t in strag) if S else (0,) * 4))
+    return S, sins, sout
 
 
 class GJFoldUpdateKernel:
@@ -227,13 +279,7 @@ class GJFoldUpdateKernel:
         dev = x.device
         out = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
         drift_bits = torch.zeros(1, dtype=torch.int32, device=dev)
-        S = 0 if strag is None else strag[3].shape[0]
-        if S:
-            for name, t in zip(("spos", "svel", "sforce"), strag[:3]):
-                _build.check_cuda_tensor(t, name, (S, 3))
-            _build.check_cuda_tensor(strag[3], "spid", (S,), dtype=torch.int32)
-        sout = torch.empty((2, S, 3), dtype=torch.float32, device=dev)
-        sins = (_P * 4)(*((t.data_ptr() for t in strag) if S else (0,) * 4))
+        S, sins, sout = _strag_launch_args(strag, dev)
         c = self.coef
         scale = (float(np.float32(c.amp) * np.float32(math.sqrt(3.0) / 65536.0))
                  if self.noise == "clt" else c.amp)
@@ -254,3 +300,76 @@ def make_gj_fold_update_kernel(spec: GridSpec, dt, temperature, friction, mass, 
                                noise: str = "bm") -> GJFoldUpdateKernel:
     """Build the fused fold + G-J update for one spec and parameter set."""
     return GJFoldUpdateKernel(spec, dt, temperature, friction, mass, noise=noise)
+
+
+# ---------------------------------------------------------------------------
+# #11: the update from folded forces (fold_in_update off)
+
+
+def gj_update_z(coef: GJCoefficients, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
+                nx, ny, nz):
+    """The update with the caller's standard-normal fields ``nx, ny, nz``
+    (shaped like ``x``; ignored at T = 0), as ``gj_update_jnp`` forms it
+    with ``amp * jax.random.normal(...)``. Returns ((x', y', z', wx', wy',
+    wz'), drift)."""
+    if coef.noisy:
+        fields = (coef.amp * nx, coef.amp * ny, coef.amp * nz)
+    else:
+        fields = (torch.zeros_like(x),) * 3
+    return _grid_update(coef, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, fields)
+
+
+def gj_update_plain(spec: GridSpec, coef: GJCoefficients, x, y, z, wx, wy, wz, fx, fy, fz,
+                    rx, ry, rz, seed, strag=None):
+    """Plain version of #11: the update from folded forces with "bm"
+    counter noise keyed by ``seed`` (the fused update's streams). Returns
+    ((x', y', z', wx', wy', wz'), drift), and with ``strag = (spos, svel,
+    sforce, spid)`` also the stragglers' (spos', svel')."""
+    return _update_plain(spec, coef, "bm", x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
+                         seed, strag)
+
+
+class GJUpdateKernel:
+    """``update(x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, seed[, strag])
+    -> ((x', y', z', wx', wy', wz'), drift[, (spos', svel')])`` for one
+    ``GridSpec``, from folded forces; arguments as ``GJFoldUpdateKernel``
+    takes them.
+
+    CPU tensors go to ``gj_update_plain``; CUDA tensors launch
+    ``csrc/gj_update.cu`` (counted in ``GJ_UPDATE.launches``) or raise."""
+
+    def __init__(self, spec: GridSpec, dt, temperature, friction, mass):
+        self.spec = spec
+        self.coef = GJCoefficients(dt, temperature, friction, mass)
+
+    def __call__(self, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, seed, strag=None):
+        spec = self.spec
+        shape = spec.array_shape
+        grids = [x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz]
+        if x.device.type == "cpu":
+            for t in grids:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
+                    raise ValueError(f"update inputs must be float32 CPU tensors of shape {shape}")
+            return gj_update_plain(spec, self.coef, *grids, seed, strag)
+        for k, t in enumerate(grids):
+            _build.check_cuda_tensor(t, f"update input {k}", shape)
+        _build.check_cuda_tensor(seed, "seed", (), dtype=torch.int32)
+        dev = x.device
+        out = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
+        drift_bits = torch.zeros(1, dtype=torch.int32, device=dev)
+        S, sins, sout = _strag_launch_args(strag, dev)
+        c = self.coef
+        GJ_UPDATE(
+            (_P * 12)(*(t.data_ptr() for t in grids)),
+            (_P * 6)(*(o.data_ptr() for o in out)),
+            _build.ptr(seed), _build.ptr(drift_bits),
+            sins, (_P * 2)(sout[0].data_ptr(), sout[1].data_ptr()),
+            spec.n_slots, S, int(c.noisy), c.hv, c.bdt, c.c_x, c.dt, c.a, c.hva, c.bm, c.amp,
+        )
+        grid = (tuple(out[k] for k in range(6)), drift_bits.view(torch.float32)[0])
+        return grid if strag is None else grid + ((sout[0], sout[1]),)
+
+
+def make_gj_update_kernel(spec: GridSpec, dt, temperature, friction, mass) -> GJUpdateKernel:
+    """Build the G-J update from folded forces (#11) for one spec."""
+    return GJUpdateKernel(spec, dt, temperature, friction, mass)
