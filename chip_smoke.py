@@ -78,6 +78,17 @@ Imports nothing of JAX or of the JAX package. Phases:
      against the straggler-free one (``CHANNEL_TOL``), a control (the
      candidates' charges dropped) that must fail; the isolated-charge Wigner energy (rtol
      2e-3) and the two-charge Newton-3 check on the card.
+   - slice G1 (``dd_kernel_checks``, ``dd_force_parity``): the halo modes
+     of the z-slab domain decomposition against their plain versions: #6
+     ``halo_z`` on every shard of tests/test_domain2.py:25's clump system
+     (n 2400, 24 straggler rows a shard) and of the melted 2^20 liquid on 4
+     shards, every slot within ``SLOT_TOL`` (control: the ghost rows
+     emptied); the halo fold #8 bit-equal (control: recv zeroed); #1 and #2
+     (DPD, SPH density, SPH force) on shard 0's halo-extended slab within
+     1e-5 and ``CHANNEL_TOL`` (control: the ghost rows' image shift
+     dropped). The assembled DD force on one state against the single-chip
+     engines' within ``DD_FORCE_TOL`` x max|f|: DD2 on 1 and 4 shards
+     (stragglers too), DD v1 on 4.
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -140,6 +151,22 @@ Imports nothing of JAX or of the JAX package. Phases:
      invariance at the first configuration: splits 0.175 (with and without
      stragglers) and 0.25 against the no-split solver (640^3), energies
      within 2e-2 relative and forces within 2e-3 x max|f|.
+   - DD2 (``main_path_dd2_4``, ``main_path_dd2_1``): ``make_lj_domain2``
+     on the melted liquid (n_strag 16 a shard, the exact reciprocal, "bm")
+     on 4 shards of this one card (nz 40) and on 1 shard: 100 settle + 200
+     timed steps. Gates: T within 20 % of 1.5, ``ovf`` 0 on every shard and
+     the count audit N, finite state, #6 ``halo_z``, #8 and #11 once per
+     shard per step, #6/#7/#12 never, #5 (1 shard) or the two-sort rebin
+     (4 shards) on drift, at most one host read per step outside rebins.
+     ``dd2_trajectory_parity``: DD2 on 4 shards against the single-chip
+     unfused engine at T = 0 with a rebin forced at step 1, within 1e-5
+     after 2 steps. DD v1, DPD and SPH (``main_path_dd_v1``, ``_dpd``,
+     ``_sph``) on 4 shards: 50 + 100 steps; no overflow, count N, finite;
+     v1 T within 20 % of 1.5, DPD mean kinetic T within 5 % of 1, DPD and
+     SPH |total momentum| / N < 1e-4; #1 / #2 halo once (SPH: twice) per
+     shard per step. On one card the exchanges are device-local copies: a
+     mesh measures the halo machinery and the migration, not interconnect
+     traffic (``breakdown_dd2``).
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -154,13 +181,15 @@ Imports nothing of JAX or of the JAX package. Phases:
    its path's final shapes, check them against each other once more there,
    print the v2, FCM, PSE, DPD, SPH, unfused v2 and Poisson steps'
    breakdowns and the kernels' JSON line (thirteen kernels, the six new
-   functors of #2, #1's observable mode and the Lanczos sqrt kernel).
+   functors of #2, #1's observable mode, the Lanczos sqrt kernel, and
+   slice G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows).
 
 ``--only-pse`` runs the build and the PSE phases alone, ``--only-slice-d``
 the build and slice D's phases (the observables on the v2 engine's
 jittered fcc start), ``--only-unfused`` the build, slice A3's checks, the
 v1 melt and the unfused v2 path, ``--only-poisson`` the build and slice
-E1's phases; none prints a result line (for work on those paths).
+E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases;
+none prints a result line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -3070,6 +3099,870 @@ def poisson_only(dev, card) -> int:
     return 0
 
 
+# ------------------------------------------ slice G1: the grid engines on a z-slab mesh
+# The port keeps a mesh inside one process (uammd_tpu_torch/parallel/mesh.py):
+# on this one card every shard of a 4-shard mesh lives on cuda:0, so each
+# halo kernel launches once per shard for real and the exchanges between
+# shards are device-local copies. A mesh here measures the halo machinery
+# and the migration, not interconnect traffic.
+# - DD2 (main_path_dd2): bench.py's liquid (N = 2^20, box 128, rcut 2.5, skin
+#   1.2, T 1.5, friction 1, dt 0.01) from the melted positions, built by
+#   make_lj_domain2 with n_strag 16 per shard, the exact reciprocal and "bm"
+#   noise (#11), on 4 shards (nz 42 floored to 40, 10 rows a shard) and on 1
+#   shard (the single-chip engine plus the halo machinery).
+# - DD v1 (make_domain_md_step2), DPD and SPH on 4 shards at main_path's,
+#   main_path_dpd's and main_path_sph's sizes.
+DD_SHARDS = 4
+DD_SETTLE, DD_TIMED = 100, 200
+DDC_SETTLE, DDC_TIMED = 50, 100
+# the DD force against the single-chip engine's folded force, x max|f|
+# (float32 sums in another order: the Newton kernels add their reactions
+# with atomics)
+DD_FORCE_TOL = 1e-5
+# DD2 on 4 shards against the single-chip unfused engine after 2 steps
+# through a forced rebin (tests/test_domain2.py:115-116)
+DD_TRAJ_TOL = 1e-5
+DD_TRAJ_STEPS = 20
+
+
+def dd_clump_system():
+    """tests/test_domain2.py:25's jittered lattice (n 2400, L 48) with one
+    dense clump (numpy): (pos, vel)."""
+    import numpy as np
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    n, L = 2400, 48.0
+    rng = np.random.default_rng(0)
+    gx, gy, gz = np.meshgrid(*[np.arange(4) * 1.1] * 2, np.arange(3) * 1.1)
+    clump = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=-1)[:48] + 5.0
+    base = lattice(n, L * 0.98, "fcc") + rng.normal(0.0, 0.05, (n, 3))
+    lo, hi = clump.min(axis=0) - 1.0, clump.max(axis=0) + 1.0
+    base = base[~np.all((base > lo) & (base < hi), axis=1)][: n - 48]
+    pos = np.concatenate([base, clump], axis=0).astype(np.float32)
+    return pos, rng.normal(0.0, 0.3, (n, 3)).astype(np.float32)
+
+
+def dd_mesh(dev, n_shards):
+    from uammd_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n_shards, devices=[dev] * n_shards)
+
+
+def dd2_setup(dev, pos, n_shards, *, vel=None, temperature=TEMPERATURE, box=None, n=None,
+              n_strag=N_STRAG, dt=0.01, seed=1):
+    """(step, sharded state, spec, single-chip engine) of the v2 DD engine."""
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.parallel import domain2
+
+    box = BOX if box is None else box
+    n = N if n is None else n
+    mesh = dd_mesh(dev, n_shards)
+    if vel is None:
+        return domain2.make_lj_domain2(mesh, box, n, dt=dt, temperature=temperature,
+                                       n_strag=n_strag, pos=pos, seed=seed)
+    spec = layout.choose_spec(box, n, 2.5, pos=pos, n_strag=n_strag, nz_multiple=n_shards)
+    md = domain2._single_chip_md2(spec, 1.0, 1.0, dt, temperature, 1.0, 1.0, False, dev)
+    gs = md.init(pos, vel=vel, seed=seed)
+    step = domain2.make_domain_md2_step(mesh, spec, dt=dt, temperature=temperature, n_total=n)
+    return step, domain2.shard_md2_state(md, gs, mesh, seed=seed), spec, md
+
+
+def dd2_strag_block(step, st, i):
+    import torch
+
+    S, nlane = step.S, step.local_spec.nlane
+    sval = (st.spidf[i] > 0.5).to(torch.float32)
+    block = torch.stack([st.spos[i][:, 0], st.spos[i][:, 1], st.spos[i][:, 2], sval])
+    return block[:, :, None].expand(4, S, nlane)
+
+
+def dd2_newton(step, st, i, ghost, plain=False):
+    """Shard i's Newton outputs (kernel or plain) with the ghost row
+    ``ghost``, as a list (home, groups, straggler forces)."""
+    from uammd_tpu_torch.engine import kernel2
+
+    strag = dd2_strag_block(step, st, i) if step.S else None
+    args = (st.x[i], st.y[i], st.z[i])
+    if plain:
+        out = kernel2.newton_pair_plain(step.local_spec, step.kern.g_fn, *args, strag,
+                                        ghost=ghost)
+    else:
+        out = step.kern(*args, *ghost, strag) if strag is not None else step.kern(*args, *ghost)
+    home, groups, sf = out
+    return list(home) + [c for g in groups for c in g] + ([sf] if sf is not None else [])
+
+
+def check_newton_halo(step, st, what, control=False):
+    """#6 halo_z on every shard against its plain version: every output
+    within 1e-5 of max|f| and every slot within SLOT_TOL of |f_ref| +
+    median|f| (both over all shards' folded forces, the median over the
+    slots that feel a force). With ``control`` the ghost rows are emptied
+    (EMPTY_POS) on the kernel's side, which must fail the per-slot check.
+    Returns the worst errors."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2, layout
+
+    ghosts = step.ghost_rows(st.x, st.y, st.z)
+    refs, fa = [], []
+    for i in range(step.n_dev):
+        ref = dd2_newton(step, st, i, ghosts[i], plain=True)
+        zeros = [torch.zeros_like(ghosts[i][0]) for _ in range(9)]
+        folded = kernel2.fold_reactions_halo_plain(ref[:3], [ref[3 + 3 * g:6 + 3 * g]
+                                                             for g in range(4)], zeros)
+        m = st.pidf[i] > 0.5
+        fa.append(torch.cat([a[m].abs() for a in folded]))
+        refs.append(ref)
+    fa = torch.cat(fa)
+    scale = (float(fa.max()), float(fa[fa > 0].median()))
+    worst = {"rel": 0.0, "slot": 0.0, "max_f": scale[0], "median_f": scale[1]}
+    ctrl = 0.0
+    for i, ref in enumerate(refs):
+        test = dd2_newton(step, st, i, ghosts[i])
+        check(all(bool(a.isfinite().all()) for a in test), f"{what} shard {i}: finite")
+        err = newton_errs(ref, test, scale)
+        check(err["rel"] < 1e-5 and err["slot"] < SLOT_TOL,
+              f"{what} shard {i}: Newton halo_z vs plain {err['rel']:.3g} < 1e-5, per slot "
+              f"{err['slot']:.3g} < {SLOT_TOL}")
+        worst = {k: max(v, err.get(k, v)) for k, v in worst.items()}
+        if control:
+            empty = tuple(torch.full_like(g, layout.EMPTY_POS) for g in ghosts[i])
+            ctrl = max(ctrl, newton_errs(ref, dd2_newton(step, st, i, empty), scale)["slot"])
+    if control:
+        check(ctrl > 100 * SLOT_TOL, f"{what}: control (ghost rows emptied) fails the "
+                                     f"per-slot check ({ctrl:.3g} > {100 * SLOT_TOL})")
+        worst["control_ghost_emptied"] = ctrl
+    return worst
+
+
+def check_fold_halo(step, st, what, control=False):
+    """#8 on every shard's Newton outputs and the reactions its down
+    neighbour sends: bit-equal to its plain version; with ``control``,
+    recv zeroed must change the result. Returns the max abs difference."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+    from uammd_tpu_torch.parallel.mesh import perm_up, ppermute
+
+    n = step.n_dev
+    ghosts = step.ghost_rows(st.x, st.y, st.z)
+    outs = [dd2_newton(step, st, i, ghosts[i]) for i in range(n)]
+    nzl = step.nz_loc
+    rec = ppermute([torch.stack([o[3 + k][nzl - 1] for k in range(9)]) for o in outs],
+                   perm_up(n))
+    err, changed = 0.0, False
+    for i in range(n):
+        home, groups = outs[i][:3], [outs[i][3 + 3 * g:6 + 3 * g] for g in range(4)]
+        recv = [rec[i][k][None] for k in range(9)]
+        got = step.fold(home, groups, recv)
+        want = kernel2.fold_reactions_halo_plain(home, groups, recv)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"{what} shard {i}: halo fold bit-equal to plain")
+        err = max(err, max(float((a - b).abs().max()) for a, b in zip(got, want)))
+        zero = step.fold(home, groups, [torch.zeros_like(r) for r in recv])
+        changed |= not all(torch.equal(a, b) for a, b in zip(zero, got))
+    if control:
+        check(changed, f"{what}: control (recv zeroed) changes the fold")
+    return err
+
+
+def dd_slab(a, shard, nz_loc, shift=0.0):
+    """Shard ``shard``'s rows of a periodic grid with one ghost row at each
+    end (across the global boundary moved by -shift / +shift), as
+    parallel/domain.py:halo_extend builds them."""
+    import torch
+
+    nz = a.shape[0]
+    lo, hi = shard * nz_loc, (shard + 1) * nz_loc
+    below = a[(lo - 1) % nz][None] - (shift if lo == 0 else 0.0)
+    above = a[hi % nz][None] + (shift if hi == nz else 0.0)
+    return torch.cat([below, a[lo:hi], above]).contiguous()
+
+
+def dd_halo_spec(spec, n_shards):
+    import dataclasses
+
+    nzl = spec.shape[2] // n_shards
+    return dataclasses.replace(spec, shape=spec.shape[:2] + (nzl + 2,)), nzl
+
+
+def check_pair_force_halo(gs, what):
+    """#1's halo mode on shard 0's halo-extended slab against its plain
+    version (max|df| / max|f| < 1e-5); control: the ghost rows' image
+    shift dropped must break the first home row. Returns (rel err, control,
+    abs err)."""
+    from uammd_tpu_torch.engine import md, pair_kernel
+
+    local, nzl = dd_halo_spec(gs.spec, DD_SHARDS)
+    L = gs.spec.box_size[2]
+    slab = [dd_slab(gs.x, 0, nzl), dd_slab(gs.y, 0, nzl), dd_slab(gs.z, 0, nzl, L)]
+    g = md.lj_g()
+    kern = pair_kernel.make_pair_force_kernel(local, g, periodic_z=False)
+    got = kern(*slab)
+    want = pair_kernel.pair_force_plain(local, g, *slab, periodic_z=False)
+    m = slab[0] < 1e8
+    err = rel_force_err(want, got, m)
+    check(err < 1e-5, f"{what}: #1 halo vs plain {err:.3g} < 1e-5")
+    bad = kern(slab[0], slab[1], dd_slab(gs.z, 0, nzl))
+    ctrl = rel_force_err([w[1] for w in want], [b[1] for b in bad], m[1])
+    check(ctrl > 1e-3, f"{what}: control (ghost shift dropped) fails ({ctrl:.3g})")
+    return err, ctrl, max(float((a[m] - b[m]).abs().max()) for a, b in zip(want, got))
+
+
+def check_functor_halo(spec, fn, grids, channels, what, info=None):
+    """#2's halo mode with ``fn`` on shard 0's halo-extended slab of the
+    grids (x, y, z and the channel grids; 0-d channels stay uniform):
+    within CHANNEL_TOL x max|ref| (or x max sum_j |term| with ``info``, as
+    check_functor); control: the ghost rows' image shift dropped must fail
+    that bound. Returns (rel err, control, abs err)."""
+    from uammd_tpu_torch.engine import pair_kernel
+
+    local, nzl = dd_halo_spec(spec, DD_SHARDS)
+    L = spec.box_size[2]
+    xyz = [dd_slab(grids[0], 0, nzl), dd_slab(grids[1], 0, nzl), dd_slab(grids[2], 0, nzl, L)]
+    ch = [c if c.dim() == 0 else dd_slab(c, 0, nzl) for c in channels]
+    kern = pair_kernel.make_pair_channel_kernel(local, fn, periodic_z=False)
+    got = kern(*xyz, *ch)
+    want = pair_kernel.channel_plain(local, fn, fn.n_out, *xyz, ch, periodic_z=False)
+    for a in got:
+        check(bool(a.isfinite().all()), f"{what}: outputs finite")
+    err_abs = max(float((a - b).abs().max()) for a, b in zip(want, got))
+    scale = max(float(a.abs().max()) for a in want)
+    if info is not None:
+        absum = pair_kernel.channel_plain(local, lambda *a: tuple(t.abs() for t in fn(*a)),
+                                          fn.n_out, *xyz, ch, periodic_z=False)
+        info["rel_err_vs_max_ref"] = err_abs / scale
+        scale = max(float(a.max()) for a in absum)
+        info["scale_sum_abs_terms"] = scale
+    err = err_abs / scale
+    check(err < CHANNEL_TOL, f"{what}: #2 halo vs plain {err:.3g} < {CHANNEL_TOL}")
+    bad = kern(xyz[0], xyz[1], dd_slab(grids[2], 0, nzl), *ch)
+    ctrl = max(float((a[1] - b[1]).abs().max()) for a, b in zip(bad, want)) / scale
+    check(ctrl > CHANNEL_TOL, f"{what}: control (ghost shift dropped) fails ({ctrl:.3g})")
+    return err, ctrl, err_abs
+
+
+def dd_channel_states(dev):
+    """The first states of main_path_dpd and main_path_sph (their engines
+    and packed states)."""
+    from uammd_tpu_torch.engine.dpd import GridDPD
+    from uammd_tpu_torch.engine.sph import GridSPH
+    from uammd_tpu_torch.interactors.sph import SPHParams
+
+    pos = fcc_start(N, DPD_L, 0.13, 11)
+    dpd = GridDPD.create(DPD_L, N, pos=pos, device=dev, **DPD_KW)
+    g_dpd = dpd.init(pos, vel=zero_momentum(N, math.sqrt(DPD_KW["temperature"]), 12))
+    pos = fcc_start(N, SPH_L, 0.05, 13)
+    sph = GridSPH.create(SPH_L, N, SPHParams(**SPH_KW), dt=SPH_DT, pos=pos, device=dev)
+    g_sph = sph.init(pos, vel=zero_momentum(N, SPH_V0, 14))
+    return (dpd, g_dpd), (sph, g_sph)
+
+
+def dd_kernel_checks(dev, melted):
+    """dd_kernel_checks: #6 halo_z, #8, #1 and #2 (DPD, SPH density and
+    force) in their halo modes against their plain versions, each with a
+    control that must fail."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+
+    out = {}
+    pos, vel = dd_clump_system()
+    step, st, spec, _ = dd2_setup(dev, pos, DD_SHARDS, vel=vel, temperature=0.0, box=48.0,
+                                  n=2400, n_strag=24, dt=0.05)
+    check(sum(int((s > 0.5).sum()) for s in st.spidf) > 0, "clump system: stragglers present")
+    out["newton_halo_clump"] = check_newton_halo(step, st, "clump system 4 shards")
+    out["fold_halo_clump"] = check_fold_halo(step, st, "clump system 4 shards")
+    step, st, spec, _ = dd2_setup(dev, melted, DD_SHARDS, temperature=0.0)
+    out["newton_halo_2^20"] = check_newton_halo(step, st, "2^20 liquid 4 shards", control=True)
+    out["fold_halo_2^20"] = check_fold_halo(step, st, "2^20 liquid 4 shards", control=True)
+    out["dd2_spec"] = list(step.local_spec.array_shape)
+    del step, st
+    spec1 = layout.choose_spec(BOX, N, 2.5, pos=melted, nz_multiple=DD_SHARDS)
+    gs1 = layout.pack(spec1, melted, device=dev)
+    out["pair_force_halo"] = check_pair_force_halo(gs1, "2^20 liquid shard 0")
+    del gs1
+    (dpd, g_dpd), (sph, g_sph) = dd_channel_states(dev)
+    a = dpd_args(dpd, g_dpd)
+    out["dpd_halo"] = check_functor_halo(dpd.spec, dpd.kern.fn, a[:3], a[3:],
+                                         "DPD first state shard 0")
+    a_rho, a_f = sph_args(sph, g_sph)
+    out["sph_density_halo"] = check_functor_halo(sph.spec, sph.rho_kern.fn, a_rho[:3],
+                                                 a_rho[3:], "SPH first state shard 0")
+    info = {}
+    out["sph_force_halo"] = check_functor_halo(sph.spec, sph.f_kern.fn, a_f[:3], a_f[3:],
+                                               "SPH first state shard 0", info=info)
+    out["sph_force_halo_info"] = info
+    del dpd, g_dpd, sph, g_sph, a, a_rho, a_f
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "dd_kernel_checks", "ok": True, **out,
+                      "slot_tol": SLOT_TOL, "channel_tol": CHANNEL_TOL,
+                      "fold_halo": "bit-equal"}), flush=True)
+    return out
+
+
+def dd_force_parity(dev, melted):
+    """dd_force_parity: the assembled DD force on one state against the
+    single-chip engine's folded force (DD2 on 1 and 4 shards of the melted
+    liquid and on 8 shards of the clump system, the straggler forces in the
+    shard lists' order) and DD v1 against GridMD's #1 force, within
+    DD_FORCE_TOL x max|f|."""
+    import torch
+    from uammd_tpu_torch.engine import layout, md, pair_kernel
+    from uammd_tpu_torch.parallel.domain import halo_extend
+
+    out = {}
+    pos, vel = dd_clump_system()
+    # the melted liquid has (almost) no stragglers; the clump system on 8
+    # shards (2 rows a shard) puts its stragglers next to a shard boundary
+    cases = [(1, dict(pos=melted)), (DD_SHARDS, dict(pos=melted)),
+             (8, dict(pos=pos, vel=vel, box=48.0, n=2400, n_strag=24, dt=0.05))]
+    for n_shards, kw in cases:
+        step, st, spec, _ = dd2_setup(dev, kw.pop("pos"), n_shards, temperature=0.0, **kw)
+        fx, fy, fz, sf = step.compute_forces(st.x, st.y, st.z, st.pidf, st.spos, st.spidf)
+        ref = [torch.cat(a) for a in (st.fx, st.fy, st.fz)]
+        got = [torch.cat(a) for a in (fx, fy, fz)]
+        m = torch.cat(st.pidf) > 0.5
+        fmax = max(float(a[m].abs().max()) for a in ref)
+        err = max(float((a[m] - b[m]).abs().max()) for a, b in zip(ref, got)) / fmax
+        serr = max(float((a - b).abs().max()) for a, b in zip(st.sforce, sf)) / fmax
+        n_strag = sum(int((s > 0.5).sum()) for s in st.spidf)
+        check(err < DD_FORCE_TOL and serr < DD_FORCE_TOL,
+              f"DD2 {n_shards} shards: force vs single chip {err:.3g}, stragglers {serr:.3g} "
+              f"< {DD_FORCE_TOL}")
+        name = f"dd2_{n_shards}" if n_shards != 8 else "dd2_8_clump"
+        out[name] = {"rel_err": err, "strag_rel_err": serr, "stragglers": n_strag,
+                     "max_f": fmax}
+        del step, st, fx, fy, fz, ref, got
+    spec1 = layout.choose_spec(BOX, N, 2.5, pos=melted, nz_multiple=DD_SHARDS)
+    gs1 = layout.pack(spec1, melted, device=dev)
+    ref = pair_kernel.make_pair_force_kernel(spec1, md.lj_g())(gs1.x, gs1.y, gs1.z)
+    local, nzl = dd_halo_spec(spec1, DD_SHARDS)
+    kern = pair_kernel.make_pair_force_kernel(local, md.lj_g(), periodic_z=False)
+    L = spec1.box_size[2]
+    shards = [[a[i * nzl:(i + 1) * nzl] for i in range(DD_SHARDS)] for a in (gs1.x, gs1.y, gs1.z)]
+    ext = [halo_extend(shards[0]), halo_extend(shards[1]), halo_extend(shards[2], -L, L)]
+    got = [torch.cat([kern(ext[0][i], ext[1][i], ext[2][i])[c][1:-1] for i in range(DD_SHARDS)])
+           for c in range(3)]
+    err = rel_force_err(ref, got, gs1.mask)
+    check(err < DD_FORCE_TOL, f"DD v1 4 shards: force vs GridMD's #1 {err:.3g} < {DD_FORCE_TOL}")
+    out["dd_v1_4"] = {"rel_err": err}
+    print(json.dumps({"phase": "dd_force_parity", "ok": True, **out, "tol": DD_FORCE_TOL}),
+          flush=True)
+    return out
+
+
+def dd_counters() -> dict:
+    from uammd_tpu_torch.engine import kernel2, pair_kernel, rebin_kernel, update_kernel
+
+    return {"newton_pair_halo": kernel2.NEWTON_PAIR_HALO, "fold_halo": kernel2.FOLD_HALO,
+            "gj_update": update_kernel.GJ_UPDATE, "newton_pair": kernel2.NEWTON_PAIR,
+            "fold": kernel2.FOLD, "gj_fold_update": update_kernel.GJ_FOLD_UPDATE,
+            "separable_rebin": rebin_kernel.SEP_REBIN,
+            "pair_force_halo": pair_kernel.PAIR_FORCE_HALO,
+            "pair_force": pair_kernel.PAIR_FORCE,
+            "pair_channel_dpd_halo": pair_kernel.PAIR_CHANNEL_DPD_HALO,
+            "pair_channel_sph_density_halo": pair_kernel.PAIR_CHANNEL_SPH_DENSITY_HALO,
+            "pair_channel_sph_force_halo": pair_kernel.PAIR_CHANNEL_SPH_FORCE_HALO}
+
+
+def dd2_temperature(step, st, dt=0.01, mass=1.0) -> float:
+    """The kinetic temperature of a sharded v2 state: v = w + (dt / 2m) f
+    on the grid slots and the straggler rows."""
+    import numpy as np
+    import torch
+
+    hv = float(np.float32(0.5 * dt / mass))
+    ke = torch.zeros((), dtype=torch.float64, device=st.x[0].device)
+    for i in range(step.n_dev):
+        m = (st.pidf[i] > 0.5).to(torch.float32)
+        for w, f in ((st.wx, st.fx), (st.wy, st.fy), (st.wz, st.fz)):
+            ke += (((w[i] + hv * f[i]) * m) ** 2).double().sum()
+        if step.S:
+            sm = (st.spidf[i] > 0.5)[:, None]
+            ke += (((st.svelw[i] + hv * st.sforce[i]) * sm) ** 2).double().sum()
+    return float(0.5 * mass * ke) * 2.0 / (3.0 * N)
+
+
+def dd_host_reads(step_fn, holder, steps, rebins_of):
+    """Host reads of ``steps`` single steps, split into steps without and
+    with a rebin: (reads per plain step, [reads of each rebin step])."""
+    plain, rebin = [], []
+    for _ in range(steps):
+        r0 = rebins_of()
+        reads = host_reads(lambda: holder.__setitem__(0, step_fn(holder[0])), 1)
+        (rebin if rebins_of() > r0 else plain).append(len(reads))
+    return plain, rebin
+
+
+def main_path_dd2(dev, card, melted, n_shards):
+    """main_path_dd2 on ``n_shards``: DD_SETTLE + DD_TIMED steps from the
+    melted liquid, with the launch counts zeroed just before."""
+    import torch
+    from uammd_tpu_torch.parallel.domain2 import gather_md2_state
+
+    counted = dd_counters()
+    t0 = time.perf_counter()
+    step, st, spec, _ = dd2_setup(dev, melted, n_shards)
+    setup_s = time.perf_counter() - t0
+    for k in counted.values():
+        k.launches = 0
+    rebin_steps = []
+    for k in range(DD_SETTLE + DD_TIMED):
+        if k == DD_SETTLE:
+            torch.cuda.synchronize()
+            before = {name: c.launches for name, c in counted.items()}
+            t0 = time.perf_counter()
+        r0 = step.rebins
+        st = step(st)
+        if step.rebins > r0:
+            rebin_steps.append(k)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    timed = {k: launches[k] - before[k] for k in counted}
+    steps = DD_SETTLE + DD_TIMED
+    what = f"DD2 {n_shards} shards"
+    ovf = [float(o) for o in st.ovf]
+    check(max(ovf) == 0.0, f"{what}: no overflow and every particle kept (ovf {ovf})")
+    n_kept = sum(int((p > 0.5).sum()) + int((s > 0.5).sum()) for p, s in zip(st.pidf, st.spidf))
+    check(n_kept == N, f"{what}: the count audit: {n_kept} == {N}")
+    t_meas = dd2_temperature(step, st)
+    check(math.isfinite(t_meas) and abs(t_meas - TEMPERATURE) < 0.2 * TEMPERATURE,
+          f"{what}: temperature {t_meas:.4f} within 20 % of {TEMPERATURE}")
+    pos, vel = gather_md2_state(st, spec, N)
+    check(bool(torch.isfinite(torch.from_numpy(pos)).all() and
+               torch.isfinite(torch.from_numpy(vel)).all()), f"{what}: state finite")
+    for k in ("newton_pair_halo", "fold_halo", "gj_update"):
+        check(launches[k] == n_shards * steps,
+              f"{what}: {k} launched {launches[k]} == {n_shards} x {steps} times")
+    for k in ("newton_pair", "fold", "gj_fold_update"):
+        check(launches[k] == 0, f"{what}: {k} never launched ({launches[k]})")
+    check(len(rebin_steps) >= 1, f"{what}: rebinned on drift ({len(rebin_steps)} steps)")
+    if n_shards == 1:
+        check(launches["separable_rebin"] == len(rebin_steps),
+              f"{what}: #5 launched on each rebin step ({launches['separable_rebin']})")
+    else:
+        check(launches["separable_rebin"] == 0, f"{what}: the two-sort rebin, not #5")
+    holder = [st]
+    plain_reads, rebin_reads = dd_host_reads(step, holder, HOST_READ_STEPS,
+                                             lambda: step.rebins)
+    check(plain_reads and max(plain_reads) <= 1,
+          f"{what}: {plain_reads} host reads per step outside rebins")
+    # a rebin step forced by offsetting the drift references
+    st = holder[0]
+    thr = 10 * spec.drift_threshold
+    holder[0] = st.replace(rx=[r + thr for r in st.rx])
+    plain2, rebin2 = dd_host_reads(step, holder, 1, lambda: step.rebins)
+    check(rebin2, f"{what}: the offset references force a rebin")
+    ms = 1e3 * timed_s / DD_TIMED
+    rec = {"phase": f"main_path_dd2_{n_shards}", "n": N, "box": BOX, "shards": n_shards,
+           "card": card, "spec": list(spec.array_shape),
+           "shard_spec": list(step.local_spec.array_shape), "n_strag_per_shard": N_STRAG,
+           "noise": "bm (#11)", "fast_recip": False, "settle_steps": DD_SETTLE,
+           "timed_steps": DD_TIMED, "setup_seconds": setup_s, "timed_seconds": timed_s,
+           "ms_per_step": ms, "particle_steps_per_s": N * DD_TIMED / timed_s,
+           "temperature": t_meas, "particles_kept": n_kept, "ovf": ovf,
+           "stragglers": sum(int((s > 0.5).sum()) for s in st.spidf),
+           "rebin": "separable #5" if n_shards == 1 else "two-sort with migration",
+           "rebin_steps": rebin_steps, "launches": launches, "timed_launches": timed,
+           "timed_launches_per_step": {k: v / DD_TIMED for k, v in timed.items()},
+           "host_reads_per_plain_step": plain_reads + plain2,
+           "host_reads_per_rebin_step": rebin_reads + rebin2,
+           "note": "all shards on one card: the exchanges are device-local copies"}
+    print(json.dumps(rec), flush=True)
+    return {"step": step, "st": holder[0], "spec": spec, "ms": ms, "launches": launches,
+            "timed": timed, "rebin_steps": rebin_steps}
+
+
+def dd2_trajectory_parity(dev, melted):
+    """DD2 on 4 shards against the single-chip unfused engine at T = 0 from
+    one state (velocities 1.5^0.5 N(0, 1) of zero net momentum), with a
+    rebin forced at step 1 on both: positions and velocities by pid within
+    DD_TRAJ_TOL after 2 steps; after DD_TRAJ_STEPS printed, not gated. A
+    second single-chip run from the same state gives the engine's own
+    run-to-run gap (the Newton kernel's float atomics), printed beside."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.parallel.domain2 import gather_md2_state
+
+    vel = zero_momentum(N, math.sqrt(TEMPERATURE), 17)
+    step, st, spec, md = dd2_setup(dev, melted, DD_SHARDS, vel=vel, temperature=0.0)
+    off = 10 * spec.drift_threshold
+    st = st.replace(rx=[r + off for r in st.rx])
+    # the single-chip runs start from the sharded state's own forces
+    gs0 = md.init(melted, vel=vel, seed=1)
+    f0 = [torch.cat(a) for a in (st.fx, st.fy, st.fz)]
+    w0 = [torch.cat(a) for a in (st.wx, st.wy, st.wz)]
+    runs = [gs0.replace(fx=f0[0], fy=f0[1], fz=f0[2], vx=w0[0], vy=w0[1], vz=w0[2],
+                        ref_x=gs0.ref_x + off) for _ in range(2)]
+    gaps, spread = [], []
+    r0 = step.rebins
+
+    def pos_vel(gs):
+        p, w, _ = (t.cpu().numpy() for t in layout.unpack(gs))
+        return p, w
+
+    def gap(a, b):
+        d = a[0] - b[0]
+        d -= BOX * np.round(d / BOX)
+        return float(np.abs(d).max()), float(np.abs(a[1] - b[1]).max())
+
+    for k in range(DD_TRAJ_STEPS):
+        runs = [md.step(g) for g in runs]
+        st = step(st)
+        if k == 0:
+            check(step.rebins == r0 + 1 and torch.equal(runs[0].ref_x, runs[0].x),
+                  "DD2 trajectory: both rebin at step 1")
+        if k in (0, 1, DD_TRAJ_STEPS - 1):
+            one, two = pos_vel(runs[0]), pos_vel(runs[1])
+            dd = gather_md2_state(st, spec, N)
+            gaps.append(gap(dd, one))
+            spread.append(gap(two, one))
+    rec = {"phase": "dd2_trajectory_parity", "shards": DD_SHARDS,
+           "temperature": 0.0, "forced_rebin_step": 1, "tol": DD_TRAJ_TOL,
+           "max_abs_pos_vel_after_1": gaps[0], "max_abs_pos_vel_after_2": gaps[1],
+           f"max_abs_pos_vel_after_{DD_TRAJ_STEPS}": gaps[2],
+           "single_chip_run_to_run_after_1_2_and_last": spread,
+           "note": "the liquid is chaotic: the 20-step gap is printed, not gated "
+                   "(tests/test_domain2.py:66-72)"}
+    print(json.dumps(rec), flush=True)
+    check(max(gaps[1]) < DD_TRAJ_TOL,
+          f"DD2 trajectory: after 2 steps |dpos|, |dvel| {gaps[1]} < {DD_TRAJ_TOL}")
+    return rec
+
+
+def dd_channel_path(what, step, st, counted, per_step, t_fn=None):
+    """DDC_SETTLE + DDC_TIMED steps of a v1 / DPD / SPH DD step with the
+    launch counts zeroed just before; ``t_fn(state)`` (0-d on the card) is
+    averaged over the timed steps. Gates: no overflow, count = N, finite
+    state, ``per_step`` kernels launched once per shard per step."""
+    import torch
+
+    for k in counted.values():
+        k.launches = 0
+    for _ in range(DDC_SETTLE):
+        st = step(st)
+    torch.cuda.synchronize()
+    r0 = step.rebins
+    t_sum = torch.zeros((), dtype=torch.float64, device=st.x[0].device)
+    t0 = time.perf_counter()
+    for _ in range(DDC_TIMED):
+        st = step(st)
+        if t_fn is not None:
+            t_sum += t_fn(st)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    steps = DDC_SETTLE + DDC_TIMED
+    ovf = [float(o) for o in st.ovf]
+    check(max(ovf) == 0.0, f"{what}: no overflow and every particle kept (ovf {ovf})")
+    n_kept = sum(int((p > 0.5).sum()) for p in st.pidf)
+    check(n_kept == N, f"{what}: count {n_kept} == {N}")
+    check(all(bool(a.isfinite().all()) for k in ("x", "y", "z", "vx", "vy", "vz")
+              for a in getattr(st, k)), f"{what}: positions and velocities finite")
+    for k, per in per_step.items():
+        check(launches[k] == per * DD_SHARDS * steps,
+              f"{what}: {k} launched {launches[k]} == {per} x {DD_SHARDS} x {steps}")
+    mom = [sum(float(a.double().sum()) for a in getattr(st, k)) / N for k in ("vx", "vy", "vz")]
+    return {"st": st, "ms": 1e3 * timed_s / DDC_TIMED, "timed_s": timed_s,
+            "launches": launches, "rebins_timed": step.rebins - r0, "momentum": mom,
+            "t_mean": float(t_sum) / DDC_TIMED if t_fn is not None else None,
+            "particles_kept": n_kept, "ovf": ovf}
+
+
+def dd_kinetic_t(st, mass=1.0):
+    import torch
+
+    ke = sum(((a.double() ** 2).sum() for k in ("vx", "vy", "vz") for a in getattr(st, k)),
+             torch.zeros((), dtype=torch.float64, device=st.x[0].device))
+    return ke * mass / (3.0 * N)
+
+
+def main_path_dd_channels(dev, card, melted):
+    """main_path_dd_v1, main_path_dd_dpd and main_path_dd_sph on 4 shards
+    at full size; returns their records (with the final states)."""
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine import md as md_mod
+    from uammd_tpu_torch.engine import pair_kernel
+    from uammd_tpu_torch.parallel import domain
+
+    counted = dd_counters()
+    mesh = dd_mesh(dev, DD_SHARDS)
+    runs = {}
+    # v1
+    spec = layout.choose_spec(BOX, N, 2.5, pos=melted, nz_multiple=DD_SHARDS)
+    eng = md_mod.GridMD(spec=spec, force_kernel=pair_kernel.make_pair_force_kernel(
+        spec, md_mod.lj_g()), dt=0.01, temperature=TEMPERATURE, friction=1.0, mass=1.0,
+        device=dev)
+    st = domain.shard_grid_state2(eng.init(melted, seed=2), mesh, seed=2)
+    step = domain.make_domain_md_step2(mesh, spec, dt=0.01, temperature=TEMPERATURE,
+                                       friction=1.0, n_total=N)
+    run = dd_channel_path("DD v1", step, st, counted, {"pair_force_halo": 1})
+    check(run["launches"]["pair_force"] == 0, "DD v1: the periodic #1 never launched")
+    t = float(dd_kinetic_t(run["st"]))
+    check(abs(t - TEMPERATURE) < 0.2 * TEMPERATURE,
+          f"DD v1: temperature {t:.4f} within 20 % of {TEMPERATURE}")
+    runs["v1"] = dict(run, temperature=t, spec=spec, step=step)
+    # DPD
+    (dpd, g_dpd), (sph, g_sph) = dd_channel_states(dev)
+    check(dpd.spec.shape[2] % DD_SHARDS == 0, f"DPD nz {dpd.spec.shape[2]} divides the mesh")
+    step = domain.make_domain_dpd_step(mesh, dpd.spec, n_total=N, **DPD_KW)
+    run = dd_channel_path("DD DPD", step, domain.shard_channel_state(g_dpd, mesh), counted,
+                          {"pair_channel_dpd_halo": 1}, t_fn=dd_kinetic_t)
+    check(abs(run["t_mean"] - 1.0) < DPD_T_TOL,
+          f"DD DPD: mean kinetic T {run['t_mean']:.4f} within {DPD_T_TOL:.0%} of 1")
+    check(max(abs(p) for p in run["momentum"]) < MOMENTUM_TOL,
+          f"DD DPD: |total momentum| / N {run['momentum']} < {MOMENTUM_TOL}")
+    runs["dpd"] = dict(run, spec=dpd.spec, step=step, md=dpd)
+    # SPH
+    check(sph.spec.shape[2] % DD_SHARDS == 0, f"SPH nz {sph.spec.shape[2]} divides the mesh")
+    step = domain.make_domain_sph_step(mesh, sph.spec, sph.params, dt=SPH_DT, n_total=N)
+    run = dd_channel_path("DD SPH", step, domain.shard_channel_state(g_sph, mesh), counted,
+                          {"pair_channel_sph_density_halo": 1, "pair_channel_sph_force_halo": 1})
+    check(max(abs(p) for p in run["momentum"]) < MOMENTUM_TOL,
+          f"DD SPH: |total momentum| / N {run['momentum']} < {MOMENTUM_TOL}")
+    runs["sph"] = dict(run, spec=sph.spec, step=step, md=sph)
+    for name, r in runs.items():
+        print(json.dumps({
+            "phase": f"main_path_dd_{name}", "n": N, "shards": DD_SHARDS, "card": card,
+            "spec": list(r["spec"].array_shape), "settle_steps": DDC_SETTLE,
+            "timed_steps": DDC_TIMED, "timed_seconds": r["timed_s"], "ms_per_step": r["ms"],
+            "particle_steps_per_s": N * DDC_TIMED / r["timed_s"],
+            "temperature": r.get("temperature"), "temperature_mean_timed": r["t_mean"],
+            "momentum_per_particle": r["momentum"], "particles_kept": r["particles_kept"],
+            "ovf": r["ovf"], "rebins_timed": r["rebins_timed"], "launches": r["launches"],
+            "note": "all shards on one card: the exchanges are device-local copies"}),
+            flush=True)
+    return runs
+
+
+def breakdown_dd2(card, dd4, dd1, unfused_ms, errs):
+    """Each part of the 4-shard DD2 step timed alone with CUDA events at the
+    path's final state (all shards), against the 1-shard run and the
+    single-chip unfused step; returns the kernels-line rows of #6 halo_z
+    and #8."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2, layout
+    from uammd_tpu_torch.parallel.domain2 import gather_md2_state
+    from uammd_tpu_torch.parallel.mesh import perm_up, pmax, ppermute
+
+    step, st, spec = dd4["step"], dd4["st"], dd4["spec"]
+    n, nzl = step.n_dev, step.nz_loc
+    ghosts = step.ghost_rows(st.x, st.y, st.z)
+    blocks = [dd2_strag_block(step, st, i) for i in range(n)]
+    args = [(st.x[i], st.y[i], st.z[i]) + ghosts[i] + (blocks[i],) for i in range(n)]
+    outs = [step.kern(*a) for a in args]
+    sends = [torch.stack([g[c][nzl - 1] for g in outs[i][1][:3] for c in range(3)])
+             for i in range(n)]
+    rec = ppermute(sends, perm_up(n))
+    recvs = [[rec[i][k][None] for k in range(9)] for i in range(n)]
+    spid = [s.to(torch.int32) - 1 for s in st.spidf]
+    t = {
+        "newton_pair_halo": cuda_ms(lambda: [step.kern(*a) for a in args], reps=10),
+        "exchanges": cuda_ms(lambda: (step.ghost_rows(st.x, st.y, st.z),
+                                      ppermute(sends, perm_up(n))), reps=20),
+        "fold_halo": cuda_ms(lambda: [step.fold(outs[i][0], outs[i][1], recvs[i])
+                                      for i in range(n)], reps=20),
+        "gj_update": cuda_ms(lambda: [step.upd(
+            st.x[i], st.y[i], st.z[i], st.wx[i], st.wy[i], st.wz[i], st.fx[i], st.fy[i],
+            st.fz[i], st.rx[i], st.ry[i], st.rz[i], st.stepc[i],
+            (st.spos[i], st.svelw[i], st.sforce[i], spid[i])) for i in range(n)], reps=20),
+        "strag_row_pass": cuda_ms(lambda: [step.strag_row_pass(
+            st.x[i][0], st.y[i][0], st.z[i][0], st.spos[i], st.spidf[i] > 0.5)
+            for i in range(n) for _ in range(2)], reps=10),
+        "ss_forces": cuda_ms(lambda: [step.ss_forces(
+            st.spos[i], st.spidf[i] > 0.5, torch.cat([st.spos[i]] * 3),
+            torch.cat([st.spidf[i] > 0.5] * 3)) for i in range(n)], reps=10),
+        "compute_forces": cuda_ms(lambda: step.compute_forces(
+            st.x, st.y, st.z, st.pidf, st.spos, st.spidf), reps=10),
+        "rebin": cuda_ms(lambda: step._sort_rebin(
+            {k: getattr(st, k) for k in ("x", "y", "z", "wx", "wy", "wz")}, st.pidf, st.spos,
+            st.svelw, st.spidf), reps=3, warmup=1),
+    }
+    dinfs = [a.abs().max() for a in st.wx]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        float(pmax(dinfs)[0])
+    t["drift_read"] = 1e3 * (time.perf_counter() - t0) / 20
+    calls = {k: 1.0 for k in t}
+    calls["rebin"] = len([s for s in dd4["rebin_steps"] if s >= DD_SETTLE]) / DD_TIMED
+    by_part = {k: t[k] * calls[k] for k in t if k != "compute_forces"}
+    print(json.dumps({
+        "phase": "breakdown_dd2", "card": card, "shards": n, "ms_per_step": dd4["ms"],
+        "ms_per_step_1_shard": dd1["ms"], "ms_per_step_single_chip_unfused": unfused_ms,
+        "ms_per_step_all_shards": t, "calls_per_step": calls, "ms_per_step_by_part": by_part,
+        "shares": {k: v / dd4["ms"] for k, v in by_part.items()},
+        "rest_ms": dd4["ms"] - sum(by_part.values()),
+        "note": "CUDA events on an idle card at the 4-shard path's final state, each part "
+                "over all shards; compute_forces holds the exchanges, #6, #8 and the "
+                "straggler passes; drift_read = host clock around the pmax and its read; "
+                "the rebin (two-sort, host reads of _bin_columns' masks) on that state"}),
+        flush=True)
+    # the kernels-line rows: one step's launches over all shards
+    gs = layout.pack(spec, gather_md2_state(st, spec, N)[0], device=st.x[0].device)
+    pairs, cut = stencil_pairs(gs)
+    slot = 4 * spec.n_slots
+    S = step.S
+    plain_newton = cuda_ms(lambda: [kernel2.newton_pair_plain(
+        step.local_spec, step.kern.g_fn, *a[:3], a[6], ghost=a[3:6]) for a in args],
+        reps=2, warmup=1)
+    plain_fold = cuda_ms(lambda: [kernel2.fold_reactions_halo_plain(outs[i][0], outs[i][1],
+                                                                    recvs[i])
+                                  for i in range(n)], reps=5, warmup=1)
+    ghost_bytes = 3 * 4 * n * spec.n_slots // spec.shape[2]
+    newton_ops_ms = 1e3 * (OPS_PAIR_TEST * pairs + OPS_PAIR_FORCE * cut) / PEAK_FP32_FLOPS
+    newton_bytes_ms = 1e3 * (18 * slot + ghost_bytes + n * 28 * S) / PEAK_HBM_BYTES
+    fold_bytes_ms = 1e3 * (18 * slot + 3 * ghost_bytes) / PEAK_HBM_BYTES
+    src = "uammd_tpu_torch/engine/csrc/"
+    note = (f"ms, plain_ms and bound_ms cover one step's {n} launches (one per shard) at "
+            "the 4-shard DD2 path's final state")
+    return [
+        {"name": "newton_pair_halo", "route": "cuda", "source": src + "newton_pair.cu",
+         "replaces": "uammd_tpu/engine/kernel2.py:447 (halo_z, :74-134)",
+         "launches": dd4["launches"]["newton_pair_halo"],
+         "max_abs_err": errs["newton_halo_abs"], "ms": t["newton_pair_halo"],
+         "plain_ms": plain_newton, "bound_ms": max(newton_ops_ms, newton_bytes_ms),
+         "bound_by": "operations" if newton_ops_ms > newton_bytes_ms else "bytes",
+         "library_ms": None, "launches_1_shard_path": dd1["launches"]["newton_pair_halo"],
+         "stencil_pairs": pairs, "stencil_pairs_in_cutoff": cut, "note": note},
+        {"name": "fold_halo", "route": "cuda", "source": src + "fold.cu",
+         "replaces": "uammd_tpu/engine/kernel2.py:613", "launches": dd4["launches"]["fold_halo"],
+         "max_abs_err": errs["fold_halo_abs"], "ms": t["fold_halo"], "plain_ms": plain_fold,
+         "bound_ms": fold_bytes_ms, "bound_by": "bytes", "library_ms": None,
+         "launches_1_shard_path": dd1["launches"]["fold_halo"], "note": note},
+    ]
+
+
+def dd_channel_rows(card, runs, checks):
+    """The kernels-line rows of #1's and #2's halo modes at the v1, DPD and
+    SPH DD paths' final states (one step's launches over all shards)."""
+    import torch
+    from uammd_tpu_torch.engine import layout, md as md_mod, pair_kernel
+    from uammd_tpu_torch.parallel.domain import halo_extend
+
+    rows = []
+    note = (f"ms, plain_ms and bound_ms cover one step's {DD_SHARDS} launches per sweep at "
+            "the 4-shard path's final state; pairs counted on the whole grid")
+    # v1
+    r = runs["v1"]
+    st, spec = r["st"], r["spec"]
+    L = spec.box_size[2]
+    local, nzl = dd_halo_spec(spec, DD_SHARDS)
+    ext = [halo_extend(st.x), halo_extend(st.y), halo_extend(st.z, -L, L)]
+    kern = pair_kernel.make_pair_force_kernel(local, md_mod.lj_g(), periodic_z=False)
+    ms = cuda_ms(lambda: [kern(ext[0][i], ext[1][i], ext[2][i]) for i in range(DD_SHARDS)],
+                 reps=10)
+    plain = cuda_ms(lambda: [pair_kernel.pair_force_plain(local, md_mod.lj_g(), ext[0][i],
+                                                          ext[1][i], ext[2][i],
+                                                          periodic_z=False)
+                             for i in range(DD_SHARDS)], reps=1, warmup=1)
+    gs = layout.pack(spec, torch.cat([torch.stack([a.reshape(-1) for a in
+                                                   (st.x[i], st.y[i], st.z[i])], -1)
+                                      for i in range(DD_SHARDS)])[
+        torch.cat(st.pidf).reshape(-1) > 0.5], device=st.x[0].device)
+    pairs, cut = stencil_pairs(gs)
+    ops_ms = 1e3 * (OPS_PAIR_TEST * pairs + OPS_PAIR_FORCE * cut) / PEAK_FP32_FLOPS
+    bytes_ms = 1e3 * 6 * 4 * DD_SHARDS * local.n_slots / PEAK_HBM_BYTES
+    rows.append({"name": "pair_force_halo", "route": "cuda",
+                 "source": "uammd_tpu_torch/engine/csrc/pair_force.cu",
+                 "replaces": "uammd_tpu/engine/pair_kernel.py:272 (periodic_z=False, :99-102)",
+                 "launches": r["launches"]["pair_force_halo"],
+                 "max_abs_err": checks["pair_force_halo"][2], "ms": ms, "plain_ms": plain,
+                 "bound_ms": max(ops_ms, bytes_ms),
+                 "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "library_ms": None,
+                 "rel_err": checks["pair_force_halo"][0],
+                 "control_ghost_shift_dropped": checks["pair_force_halo"][1],
+                 "stencil_pairs": pairs, "stencil_pairs_in_cutoff": cut, "note": note})
+    del ext, gs
+    # DPD and SPH
+    for name, sweeps in (("dpd", (("pair_channel_dpd_halo", "dpd_halo", OPS_DPD, 10,
+                                   OPS_DPD_INT),)),
+                         ("sph", (("pair_channel_sph_density_halo", "sph_density_halo",
+                                   OPS_SPH_DENSITY, 5, 0),
+                                  ("pair_channel_sph_force_halo", "sph_force_halo",
+                                   OPS_SPH_FORCE, 11, 0)))):
+        r = runs[name]
+        st, spec, eng = r["st"], r["spec"], r["md"]
+        L = spec.box_size[2]
+        local, nzl = dd_halo_spec(spec, DD_SHARDS)
+        xyz = [halo_extend(st.x), halo_extend(st.y), halo_extend(st.z, -L, L)]
+        v = [halo_extend(a) for a in (st.vx, st.vy, st.vz)]
+        pe = halo_extend(st.pidf)
+        m = [(p > 0.5).to(torch.float32) for p in pe]
+        for row_name, key, ops, n_io, int_ops in sweeps:
+            if row_name == "pair_channel_dpd_halo":
+                fn = eng.kern.fn
+                chans = [[v[0][i], v[1][i], v[2][i], pe[i] - 1.0,
+                          torch.tensor(1.0, device=m[i].device)] for i in range(DD_SHARDS)]
+                cut2 = fn.rc2
+            elif row_name == "pair_channel_sph_density_halo":
+                fn = eng.rho_kern.fn
+                chans = [[m[i] * float(eng.mass)] for i in range(DD_SHARDS)]
+                cut2 = fn.cut2
+            else:  # a uniform P / rho^2 of 0.5: the same work as the path's
+                fn = eng.f_kern.fn
+                chans = [[m[i] * 0.5, v[0][i], v[1][i], v[2][i], m[i] * float(eng.mass)]
+                         for i in range(DD_SHARDS)]
+                cut2 = fn.cut2
+            kern = pair_kernel.make_pair_channel_kernel(local, fn, periodic_z=False)
+            ms = cuda_ms(lambda: [kern(xyz[0][i], xyz[1][i], xyz[2][i], *chans[i])
+                                  for i in range(DD_SHARDS)], reps=10)
+            plain = cuda_ms(lambda: [pair_kernel.channel_plain(
+                local, fn, fn.n_out, xyz[0][i], xyz[1][i], xyz[2][i], chans[i],
+                periodic_z=False) for i in range(DD_SHARDS)], reps=1, warmup=1)
+            x, y, z = (torch.cat(getattr(st, k)) for k in ("x", "y", "z"))
+            pid = torch.cat(st.pidf).to(torch.int32) - 1
+            pairs = functor_pairs(spec, x, y, z, pid, cut2)
+            row = functor_row(row_name, "uammd_tpu/engine/pair_kernel.py:538 "
+                              "(periodic_z=False, :381-385)", r["launches"][row_name],
+                              checks[key][2], ms, plain, pairs, ops, n_io, spec,
+                              int_ops=int_ops,
+                              extra={"rel_err": checks[key][0],
+                                     "control_ghost_shift_dropped": checks[key][1],
+                                     "shape": list(local.array_shape), "note": note})
+            rows.append(row)
+        del xyz, v, pe, m
+    return rows
+
+
+def dd_phases(dev, card, melted, unfused_ms):
+    """Slice G1's phases in order; returns the kernels-line rows."""
+    import torch
+
+    checks = dd_kernel_checks(dev, melted)
+    dd_force_parity(dev, melted)
+    dd4 = main_path_dd2(dev, card, melted, DD_SHARDS)
+    dd1 = main_path_dd2(dev, card, melted, 1)
+    del dd1["st"], dd1["step"]
+    torch.cuda.empty_cache()
+    errs = {"newton_halo_abs": None, "fold_halo_abs": max(checks["fold_halo_clump"],
+                                                          checks["fold_halo_2^20"])}
+    # the Newton halo kernel's largest abs error on the path's final state
+    step, st = dd4["step"], dd4["st"]
+    ghosts = step.ghost_rows(st.x, st.y, st.z)
+    errs["newton_halo_abs"] = max(
+        max(float((a - b).abs().max()) for a, b in zip(
+            dd2_newton(step, st, i, ghosts[i]), dd2_newton(step, st, i, ghosts[i], plain=True)))
+        for i in range(step.n_dev))
+    rows = breakdown_dd2(card, dd4, dd1, unfused_ms, errs)
+    del dd4, step, st, ghosts
+    torch.cuda.empty_cache()
+    runs = main_path_dd_channels(dev, card, melted)
+    rows += dd_channel_rows(card, runs, checks)
+    del runs
+    torch.cuda.empty_cache()
+    dd2_trajectory_parity(dev, melted)
+    return rows
+
+
+def dd_only(dev, card) -> int:
+    """``--only-dd``: slice G1's phases alone (after the v1 melt), for
+    working on them; prints no result line."""
+    rows = dd_phases(dev, card, melt(dev), None)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3077,6 +3970,7 @@ def main() -> int:
     only_slice_d = "--only-slice-d" in sys.argv[1:]
     only_unfused = "--only-unfused" in sys.argv[1:]
     only_poisson = "--only-poisson" in sys.argv[1:]
+    only_dd = "--only-dd" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3106,7 +4000,7 @@ def main() -> int:
                       "sources": sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))}),
           flush=True)
     for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt", "gj_update",
-                 "rebin2"):
+                 "rebin2", "newton_pair", "fold"):
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
@@ -3118,6 +4012,8 @@ def main() -> int:
         return unfused_only(dev, card)
     if only_poisson:
         return poisson_only(dev, card)
+    if only_dd:
+        return dd_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -3446,6 +4342,9 @@ def main() -> int:
     rows += a3_rows
     e1_row, _ = poisson_main_path(dev, card, e1_checks)
     rows.append(e1_row)
+    # slice G1: the grid engines on a z-slab mesh, each path with its own
+    # zeroed launch counts
+    rows += dd_phases(dev, card, melted, a3["ms"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

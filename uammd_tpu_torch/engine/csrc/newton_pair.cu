@@ -29,6 +29,10 @@
 // row) with the reaction added into home, instead of both directions.
 // cellcenter: stragglers are min-imaged once against the home cell centre
 // (kernel2.py:314-352) instead of per pair (:353-378).
+// Halo mode (entry uammd_newton_pair_halo, kernel2.py:74-134 halo_z=True):
+// the z-slab of parallel/domain2.py; the top home row stages its dz = +1
+// rows from the caller's ghost row instead of row 0 + Lz. The same work per
+// thread as the periodic kernel, which is instantiated apart (kHalo false).
 //
 // Rounding: r2 = (dx*dx + dy*dy) + dz*dz and the radial are written with
 // __fmul_rn/__fadd_rn/__fdiv_rn so nvcc cannot contract them into FMAs:
@@ -82,10 +86,18 @@ __device__ __forceinline__ int wrap_index(int s, int n, float L, float* shift) {
   return s;
 }
 
-template <bool kApprox>
+// kHalo: the z-slab mode of parallel/domain2.py (kernel2.py:74-84,
+// halo_z=True). z is not periodic: the top home row's dz = +1 candidates are
+// the ghost row gx, gy, gz ([1, nyb, CAP, NLANE], the up neighbour's first
+// home row with z already image-shifted by the caller), and no Lz shift is
+// applied. The reactions onto the ghost row land in the (1, dyb) groups at
+// z = nz - 1, which the caller sends up before the fold.
+template <bool kApprox, bool kHalo>
 __global__ void newton_pair_kernel(
     const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ strag,
+    const float* __restrict__ z, const float* __restrict__ gx,
+    const float* __restrict__ gy, const float* __restrict__ gz,
+    const float* __restrict__ strag,
     float* __restrict__ out, float* __restrict__ sforce, Geom g, Radial rad,
     int S, int self_half, int cellcenter) {
   extern __shared__ float smem[];  // [3 y-blocks][3 coords][kJ][nlane], [4][S]
@@ -125,7 +137,20 @@ __global__ void newton_pair_kernel(
   for (int dz = 0; dz <= 1; ++dz) {
     float shz = 0.0f;
     int sz = zc + dz;
-    if (sz >= g.nz) { sz -= g.nz; shz = g.Lz; }
+    const float* srcx = x;
+    const float* srcy = y;
+    const float* srcz = z;
+    if (sz >= g.nz) {
+      if constexpr (kHalo) {  // the ghost row, already shifted
+        srcx = gx;
+        srcy = gy;
+        srcz = gz;
+        sz = 0;
+      } else {
+        sz -= g.nz;
+        shz = g.Lz;
+      }
+    }
     for (int j0 = 0; j0 < g.cap; j0 += kJ) {
       const int nj = min(kJ, g.cap - j0);
       const int per_block = nj * nlane;
@@ -137,9 +162,9 @@ __global__ void newton_pair_kernel(
         syb = syb < 0 ? syb + g.nyb : (syb >= g.nyb ? syb - g.nyb : syb);
         const size_t src =
             (static_cast<size_t>(sz) * g.nyb + syb) * plane + static_cast<size_t>(j0) * nlane + r;
-        smem[(b * 3 + 0) * coord_stride + r] = x[src];
-        smem[(b * 3 + 1) * coord_stride + r] = y[src];
-        smem[(b * 3 + 2) * coord_stride + r] = z[src];
+        smem[(b * 3 + 0) * coord_stride + r] = srcx[src];
+        smem[(b * 3 + 1) * coord_stride + r] = srcy[src];
+        smem[(b * 3 + 2) * coord_stride + r] = srcz[src];
       }
       __syncthreads();
       if (!active) continue;
@@ -257,6 +282,28 @@ __global__ void newton_pair_kernel(
   atomicAdd(out + 2 * T + hidx, az);
 }
 
+template <bool kHalo>
+int launch(const float* x, const float* y, const float* z, const float* gx, const float* gy,
+           const float* gz, const float* strag, float* out, float* sforce, const Geom& g,
+           const Radial& rad, int S, int self_half, int cellcenter, int approx, void* stream) {
+  int rows = 512 / g.nlane;
+  rows = rows < 1 ? 1 : (rows > g.cap ? g.cap : rows);
+  const dim3 block(g.nlane, rows);
+  const dim3 grid((g.cap + rows - 1) / rows, g.nyb, g.nz);
+  const size_t smem = sizeof(float) * (9 * kJ * g.nlane + 4 * S);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (approx) {
+    newton_pair_kernel<true, kHalo><<<grid, block, smem, st>>>(
+        x, y, z, gx, gy, gz, strag, out, sforce, g, rad, S, self_half, cellcenter);
+  } else {
+    newton_pair_kernel<false, kHalo><<<grid, block, smem, st>>>(
+        x, y, z, gx, gy, gz, strag, out, sforce, g, rad, S, self_half, cellcenter);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const float* cf(void* p) { return static_cast<const float*>(p); }
+
 }  // namespace
 
 // strag: float32 [4, S] (x, y, z, valid) or null when S == 0.
@@ -267,24 +314,20 @@ extern "C" int uammd_newton_pair(void* x, void* y, void* z, void* strag, void* o
                                  float c1, float c2, float rc2, float lo,
                                  void* stream) {
   const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz};
-  const Radial rad{c1, c2, rc2, lo};
-  int rows = 512 / g.nlane;
-  rows = rows < 1 ? 1 : (rows > cap ? cap : rows);
-  const dim3 block(g.nlane, rows);
-  const dim3 grid((cap + rows - 1) / rows, nyb, nz);
-  const size_t smem = sizeof(float) * (9 * kJ * g.nlane + 4 * S);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sp = static_cast<const float*>(strag);
-  if (approx) {
-    newton_pair_kernel<true><<<grid, block, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(z), sp, static_cast<float*>(out),
-        static_cast<float*>(sforce), g, rad, S, self_half, cellcenter);
-  } else {
-    newton_pair_kernel<false><<<grid, block, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(y),
-        static_cast<const float*>(z), sp, static_cast<float*>(out),
-        static_cast<float*>(sforce), g, rad, S, self_half, cellcenter);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(cf(x), cf(y), cf(z), nullptr, nullptr, nullptr, cf(strag),
+                       static_cast<float*>(out), static_cast<float*>(sforce), g,
+                       Radial{c1, c2, rc2, lo}, S, self_half, cellcenter, approx, stream);
+}
+
+// The halo mode: gx, gy, gz float32 [1, nyb, CAP, NLANE], the ghost row.
+// The stragglers are min-imaged per pair (cell centres are not global here).
+extern "C" int uammd_newton_pair_halo(void* x, void* y, void* z, void* gx, void* gy, void* gz,
+                                      void* strag, void* out, void* sforce, int nx, int nyb,
+                                      int nz, int F, int cap, int S, int self_half, int approx,
+                                      float Lx, float Ly, float Lz, float c1, float c2,
+                                      float rc2, float lo, void* stream) {
+  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz};
+  return launch<true>(cf(x), cf(y), cf(z), cf(gx), cf(gy), cf(gz), cf(strag),
+                      static_cast<float*>(out), static_cast<float*>(sforce), g,
+                      Radial{c1, c2, rc2, lo}, S, self_half, 0, approx, stream);
 }

@@ -1,7 +1,8 @@
 // 27-stencil channel transverser over a pair functor, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel uammd_tpu/engine/pair_kernel.py:make_pair_channel_kernel
-// (pallas_call at :538): n_chan channels in, n_out sums out, periodic in z,
+// (pallas_call at :538): n_chan channels in, n_out sums out, periodic in z
+// (or, through the _halo entries, the z-slab halo mode: no Lz shift),
 // with the pair_fn chosen at compile time as a functor of
 // channel_functors.cuh (PSE near field at 1 or 2 stacked 3-vectors, DPD,
 // SPH density and force, LJ mixture and its masked form, the Poisson near
@@ -38,7 +39,7 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
                                     const float* __restrict__ uni,
                                     const float* __restrict__ strag, float* __restrict__ out,
                                     float* __restrict__ spart, pse::Geom g, Fn fn, int S,
-                                    int kJ) {
+                                    int kJ, int periodic_z) {
   constexpr int NG = Fn::NG;
   constexpr int NA = 3 + NG;
   constexpr int NO = Fn::NOUT;
@@ -87,6 +88,7 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
   for (int dz = -1; dz <= 1; ++dz) {
     float shz;
     const int sz = pse::wrap_index(zc + dz, g.nz, g.Lz, &shz);
+    if (!periodic_z) shz = 0.0f;
     for (int j0 = 0; j0 < g.cap; j0 += kJ) {
       const int nj = min(kJ, g.cap - j0);
       const int per_block = nj * nlane;
@@ -163,13 +165,13 @@ __global__ void pair_channel_kernel(const float* __restrict__ x, const float* __
 template <class Fn>
 int launch(const float* x, const float* y, const float* z, const float* ch, const float* uni,
            const float* strag, float* out, float* spart, const pse::Geom& g, const Fn& fn,
-           int S, int rows, int kJ, cudaStream_t st) {
+           int S, int rows, int kJ, cudaStream_t st, int periodic_z = 1) {
   const dim3 block(g.nlane, rows);
   const dim3 grid((g.cap + rows - 1) / rows, g.nyb, g.nz);
   const size_t smem =
       sizeof(float) * (3 * (3 + Fn::NG) * kJ * g.nlane + (Fn::kStrag ? (4 + Fn::NG) * S : 0));
   pair_channel_kernel<Fn><<<grid, block, smem, st>>>(x, y, z, ch, uni, strag, out, spart, g, fn,
-                                                      S, kJ);
+                                                      S, kJ, periodic_z);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -181,12 +183,12 @@ pse::Geom geom(int nx, int nyb, int nz, int F, int cap, float Lx, float Ly, floa
 template <class Fn>
 int launch_plain(void* x, void* y, void* z, void* ch, void* uni, void* out, int nx, int nyb,
                  int nz, int F, int cap, int rows, int kJ, float Lx, float Ly, float Lz,
-                 const Fn& fn, void* stream) {
+                 const Fn& fn, void* stream, int periodic_z) {
   return launch<Fn>(static_cast<const float*>(x), static_cast<const float*>(y),
                     static_cast<const float*>(z), static_cast<const float*>(ch),
                     static_cast<const float*>(uni), nullptr, static_cast<float*>(out), nullptr,
                     geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, 0.0f, 0.0f, 0.0f), fn, 0, rows, kJ,
-                    static_cast<cudaStream_t>(stream));
+                    static_cast<cudaStream_t>(stream), periodic_z);
 }
 
 }  // namespace
@@ -215,12 +217,22 @@ extern "C" int uammd_pair_channel(void* x, void* y, void* z, void* ch, void* str
 
 // The straggler-free functors: ch float32 [NG, T] (the grid channels),
 // uni float32 [NU] on the card (the uniform channels) or null, out [NOUT, T].
+// Each has a twin NAME_halo, the z-slab halo mode of parallel/domain.py
+// (pair_kernel.py:300, periodic_z=False): the z index wraps but takes no Lz
+// shift; the caller passes a slab extended by image-shifted ghost rows and
+// drops their outputs.
 #define UAMMD_PAIR_CHANNEL_ENTRY(NAME, FN, PARAMS)                                             \
   extern "C" int NAME(void* x, void* y, void* z, void* ch, void* uni, void* out, int nx,       \
                       int nyb, int nz, int F, int cap, int rows, int kJ, float Lx, float Ly,    \
                       float Lz, PARAMS p, void* stream) {                                      \
     return launch_plain(x, y, z, ch, uni, out, nx, nyb, nz, F, cap, rows, kJ, Lx, Ly, Lz,      \
-                        FN{p}, stream);                                                        \
+                        FN{p}, stream, 1);                                                     \
+  }                                                                                            \
+  extern "C" int NAME##_halo(void* x, void* y, void* z, void* ch, void* uni, void* out,        \
+                             int nx, int nyb, int nz, int F, int cap, int rows, int kJ,         \
+                             float Lx, float Ly, float Lz, PARAMS p, void* stream) {            \
+    return launch_plain(x, y, z, ch, uni, out, nx, nyb, nz, F, cap, rows, kJ, Lx, Ly, Lz,      \
+                        FN{p}, stream, 0);                                                     \
   }
 
 UAMMD_PAIR_CHANNEL_ENTRY(uammd_pair_channel_dpd, chan::DPDFn, chan::DPDParams)

@@ -19,6 +19,11 @@
 // drops the clamp and masks with inside = r2 < rc2 && r2 > 1e-10: the
 // radial is evaluated only inside. Eleven sums per home slot, in registers.
 //
+// Halo (:99-102, :142-146, entry uammd_pair_force_halo): the force-only mode
+// on a z-slab of parallel/domain.py, extended by one ghost row at each end
+// whose z the caller has image-shifted. The z index still wraps, but no Lz
+// shift is applied; the ghost rows' own outputs are garbage the caller drops.
+//
 // Layout: arrays are [nz, nyb, CAP, NLANE] float32; lane l = cx*F + f is
 // cell (cx, y = yb*F + f). All geometry is a runtime argument (NLANE is 128
 // at the benchmark spec but 16 or 48 at test sizes).
@@ -47,6 +52,7 @@ constexpr int kJ = 8;  // candidate rows staged per pass
 struct Geom {
   int nx, nyb, nz, F, cap, nlane;
   float Lx, Ly, Lz;
+  int periodic_z;  // 0: z-slab halo mode, the z index wraps but takes no Lz shift
 };
 
 // (dE/dr)/r of 12-6 LJ, written with one reciprocal as
@@ -111,6 +117,7 @@ __global__ void pair_force_kernel(
   for (int dz = -1; dz <= 1; ++dz) {
     float shz;
     const int sz = wrap_index(zc + dz, g.nz, g.Lz, &shz);
+    if (!g.periodic_z) shz = 0.0f;
     for (int j0 = 0; j0 < g.cap; j0 += kJ) {
       const int nj = min(kJ, g.cap - j0);
       const int per_block = nj * nlane;
@@ -217,7 +224,19 @@ extern "C" int uammd_pair_force(void* x, void* y, void* z, void* fx, void* fy,
                                 int cap, float Lx, float Ly, float Lz,
                                 float rc2, float clamp_lo, float neg24eps,
                                 float s2, void* stream) {
-  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz};
+  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, 1};
+  return launch<false>(x, y, z, fx, fy, fz, nullptr, g, rc2, clamp_lo, neg24eps, s2, 0.0f, 0.0f,
+                       stream);
+}
+
+// The halo mode of parallel/domain.py (pair_kernel.py:89, periodic_z=False):
+// x, y, z are a z-slab extended by one ghost row at each end, whose z the
+// caller has image-shifted; the caller drops the ghost rows of the output.
+extern "C" int uammd_pair_force_halo(void* x, void* y, void* z, void* fx, void* fy, void* fz,
+                                     int nx, int nyb, int nz, int F, int cap, float Lx,
+                                     float Ly, float Lz, float rc2, float clamp_lo,
+                                     float neg24eps, float s2, void* stream) {
+  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, 0};
   return launch<false>(x, y, z, fx, fy, fz, nullptr, g, rc2, clamp_lo, neg24eps, s2, 0.0f, 0.0f,
                        stream);
 }
@@ -227,7 +246,7 @@ extern "C" int uammd_pair_force_obs(void* x, void* y, void* z, void* fx, void* f
                                     void* obs, int nx, int nyb, int nz, int F, int cap, float Lx,
                                     float Ly, float Lz, float rc2, float neg24eps, float s2,
                                     float c4eps, float e_shift, void* stream) {
-  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz};
+  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, 1};
   return launch<true>(x, y, z, fx, fy, fz, obs, g, rc2, 0.0f, neg24eps, s2, c4eps, e_shift,
                       stream);
 }

@@ -29,7 +29,7 @@ import torch
 
 from ..device import resolve_device
 from .layout import GridSpec, GridState, choose_spec, pack
-from .pair_kernel import (PAIR_CHANNEL_DPD, ChannelFunctor, DPDParams,
+from .pair_kernel import (PAIR_CHANNEL_DPD, PAIR_CHANNEL_DPD_HALO, ChannelFunctor, DPDParams,
                           make_pair_channel_kernel)
 from .rebin_kernel import rebin_fast_noforce
 
@@ -77,6 +77,7 @@ class DPDPair(ChannelFunctor):
 
     n_chan, n_out, n_uniform = 5, 3, 1
     kernel = PAIR_CHANNEL_DPD
+    kernel_halo = PAIR_CHANNEL_DPD_HALO
 
     def __init__(self, rc: float, A: float, gamma: float, sigma_dt: float):
         self.rc2 = float(np.float32(rc * rc))

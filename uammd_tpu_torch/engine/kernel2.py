@@ -1,7 +1,8 @@
 """Newton's-third-law pair force with straggler rows, and the reaction fold.
 
-Port of ``uammd_tpu/engine/kernel2.py``: ``make_newton_pair_kernel`` and
-``make_fold_kernel`` (with ``fold_reactions_jnp``), ``broadcast_stragglers``
+Port of ``uammd_tpu/engine/kernel2.py``: ``make_newton_pair_kernel`` (with
+its ``halo_z`` mode), ``make_fold_kernel`` (with ``fold_reactions_jnp``),
+``make_fold_kernel_halo`` (with ``fold_reactions_halo_jnp``), ``broadcast_stragglers``
 and ``straggler_pair_forces``; and the channel forms of the PSE near field,
 ``make_newton_channel_kernel`` (#10) with ``make_fold_kernel_n`` (#9).
 
@@ -21,6 +22,13 @@ slot; their forces come back reduced to [S, 3] (the JAX kernel returns
 per-program partials that its caller sums). Straggler-straggler pairs are
 O(S^2) plain torch (``straggler_pair_forces``).
 
+The halo mode (``halo_z``) is the z-slab of ``parallel/domain2.py``: the
+spec counts one slab's home rows, z is not periodic, and the top home row
+takes its dz = +1 candidates from a ghost row (the up neighbour's first
+home row, z image-shifted by the caller). Its reactions onto the ghost row
+come back in the (1, dyb) groups at z = nz - 1; the caller sends them up,
+where the halo fold adds them at row 0 from nine ``recv`` blocks.
+
 The Newton channel kernel does the same for per-particle payload channels
 with a pair functor that returns a forward and a reverse contribution (the
 PSE near-field RPY remainder, ``pse_near.PSENear``, the only functor so
@@ -32,7 +40,8 @@ grids.
 On CUDA tensors the wrappers launch ``csrc/newton_pair.cu``,
 ``csrc/fold.cu`` and ``csrc/newton_channel.cu``; on CPU tensors they run
 ``newton_pair_plain``, ``fold_reactions_plain`` /
-``fold_reactions_n_plain`` and ``newton_channel_plain``.
+``fold_reactions_halo_plain`` / ``fold_reactions_n_plain`` and
+``newton_channel_plain``.
 """
 
 from __future__ import annotations
@@ -76,10 +85,17 @@ REACTION_GROUPS = ((1, -1), (1, 0), (1, 1), (0, 1))
 #                   lo, stream)
 NEWTON_PAIR = _build.Kernel(
     "newton_pair", "uammd_newton_pair", [_P] * 6 + [_I] * 9 + [_F] * 7)
+# uammd_newton_pair_halo(x, y, z, gx, gy, gz, strag, out, sforce, nx, nyb,
+#                        nz, F, cap, S, self_half, approx, Lx, Ly, Lz, c1,
+#                        c2, rc2, lo, stream): the halo_z mode
+NEWTON_PAIR_HALO = _build.Kernel(
+    "newton_pair", "uammd_newton_pair_halo", [_P] * 9 + [_I] * 8 + [_F] * 7)
 # uammd_fold(ins[15], out[3], nz, nyb, plane, stream)
 FOLD = _build.Kernel("fold", "uammd_fold", [_PP, _PP, _I, _I, _I])
 # uammd_fold_n(ins[5n], out[n], n, nz, nyb, plane, stream): the same source
 FOLD_N = _build.Kernel("fold", "uammd_fold_n", [_PP, _PP, _I, _I, _I, _I])
+# uammd_fold_halo(ins[15], out[3], recvs[9], nz, nyb, plane, stream)
+FOLD_HALO = _build.Kernel("fold", "uammd_fold_halo", [_PP, _PP, _PP, _I, _I, _I])
 # uammd_newton_channel(x, y, z, ch, strag, raw, spart, nv, nx, nyb, nz, F,
 #                      cap, S, rows, kJ, Lx, Ly, Lz, iLx, iLy, iLz, near, stream)
 NEWTON_CHANNEL = _build.Kernel("newton_channel", "uammd_newton_channel",
@@ -165,7 +181,7 @@ def _straggler_block(spec: GridSpec, g_fn: LJFused, xi, yi, zi, strag,
 
 
 def newton_pair_plain(spec: GridSpec, g_fn: LJFused, x, y, z, strag=None, *,
-                      strag_cellcenter: bool = False):
+                      strag_cellcenter: bool = False, ghost=None):
     """Plain PyTorch version of the Newton pair kernel.
 
     The self block is the full all-pairs block (both directions), as the
@@ -178,9 +194,17 @@ def newton_pair_plain(spec: GridSpec, g_fn: LJFused, x, y, z, strag=None, *,
     (gx, gy, gz)), sforce [S, 3] or None)``; ``strag`` is the [4, S, NLANE]
     block of ``broadcast_stragglers`` (its first lane is read). ``g_fn``
     is the fused LJ radial (``md.lj_g_fused``), which applies the cutoff
-    and the clamp itself."""
+    and the clamp itself. With ``ghost = (gx, gy, gz)`` ([1, nyb, CAP,
+    NLANE] each) it is the halo mode: the dz = +1 candidates of the top row
+    come from the ghost row, and z takes no image shift."""
     dev = x.device
     cap, F = spec.cap, spec.fold
+    nz = spec.shape[2]
+    # the candidates' source: the slab itself, or the slab with the ghost
+    # row appended as row nz (reached only by the top row's dz = +1)
+    src = (x, y, z) if ghost is None else tuple(
+        torch.cat([a, g]) for a, g in zip((x, y, z), ghost))
+    halo = dict(periodic_z=True) if ghost is None else dict(periodic_z=False, z_rows=nz + 1)
     rows = torch.arange(cap, device=dev)[None, None, :, None]
     xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
 
@@ -194,10 +218,10 @@ def newton_pair_plain(spec: GridSpec, g_fn: LJFused, x, y, z, strag=None, *,
 
     f_lane = torch.arange(spec.nlane, device=dev) % F
     for (dz, dy, dx) in POS_OFFSETS:
-        zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
-        cx = x[zs, ybs, rows, lane] + shx
-        cy = y[zs, ybs, rows, lane] + shy
-        cz = z[zs, ybs, rows, lane] + shz
+        zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev, **halo)
+        cx = src[0][zs, ybs, rows, lane] + shx
+        cy = src[1][zs, ybs, rows, lane] + shy
+        cz = src[2][zs, ybs, rows, lane] + shz
         dxv = cx[:, :, None, :, :] - xi
         dyv = cy[:, :, None, :, :] - yi
         dzv = cz[:, :, None, :, :] - zi
@@ -227,40 +251,59 @@ def newton_pair_plain(spec: GridSpec, g_fn: LJFused, x, y, z, strag=None, *,
 
 class NewtonPairKernel:
     """``force(x, y, z[, strag]) -> (home, groups, sforce)`` for one
-    ``GridSpec`` (see ``newton_pair_plain`` for the contract).
+    ``GridSpec`` (see ``newton_pair_plain`` for the contract); with
+    ``halo_z``, ``force(x, y, z, gx, gy, gz[, strag])`` with the ghost row.
 
     ``g_fn`` is the fused LJ radial (``md.lj_g_fused``), whose constants
     the CUDA kernel reads. CPU tensors go to ``newton_pair_plain``; CUDA
     tensors launch ``csrc/newton_pair.cu`` (counted in
-    ``NEWTON_PAIR.launches``) or raise. The CUDA kernel honours
-    ``self_half`` (the self cell Newton-halved: each in-cell pair once) and
-    ``strag_cellcenter``, and takes the approximate reciprocal when the
-    radial's ``approx`` is set."""
+    ``NEWTON_PAIR.launches``, the halo mode in ``NEWTON_PAIR_HALO``) or
+    raise. The CUDA kernel honours ``self_half`` (the self cell
+    Newton-halved: each in-cell pair once) and ``strag_cellcenter`` (not
+    in the halo mode, as in JAX), and takes the approximate reciprocal when
+    the radial's ``approx`` is set."""
 
     def __init__(self, spec: GridSpec, g_fn: LJFused, *, self_half: bool = False,
-                 strag_cellcenter: bool = False):
+                 strag_cellcenter: bool = False, halo_z: bool = False):
         if not isinstance(g_fn, LJFused):
             raise TypeError("the Newton pair kernel takes the fused LJ radial "
                             "(md.lj_g_fused)")
+        if halo_z and strag_cellcenter:
+            raise ValueError("strag_cellcenter needs global cell centres; the halo mode "
+                             "min-images the stragglers per pair")
         self.spec = spec
         self.g_fn = g_fn
         self.self_half = bool(self_half)
         self.strag_cellcenter = bool(strag_cellcenter)
+        self.halo_z = bool(halo_z)
 
-    def __call__(self, x, y, z, strag=None):
+    def __call__(self, x, y, z, *rest):
         spec = self.spec
         shape = spec.array_shape
         S = spec.n_strag
+        ghost = None
+        if self.halo_z:
+            if len(rest) < 3:
+                raise ValueError("the halo mode takes the ghost row gx, gy, gz")
+            ghost, rest = rest[:3], rest[3:]
+        strag = rest[0] if rest else None
         if S and strag is None:
             raise ValueError("a straggler-capable spec needs the strag block")
+        gshape = (1,) + shape[1:]
         if x.device.type == "cpu":
-            for name, t in (("x", x), ("y", y), ("z", z)):
-                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
-                    raise ValueError(f"{name} must be a float32 CPU tensor of shape {shape}")
+            named = [("x", x, shape), ("y", y, shape), ("z", z, shape)]
+            if ghost is not None:
+                named += [(n, t, gshape) for n, t in zip(("gx", "gy", "gz"), ghost)]
+            for name, t, shp in named:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shp:
+                    raise ValueError(f"{name} must be a float32 CPU tensor of shape {shp}")
             return newton_pair_plain(spec, self.g_fn, x, y, z, strag,
-                                     strag_cellcenter=self.strag_cellcenter)
+                                     strag_cellcenter=self.strag_cellcenter, ghost=ghost)
         for name, t in (("x", x), ("y", y), ("z", z)):
             _build.check_cuda_tensor(t, name, shape)
+        if ghost is not None:
+            for name, t in zip(("gx", "gy", "gz"), ghost):
+                _build.check_cuda_tensor(t, name, gshape)
         smem = 4 * (9 * STAGE_ROWS * spec.nlane + 4 * S)
         if smem > SMEM_BYTES:
             raise ValueError(f"NLANE {spec.nlane} and S {S} need {smem} bytes of "
@@ -278,23 +321,32 @@ class NewtonPairKernel:
         nx, _, nz = spec.shape
         g = self.g_fn
         P = _build.ptr
-        NEWTON_PAIR(
-            P(x), P(y), P(z), sp, P(out), P(sforce),
-            nx, spec.nyb, nz, spec.fold, spec.cap, S,
-            int(self.self_half), int(self.strag_cellcenter), int(g.approx),
-            *spec.box_size, g.c1, g.c2, g.rc2, g.lo,
-        )
+        if ghost is None:
+            NEWTON_PAIR(
+                P(x), P(y), P(z), sp, P(out), P(sforce),
+                nx, spec.nyb, nz, spec.fold, spec.cap, S,
+                int(self.self_half), int(self.strag_cellcenter), int(g.approx),
+                *spec.box_size, g.c1, g.c2, g.rc2, g.lo,
+            )
+        else:
+            NEWTON_PAIR_HALO(
+                P(x), P(y), P(z), *(P(t) for t in ghost), sp, P(out), P(sforce),
+                nx, spec.nyb, nz, spec.fold, spec.cap, S, int(self.self_half), int(g.approx),
+                *spec.box_size, g.c1, g.c2, g.rc2, g.lo,
+            )
         home = (out[0], out[1], out[2])
         groups = tuple((out[3 + 3 * i], out[4 + 3 * i], out[5 + 3 * i]) for i in range(4))
         return home, groups, (sforce if S else None)
 
 
 def make_newton_pair_kernel(spec: GridSpec, g_fn: LJFused, *, self_half: bool = False,
-                            strag_cellcenter: bool = False) -> NewtonPairKernel:
+                            strag_cellcenter: bool = False,
+                            halo_z: bool = False) -> NewtonPairKernel:
     """Build ``force(x, y, z[, strag]) -> (home[3], groups[4][3], sforce)``
-    on [nz, nyb, CAP, NLANE] float32 tensors."""
+    on [nz, nyb, CAP, NLANE] float32 tensors; with ``halo_z``,
+    ``force(x, y, z, gx, gy, gz[, strag])``."""
     return NewtonPairKernel(spec, g_fn, self_half=self_half,
-                            strag_cellcenter=strag_cellcenter)
+                            strag_cellcenter=strag_cellcenter, halo_z=halo_z)
 
 
 def fold_reactions_plain(home, groups):
@@ -338,6 +390,63 @@ class FoldKernel:
 def make_fold_kernel(spec: GridSpec) -> FoldKernel:
     """Build ``fold(home, groups) -> (fx, fy, fz)``."""
     return FoldKernel(spec)
+
+
+def fold_reactions_halo_plain(home, groups, recvs):
+    """Plain version of the halo fold (bit-equal to
+    ``fold_reactions_halo_jnp``): z is a non-periodic slab, and the (1, dyb)
+    groups' row 0 comes from ``recvs`` (9 [1, nyb, CAP, NLANE] blocks,
+    ``REACTION_GROUPS[:3]`` x (x, y, z)); added in ``REACTION_GROUPS``
+    order."""
+    out = list(home)
+    for gi, ((dz, dyb), g) in enumerate(zip(REACTION_GROUPS, groups)):
+        for c in range(3):
+            arr = g[c]
+            if dz == 1:
+                arr = torch.cat([recvs[3 * gi + c], arr[:-1]])
+            out[c] = out[c] + torch.roll(arr, shifts=dyb, dims=1)
+    return tuple(out)
+
+
+class FoldHaloKernel:
+    """``fold(home[3], groups[4][3], recvs[9]) -> (fx, fy, fz)`` for one
+    z-slab ``GridSpec`` (the spec's nz counts the slab's home rows).
+
+    CPU tensors go to ``fold_reactions_halo_plain``; CUDA tensors launch
+    ``uammd_fold_halo`` of ``csrc/fold.cu`` (counted in
+    ``FOLD_HALO.launches``) or raise."""
+
+    def __init__(self, spec: GridSpec):
+        self.spec = spec
+
+    def __call__(self, home, groups, recvs):
+        ins = list(home) + [c for g in groups for c in g]
+        recvs = list(recvs)
+        if len(ins) != 15 or len(recvs) != 9:
+            raise ValueError("the halo fold takes 3 home grids, 4 x 3 group grids and "
+                             "9 recv blocks")
+        shape = self.spec.array_shape
+        rshape = (1,) + shape[1:]
+        named = [(f"fold input {k}", t, shape) for k, t in enumerate(ins)] + [
+            (f"recv {k}", t, rshape) for k, t in enumerate(recvs)]
+        if ins[0].device.type == "cpu":
+            for name, t, shp in named:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shp:
+                    raise ValueError(f"{name} must be a float32 CPU tensor of shape {shp}")
+            return fold_reactions_halo_plain(home, groups, recvs)
+        for name, t, shp in named:
+            _build.check_cuda_tensor(t, name, shp)
+        out = torch.empty((3,) + shape, dtype=torch.float32, device=ins[0].device)
+        nz, nyb, cap, nlane = shape
+        FOLD_HALO((_P * 15)(*(t.data_ptr() for t in ins)),
+                  (_P * 3)(*(o.data_ptr() for o in out)),
+                  (_P * 9)(*(t.data_ptr() for t in recvs)), nz, nyb, cap * nlane)
+        return out[0], out[1], out[2]
+
+
+def make_fold_kernel_halo(spec: GridSpec) -> FoldHaloKernel:
+    """Build ``fold(home, groups, recvs) -> (fx, fy, fz)`` for a z-slab."""
+    return FoldHaloKernel(spec)
 
 
 def fold_reactions_n_plain(home, groups):

@@ -95,6 +95,7 @@ def choose_spec(
     strag_cell_excess: int = 6,
     strag_headroom: float = 3.0,
     ocap: int | None = OCAP,
+    nz_multiple: int = 1,
 ) -> GridSpec:
     """Pick (nx, ny, nz), fold F and CAP for a target box/density.
 
@@ -105,7 +106,9 @@ def choose_spec(
     a straggler list, ``strag_cell_excess`` (at most ``ocap``, the depth
     of the separable rebin's overflow mini-grid; None: unchecked, as the
     PSE near grid, whose rebin latches a deeper cell) bounds the stragglers
-    per cell and ``strag_headroom`` the list's fill.
+    per cell and ``strag_headroom`` the list's fill. ``nz_multiple`` floors
+    nz to a multiple of it (a z-slab mesh of that many shards then divides
+    the grid; larger cells stay stencil-correct) and raises below 3.
     """
     if n_strag > 0 and ocap is not None and strag_cell_excess > ocap:
         raise ValueError(f"strag_cell_excess {strag_cell_excess} exceeds the separable "
@@ -115,6 +118,11 @@ def choose_spec(
     nx_nat = max(3, int(Ls[0] / rl))
     nz = max(3, int(Ls[2] / rl))
     ny_nat = max(3, int(Ls[1] / rl))
+    if nz_multiple > 1:
+        nz = (nz // nz_multiple) * nz_multiple
+        if nz < 3:
+            raise ValueError(f"box z ({Ls[2]}) too small for nz multiple {nz_multiple} "
+                             f"at cutoff*skin {rl}")
     best = None
     for nx in range(3, nx_nat + 1):
         for F in range(1, max(1, max_lanes // nx) + 1):
@@ -565,7 +573,8 @@ def grid_state_to_numpy(gs: GridState) -> dict:
     return out
 
 
-def stencil_sources(spec: GridSpec, dz: int, dy: int, dx: int, device):
+def stencil_sources(spec: GridSpec, dz: int, dy: int, dx: int, device, *,
+                    periodic_z: bool = True, z_rows: int | None = None):
     """Index tensors of the (dz, dy, dx) neighbor cell of every home cell.
 
     Returns ``(zi [nz,1,1,1], ybi [1,nyb,1,NLANE], lane [1,nyb,1,NLANE],
@@ -575,6 +584,11 @@ def stencil_sources(spec: GridSpec, dz: int, dy: int, dx: int, device):
     gathered positions: nonzero only where that axis index wrapped, each
     broadcastable to [nz, nyb, 1, NLANE]. Used by the plain versions of the
     pair-force and rebin kernels.
+
+    ``periodic_z=False`` is the z-slab halo mode: no z image shift (the
+    caller's ghost rows carry it), and the z index wraps modulo ``z_rows``
+    (default nz; the Newton kernel's halo mode passes nz + 1, so that the
+    top row's dz = +1 neighbour is row nz of a ghost-extended array).
     """
     nx, ny, nz = spec.shape
     F = spec.fold
@@ -591,8 +605,13 @@ def stencil_sources(spec: GridSpec, dz: int, dy: int, dx: int, device):
 
     shx = image(sx, nx, Lx)[None, None, None, :]
     shy = image(sy, ny, Ly)[None, :, None, :]
-    shz = image(sz, nz, Lz)[:, None, None, None]
-    sx, sy, sz = sx % nx, sy % ny, sz % nz
+    if periodic_z:
+        shz = image(sz, nz, Lz)[:, None, None, None]
+        sz = sz % nz
+    else:
+        shz = torch.zeros((nz, 1, 1, 1), dtype=torch.float32, device=device)
+        sz = sz % (nz if z_rows is None else z_rows)
+    sx, sy = sx % nx, sy % ny
     syb = sy // F
     src_lane = sx[None, :] * F + (sy - syb * F)  # [nyb, nlane]
     return (sz[:, None, None, None], syb[None, :, None, :],

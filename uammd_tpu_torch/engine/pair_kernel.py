@@ -7,8 +7,11 @@ the 27 neighbor cells, with ``d = r_j - r_i`` after the periodic image
 shift. Force only, ``g = r2 < rc2 ? g_fn(max(r2, clamp_lo)) : 0``; with any
 of the energy (``e_fn``, half to each particle), virial and 6-component
 stress outputs on, the clamp gives way to the mask
-``inside = (r2 < rc2) & (r2 > 1e-10)``, as in the JAX kernel. The
-non-periodic-z halo mode is not ported yet.
+``inside = (r2 < rc2) & (r2 > 1e-10)``, as in the JAX kernel. With
+``periodic_z=False`` (force only) it is the halo mode of
+``parallel/domain.py``: the caller passes a z-slab extended by one ghost
+row at each end, already image-shifted, and drops the ghost rows of the
+output; the z index still wraps, but takes no Lz shift.
 
 On CUDA tensors the wrapper launches the hand-written kernel
 ``csrc/pair_force.cu`` (which has the LJ radial and energy compiled in, so
@@ -20,7 +23,8 @@ kernel against.
 
 Also the port of ``make_pair_channel_kernel`` (#2) and
 ``broadcast_strag_channels``: the 27-stencil transverser with n_chan
-per-particle payload channels in and n_out sums out, periodic in z, over a
+per-particle payload channels in and n_out sums out, periodic in z (or,
+for a straggler-free ``ChannelFunctor``, in the halo mode as above), over a
 pair functor: the PSE near field (``pse_near.PSENear``, on 1 or 2 stacked
 3-vectors, with the straggler block) or a ``ChannelFunctor`` (DPD, SPH
 density and force, the LJ mixtures on straggler-free specs; the Poisson
@@ -58,6 +62,9 @@ _P = ctypes.c_void_p
 #                  rc2, clamp_lo, neg24eps, s2, stream)
 PAIR_FORCE = _build.Kernel(
     "pair_force", "uammd_pair_force", [_P] * 6 + [_I] * 5 + [_F] * 7)
+# uammd_pair_force_halo: the same arguments, the halo mode (periodic_z=False)
+PAIR_FORCE_HALO = _build.Kernel(
+    "pair_force", "uammd_pair_force_halo", [_P] * 6 + [_I] * 5 + [_F] * 7)
 
 # uammd_pair_force_obs(x, y, z, fx, fy, fz, obs, nx, nyb, nz, F, cap, Lx,
 #                      Ly, Lz, rc2, neg24eps, s2, c4eps, e_shift, stream)
@@ -94,12 +101,18 @@ def _functor_kernel(symbol: str, params) -> _build.Kernel:
     return _build.Kernel("pair_channel", symbol, [_P] * 6 + [_I] * 7 + [_F] * 3 + [params])
 
 
-# one entry point, and one launch count, per functor instantiation of #2
+# one entry point, and one launch count, per functor instantiation of #2,
+# and for the functors that parallel/domain.py runs one more each for the
+# halo mode (the entry's name + "_halo")
 PAIR_CHANNEL_DPD = _functor_kernel("uammd_pair_channel_dpd", DPDParams)
 PAIR_CHANNEL_SPH_DENSITY = _functor_kernel("uammd_pair_channel_sph_density", SPHParams)
 PAIR_CHANNEL_SPH_FORCE = _functor_kernel("uammd_pair_channel_sph_force", SPHParams)
 PAIR_CHANNEL_LJ_MIX = _functor_kernel("uammd_pair_channel_lj_mix", LJMixParams)
 PAIR_CHANNEL_LJ_MIX_MASKED = _functor_kernel("uammd_pair_channel_lj_mix_masked", LJMixParams)
+PAIR_CHANNEL_DPD_HALO = _functor_kernel("uammd_pair_channel_dpd_halo", DPDParams)
+PAIR_CHANNEL_SPH_DENSITY_HALO = _functor_kernel("uammd_pair_channel_sph_density_halo",
+                                                SPHParams)
+PAIR_CHANNEL_SPH_FORCE_HALO = _functor_kernel("uammd_pair_channel_sph_force_halo", SPHParams)
 
 POISSON_NCOEF = 21  # chan::kPoissonNCoef: polynomials up to degree 20
 
@@ -164,7 +177,8 @@ class LJEnergy:
 
 
 def pair_force_plain(spec: GridSpec, g_fn, x, y, z, clamp_lo: float = 4e-3, e_fn=None,
-                     compute_virial: bool = False, compute_stress: bool = False):
+                     compute_virial: bool = False, compute_stress: bool = False,
+                     periodic_z: bool = True):
     """Plain PyTorch version of the kernel: for each of the 27 stencil cells,
     gather its CAP slots in home-cell order and form the all-pairs
     [nz, nyb, CAP_i, CAP_j, NLANE] block against the home slots, as the TPU
@@ -172,8 +186,11 @@ def pair_force_plain(spec: GridSpec, g_fn, x, y, z, clamp_lo: float = 4e-3, e_fn
     ``e_fn``, ``compute_virial`` or ``compute_stress`` it also returns the
     energy (half of e_fn per pair), the virial (-g r2 / 2) and the stress
     (xx, xy, xz, yy, yz, zz of -g d_a d_b / 2) grids, masking with
-    ``inside`` instead of clamping, as the JAX kernel does (:206-231)."""
+    ``inside`` instead of clamping, as the JAX kernel does (:206-231).
+    ``periodic_z=False`` (force only) takes no z image shift (halo mode)."""
     if e_fn is not None or compute_virial or compute_stress:
+        if not periodic_z:
+            raise ValueError("the halo mode computes the force alone")
         return _pair_obs_plain(spec, g_fn, e_fn, compute_virial, compute_stress, x, y, z)
     dev = x.device
     cap = spec.cap
@@ -188,7 +205,8 @@ def pair_force_plain(spec: GridSpec, g_fn, x, y, z, clamp_lo: float = 4e-3, e_fn
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
+                zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev,
+                                                                 periodic_z=periodic_z)
                 cx = x[zs, ybs, rows, lane] + shx
                 cy = y[zs, ybs, rows, lane] + shy
                 cz = z[zs, ybs, rows, lane] + shz
@@ -250,11 +268,16 @@ class PairForceKernel:
 
     CPU tensors go to ``pair_force_plain``; CUDA tensors launch
     ``csrc/pair_force.cu`` (the force alone counted in
-    ``PAIR_FORCE.launches``, the observable mode in
+    ``PAIR_FORCE.launches``, its halo mode ``periodic_z=False`` in
+    ``PAIR_FORCE_HALO.launches``, the observable mode in
     ``PAIR_FORCE_OBS.launches``) or raise."""
 
     def __init__(self, spec: GridSpec, g_fn, clamp_lo: float = 4e-3, e_fn=None,
-                 compute_virial: bool = False, compute_stress: bool = False):
+                 compute_virial: bool = False, compute_stress: bool = False,
+                 periodic_z: bool = True):
+        if not periodic_z and (e_fn is not None or compute_virial or compute_stress):
+            raise ValueError("the halo mode computes the force alone")
+        self.periodic_z = bool(periodic_z)
         self.spec = spec
         self.g_fn = g_fn
         self.clamp_lo = clamp_lo
@@ -273,7 +296,7 @@ class PairForceKernel:
                 if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
                     raise ValueError(f"{name} must be a float32 CPU tensor of shape {shape}")
             return pair_force_plain(self.spec, self.g_fn, x, y, z, self.clamp_lo, self.e_fn,
-                                    self.compute_virial, self.compute_stress)
+                                    self.compute_virial, self.compute_stress, self.periodic_z)
         for name, t in (("x", x), ("y", y), ("z", z)):
             _build.check_cuda_tensor(t, name, shape)
         if not isinstance(self.g_fn, LJRadial):
@@ -289,7 +312,7 @@ class PairForceKernel:
         P = _build.ptr
         rc2 = float(np.float32(spec.cutoff * spec.cutoff))
         if not self.observables:
-            PAIR_FORCE(
+            (PAIR_FORCE if self.periodic_z else PAIR_FORCE_HALO)(
                 P(x), P(y), P(z), P(fx), P(fy), P(fz),
                 nx, spec.nyb, nz, spec.fold, spec.cap,
                 Lx, Ly, Lz, rc2,
@@ -316,11 +339,13 @@ class PairForceKernel:
 
 
 def make_pair_force_kernel(spec: GridSpec, g_fn, e_fn=None, *, compute_virial: bool = False,
-                           compute_stress: bool = False, clamp_lo: float = 4e-3):
+                           compute_stress: bool = False, clamp_lo: float = 4e-3,
+                           periodic_z: bool = True):
     """Build ``force(x, y, z) -> (fx, fy, fz[, energy][, virial][, stress
     x 6])`` on [nz, nyb, CAP, NLANE] float32 tensors (``layout.GridState``
-    fields)."""
-    return PairForceKernel(spec, g_fn, clamp_lo, e_fn, compute_virial, compute_stress)
+    fields); ``periodic_z=False`` is the force-only halo mode."""
+    return PairForceKernel(spec, g_fn, clamp_lo, e_fn, compute_virial, compute_stress,
+                           periodic_z)
 
 
 def broadcast_strag_channels(spec: GridSpec, spos, schannels, spid):
@@ -342,8 +367,9 @@ class ChannelFunctor:
     in), ``n_out`` (sums out), ``n_uniform`` (how many trailing channels
     hold one value for the whole launch: 0-d tensors on both paths, read on
     the home side only), ``kernel`` (the ``_build.Kernel`` of their CUDA
-    instantiation in csrc/pair_channel.cu) and ``params()`` (its parameter
-    struct). A functor with ``strag = True`` (no uniform channels) also
+    instantiation in csrc/pair_channel.cu), ``kernel_halo`` (that of its
+    halo mode, straggler-free functors only) and ``params()`` (its
+    parameter struct). A functor with ``strag = True`` (no uniform channels) also
     serves straggler-capable specs: its kernel entry takes the straggler
     rows, and the plain version evaluates it both ways
     (``pse_near.strag_channel_block``)."""
@@ -353,6 +379,7 @@ class ChannelFunctor:
     n_uniform: int = 0
     strag: bool = False
     kernel: _build.Kernel
+    kernel_halo: _build.Kernel | None = None
 
     def params(self) -> ctypes.Structure:
         raise NotImplementedError
@@ -361,12 +388,14 @@ class ChannelFunctor:
         raise NotImplementedError
 
 
-def channel_plain(spec: GridSpec, pair_fn, n_out: int, x, y, z, channels):
+def channel_plain(spec: GridSpec, pair_fn, n_out: int, x, y, z, channels,
+                  periodic_z: bool = True):
     """Plain PyTorch version of the 27-stencil channel kernel (#2) with a
     JAX-signature ``pair_fn``: every home slot sums ``pair_fn``'s terms over
     the CAP slots of the 27 cells around it (``stencil_sources``, its own
     cell included), in the stencil order dz, dy, dx. 0-d channels are
-    uniform and go to ``pair_fn`` as they are on both sides."""
+    uniform and go to ``pair_fn`` as they are on both sides.
+    ``periodic_z=False`` is the halo mode (no z image shift)."""
     dev = x.device
     rows = torch.arange(spec.cap, device=dev)[None, None, :, None]
     xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
@@ -375,7 +404,8 @@ def channel_plain(spec: GridSpec, pair_fn, n_out: int, x, y, z, channels):
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
+                zs, ybs, lane, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev,
+                                                                 periodic_z=periodic_z)
                 dxv = (x[zs, ybs, rows, lane] + shx)[:, :, None] - xi
                 dyv = (y[zs, ybs, rows, lane] + shy)[:, :, None] - yi
                 dzv = (z[zs, ybs, rows, lane] + shz)[:, :, None] - zi
@@ -453,9 +483,14 @@ class PairChannelKernel:
     (n_out grids) [+ (n_out straggler totals [S])]``, on a straggler-free
     spec unless the functor has ``strag``. CPU tensors run
     ``functor_plain``; CUDA tensors launch the functor's instantiation
-    (counted in ``fn.kernel.launches``) or raise."""
+    (counted in ``fn.kernel.launches``) or raise. ``periodic_z=False`` is
+    the halo mode of a straggler-free functor (``fn.kernel_halo``): the
+    caller passes a z-slab extended by image-shifted ghost rows and drops
+    their outputs."""
 
-    def __init__(self, spec: GridSpec, fn, nvec: int = 1):
+    def __init__(self, spec: GridSpec, fn, nvec: int = 1, periodic_z: bool = True):
+        if not periodic_z and (not isinstance(fn, ChannelFunctor) or fn.kernel_halo is None):
+            raise ValueError("the halo mode takes a straggler-free ChannelFunctor")
         if isinstance(fn, ChannelFunctor):
             if spec.n_strag and not fn.strag:
                 raise ValueError(f"{type(fn).__name__} runs on straggler-free specs "
@@ -468,6 +503,7 @@ class PairChannelKernel:
         self.spec = spec
         self.fn = fn
         self.nvec = nvec
+        self.periodic_z = bool(periodic_z)
 
     def __call__(self, x, y, z, *channels, strag=None):
         spec, fn, nvec = self.spec, self.fn, self.nvec
@@ -509,7 +545,7 @@ class PairChannelKernel:
         cuda = x.device.type != "cpu"
         _check_functor_inputs(spec, fn, x, y, z, channels, cuda)
         if not cuda:
-            return channel_plain(spec, fn, fn.n_out, x, y, z, channels)
+            return channel_plain(spec, fn, fn.n_out, x, y, z, channels, self.periodic_z)
         ng = fn.n_chan - fn.n_uniform
         ch = torch.stack(channels[:ng])
         uni = torch.stack(channels[ng:]) if fn.n_uniform else None
@@ -517,12 +553,13 @@ class PairChannelKernel:
         out = torch.empty((fn.n_out,) + spec.array_shape, dtype=torch.float32, device=x.device)
         nx, _, nz = spec.shape
         P = _build.ptr
-        fn.kernel(P(x), P(y), P(z), P(ch), P(uni) if uni is not None else _P(0), P(out),
-                  nx, spec.nyb, nz, spec.fold, spec.cap, rows, kj, *spec.box_size,
-                  fn.params())
+        kernel = fn.kernel if self.periodic_z else fn.kernel_halo
+        kernel(P(x), P(y), P(z), P(ch), P(uni) if uni is not None else _P(0), P(out),
+               nx, spec.nyb, nz, spec.fold, spec.cap, rows, kj, *spec.box_size, fn.params())
         return tuple(out)
 
 
-def make_pair_channel_kernel(spec: GridSpec, fn, nvec: int = 1) -> PairChannelKernel:
+def make_pair_channel_kernel(spec: GridSpec, fn, nvec: int = 1,
+                             periodic_z: bool = True) -> PairChannelKernel:
     """Build the 27-stencil channel kernel (see ``PairChannelKernel``)."""
-    return PairChannelKernel(spec, fn, nvec)
+    return PairChannelKernel(spec, fn, nvec, periodic_z)

@@ -25,7 +25,8 @@ from ..device import resolve_device
 from ..interactors.sph import SPHParams, cubic_spline_gradw_over_r, cubic_spline_w
 from .dpd import verlet_step
 from .layout import GridSpec, GridState, choose_spec, pack
-from .pair_kernel import (PAIR_CHANNEL_SPH_DENSITY, PAIR_CHANNEL_SPH_FORCE, ChannelFunctor,
+from .pair_kernel import (PAIR_CHANNEL_SPH_DENSITY, PAIR_CHANNEL_SPH_DENSITY_HALO,
+                          PAIR_CHANNEL_SPH_FORCE, PAIR_CHANNEL_SPH_FORCE_HALO, ChannelFunctor,
                           SPHParams as _SPHStruct, make_pair_channel_kernel)
 
 
@@ -50,6 +51,7 @@ class SPHDensityPair(_SPHPair):
 
     n_chan, n_out = 1, 1
     kernel = PAIR_CHANNEL_SPH_DENSITY
+    kernel_halo = PAIR_CHANNEL_SPH_DENSITY_HALO
 
     def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
         (mj,) = ch_j
@@ -65,6 +67,7 @@ class SPHForcePair(_SPHPair):
 
     n_chan, n_out = 5, 3
     kernel = PAIR_CHANNEL_SPH_FORCE
+    kernel_halo = PAIR_CHANNEL_SPH_FORCE_HALO
 
     def __init__(self, params: SPHParams):
         super().__init__(params.support, params.viscosity)
