@@ -89,6 +89,19 @@ Imports nothing of JAX or of the JAX package. Phases:
      dropped). The assembled DD force on one state against the single-chip
      engines' within ``DD_FORCE_TOL`` x max|f|: DD2 on 1 and 4 shards
      (stragglers too), DD v1 on 4.
+   - ragged occupancy (``ragged_kernel_checks``, the cell-warp kernels):
+     #1 (force-only, halo, observables) and #6 (the four self_half x
+     cellcenter modes, exact and approximate reciprocal, and ``halo_z``)
+     against their plain versions within the tolerances above, on seeded
+     states at NLANE 114, 48 and 16 with CAP 40: occupancies from 0 to
+     CAP, one cell full to CAP (a second warp pass), one empty (z, yb)
+     column, occupied rows that are not a prefix, 16 straggler rows, and
+     for #1 a particle with x = NaN whose NaN must land in exactly the
+     plain version's slots. Controls: each kernel with its candidate loops
+     one row short of the occupancy must fail the bound. Every launch plan
+     (``pair_kernel.pair_launch_plan``, ``kernel2.newton_launch_plan``) is
+     printed (``launch_plans``) with the kernel's own count of its shared
+     memory, which must equal the plan's.
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -188,7 +201,8 @@ Imports nothing of JAX or of the JAX package. Phases:
 the build and slice D's phases (the observables on the v2 engine's
 jittered fcc start), ``--only-unfused`` the build, slice A3's checks, the
 v1 melt and the unfused v2 path, ``--only-poisson`` the build and slice
-E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases;
+E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases,
+``--only-ragged`` the build and the ragged-occupancy checks of #1 and #6;
 none prints a result line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
@@ -350,9 +364,11 @@ def check_rebin(gs, q: int, what: str, expect_clean: bool = True):
 
 
 def newton_pair(gs, *, approx=False, self_half=True, cellcenter=True, plain=False,
-                spid=None):
+                spid=None, occ_trim=0):
     """The Newton kernel's (or its plain version's) outputs on ``gs``;
-    ``spid`` replaces the state's straggler ids (-1 drops a row)."""
+    ``spid`` replaces the state's straggler ids (-1 drops a row);
+    ``occ_trim`` 1 is the control that stops the kernel's candidate loops
+    one row short."""
     from uammd_tpu_torch.engine import kernel2, md
 
     spec = gs.spec
@@ -364,6 +380,7 @@ def newton_pair(gs, *, approx=False, self_half=True, cellcenter=True, plain=Fals
                                          strag_cellcenter=cellcenter)
     kern = kernel2.make_newton_pair_kernel(spec, g, self_half=self_half,
                                            strag_cellcenter=cellcenter)
+    kern.occ_trim = occ_trim
     return kern(gs.x, gs.y, gs.z, strag)
 
 
@@ -3944,6 +3961,12 @@ def dd_phases(dev, card, melted, unfused_ms):
         max(float((a - b).abs().max()) for a, b in zip(
             dd2_newton(step, st, i, ghosts[i]), dd2_newton(step, st, i, ghosts[i], plain=True)))
         for i in range(step.n_dev))
+    from uammd_tpu_torch.engine import layout
+
+    spec1 = layout.choose_spec(BOX, N, 2.5, pos=melted, nz_multiple=DD_SHARDS)
+    for what, spec in (("DD2 shard (#6 halo_z)", step.local_spec),
+                       ("DD v1 slab (#1 halo)", dd_halo_spec(spec1, DD_SHARDS)[0])):
+        print(json.dumps({"phase": "launch_plans", "what": what, **plan_of(spec)}), flush=True)
     rows = breakdown_dd2(card, dd4, dd1, unfused_ms, errs)
     del dd4, step, st, ghosts
     torch.cuda.empty_cache()
@@ -3953,6 +3976,210 @@ def dd_phases(dev, card, melted, unfused_ms):
     torch.cuda.empty_cache()
     dd2_trajectory_parity(dev, melted)
     return rows
+
+
+# The cell-warp kernels #1 and #6 on ragged occupancy. One state per
+# grid, NLANE 114 (fold 6), 48 and 16 (fold 4), with cells of 3.0 (above
+# the 2.5 cutoff) and CAP 40: occupancies drawn from 0 to CAP, one cell
+# full to CAP (a second pass of its warp), every cell of one (z, yb)
+# column empty, the occupied rows scattered over the cell (not a prefix),
+# on a jittered 4^3 sub-lattice of each cell (spacing 0.75, jitter 0.05:
+# no pair closer than 0.65), with 15 valid straggler rows and an invalid
+# one on free sites. #1's state has one particle with x = NaN.
+RAGGED_GRIDS = (((19, 18, 8), 6), ((12, 24, 16), 4), ((4, 8, 5), 4))
+RAGGED_CELL, RAGGED_CAP, RAGGED_STRAG = 3.0, 40, 16
+
+
+def ragged_state(dev, shape, fold, seed, nan=False, extra_rows=0):
+    """The seeded ragged state on ``shape`` (nx, ny, nz) cells, with
+    ``extra_rows`` more z rows above (a halo mode's ghost row): a namespace
+    of spec, x, y, z, mask, spos, spid, as a ``GridState`` has them."""
+    import types
+
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout
+
+    nx, ny, nz = shape
+    nzt = nz + extra_rows
+    box = (nx * RAGGED_CELL, ny * RAGGED_CELL, nzt * RAGGED_CELL)
+    spec = layout.GridSpec(box_size=box, shape=(nx, ny, nzt), cap=RAGGED_CAP, fold=fold,
+                           cutoff=2.5, skin=1.2, n_strag=RAGGED_STRAG)
+    rng = np.random.default_rng(seed)
+    k = 4  # sub-lattice sites per axis of a cell
+    sub = (np.stack(np.meshgrid(*[np.arange(k)] * 3, indexing="ij"), -1).reshape(-1, 3) + 0.5)
+    sub = sub * (RAGGED_CELL / k)
+    arr = np.full((3,) + spec.array_shape, layout.EMPTY_POS, np.float32)
+    lo = -0.5 * np.array(box)
+    empty_col = (nz // 2, 0)  # (z, yb)
+    free = []
+    for cz in range(nzt):
+        for cy in range(ny):
+            yb, f = divmod(cy, fold)
+            for cx in range(nx):
+                n = int(rng.integers(0, RAGGED_CAP + 1))
+                if (cz, yb) == empty_col:
+                    n = 0
+                if (cx, cy, cz) == (1, 1, 1):
+                    n = RAGGED_CAP
+                sites = rng.permutation(len(sub))
+                rows = rng.choice(RAGGED_CAP, n, replace=False)
+                corner = lo + RAGGED_CELL * np.array([cx, cy, cz])
+                p = corner + sub[sites[:n]] + rng.uniform(-0.05, 0.05, (n, 3))
+                arr[:, cz, yb, rows, cx * fold + f] = p.T
+                if n < len(sub) and cz < nz:
+                    free.append(corner + sub[sites[n]])
+    if nan:  # x of an occupied slot of the cell full to CAP
+        arr[0, 1, 1 // fold, 7, 1 * fold + 1 % fold] = np.nan
+    pick = rng.choice(len(free), RAGGED_STRAG, replace=False)
+    spos = torch.tensor(np.array(free)[pick], dtype=torch.float32, device=dev)
+    spid = torch.arange(RAGGED_STRAG, device=dev)
+    spid[-1] = -1
+    x, y, z = (torch.tensor(a, device=dev) for a in arr)
+    return types.SimpleNamespace(spec=spec, x=x, y=y, z=z, mask=x < 1e8, spos=spos, spid=spid)
+
+
+def plan_of(spec) -> dict:
+    """Both cell-warp kernels' launch plans for ``spec``, each with the
+    kernel's own count of its shared memory, which must equal the plan's."""
+    import ctypes
+    from uammd_tpu_torch.engine import _build, kernel2, pair_kernel
+
+    out = {"spec": list(spec.array_shape), "n_strag": spec.n_strag}
+    for name, plan, args in (
+            ("pair_force", pair_kernel.pair_launch_plan(spec), ()),
+            ("newton_pair", kernel2.newton_launch_plan(spec), (spec.n_strag,))):
+        fn = getattr(_build.load(name), f"uammd_{name}_smem")
+        fn.restype = ctypes.c_longlong
+        smem = fn(spec.cap, plan.cc, plan.fc, *args)
+        check(smem == plan.smem, f"{name} at {spec.array_shape}: the kernel's shared memory "
+                                 f"{smem} == the plan's {plan.smem}")
+        out[name] = plan.as_dict()
+    return out
+
+
+def check_ragged_pair(st, what) -> dict:
+    """#1 force-only, halo and observable modes against their plain versions
+    on a ragged state: every output within its tolerance (1e-5 of max|f|
+    for the forces, CHANNEL_TOL of each output's max for the observables)
+    over the slots where the plain version is finite, and the NaN slots of
+    every output exactly the plain version's. The control (each candidate
+    loop one row short) must fail the force bound."""
+    import torch
+    from uammd_tpu_torch.engine import md, pair_kernel
+
+    spec, g, e = st.spec, md.lj_g(), md.lj_e()
+    out = {}
+
+    def compare(got, want, tol, name):
+        nan_ok = all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(got, want))
+        fin = [b.isfinite() for b in want]
+        if tol == 1e-5:  # the forces: one scale, the largest force
+            scale = max(float(b[m].abs().max()) for b, m in zip(want, fin))
+            err = max(float((a[m] - b[m]).abs().max()) for a, b, m in zip(got, want, fin)) / scale
+        else:
+            err = max(float((a[m] - b[m]).abs().max() / b[m].abs().max().clamp(min=1e-30))
+                      for a, b, m in zip(got, want, fin))
+        n_nan = sum(int(b.isnan().sum()) for b in want)
+        check(nan_ok, f"{what}: #1 {name} puts NaN in exactly the plain version's slots "
+                      f"({n_nan} of them)")
+        check(err < tol, f"{what}: #1 {name} vs plain {err:.3g} < {tol}")
+        out[name] = {"rel_err": err, "nan_slots": n_nan}
+
+    for name, kw in (("force", {}), ("halo", {"periodic_z": False})):
+        kern = pair_kernel.make_pair_force_kernel(spec, g, **kw)
+        compare(kern(st.x, st.y, st.z),
+                pair_kernel.pair_force_plain(spec, g, st.x, st.y, st.z, **kw), 1e-5, name)
+    obs_kw = dict(compute_virial=True, compute_stress=True)
+    kern = pair_kernel.make_pair_force_kernel(spec, g, e, **obs_kw)
+    compare(kern(st.x, st.y, st.z),
+            pair_kernel.pair_force_plain(spec, g, st.x, st.y, st.z, e_fn=e, **obs_kw),
+            CHANNEL_TOL, "observables")
+    kern = pair_kernel.make_pair_force_kernel(spec, g)
+    kern.occ_trim = 1
+    want = pair_kernel.pair_force_plain(spec, g, st.x, st.y, st.z)
+    m = want[0].isfinite() & st.mask
+    ctrl = rel_force_err(want, kern(st.x, st.y, st.z), m)
+    check(ctrl > 1e-5, f"{what}: #1 control (candidate loops one row short) fails the "
+                       f"bound ({ctrl:.3g} > 1e-5)")
+    out["control_one_row_short"] = ctrl
+    return out
+
+
+def check_ragged_newton(st, ghost_st, what) -> dict:
+    """#6 on a ragged state: periodic in the four self_half x cellcenter
+    modes, exact (1e-5, SLOT_TOL) and approximate (FAST_RECIP_*) reciprocal,
+    and ``halo_z`` (both self_half modes) with the top row of ``ghost_st``
+    as its ghost row, against their plain versions (``check_newton``'s
+    bounds); the control (each candidate loop one row short) must fail
+    them."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2, md
+
+    modes = ((False, False), (False, True), (True, False), (True, True))
+    out = {"exact": check_newton(st, what, modes=modes),
+           "approx": check_newton(st, what, modes=modes, approx=True, tol=FAST_RECIP_TOL,
+                                  slot_tol=FAST_RECIP_SLOT_TOL)}
+    ref = newton_outputs(st, newton_pair(st, plain=True), plain_fold=True)
+    fa = torch.cat([a[st.mask].abs() for a in ref[15:18]])
+    scale = (float(fa.max()), float(fa.median()))
+    err = newton_errs(ref, newton_outputs(st, newton_pair(st, occ_trim=1)), scale)
+    check(err["rel"] > 1e-5 and err["slot"] > SLOT_TOL,
+          f"{what}: #6 control (candidate loops one row short) fails both bounds "
+          f"({err['rel']:.3g} > 1e-5, {err['slot']:.3g} > {SLOT_TOL})")
+    out["control_one_row_short"] = err
+    # halo_z: the slab is ghost_st's rows below its top one, the ghost row its top
+    nz = st.spec.shape[2]
+    spec = st.spec
+    slab = [a[:nz].contiguous() for a in (ghost_st.x, ghost_st.y, ghost_st.z)]
+    ghost = [a[nz:].contiguous() for a in (ghost_st.x, ghost_st.y, ghost_st.z)]
+    g = md.lj_g_fused(rc2=RC2)
+    strag = kernel2.broadcast_stragglers(spec, ghost_st.spos, ghost_st.spid)
+    home, groups, sf = kernel2.newton_pair_plain(spec, g, *slab, strag, ghost=ghost)
+    want = list(home) + [c for gr in groups for c in gr] + [sf]
+    zeros = [torch.zeros_like(ghost[0]) for _ in range(9)]
+    folded = kernel2.fold_reactions_halo_plain(home, groups, zeros)
+    m = slab[0] < 1e8
+    fa = torch.cat([a[m].abs() for a in folded])
+    scale = (float(fa.max()), float(fa[fa > 0].median()))
+    for self_half in (True, False):
+        kern = kernel2.make_newton_pair_kernel(spec, g, halo_z=True, self_half=self_half)
+        h, gr, s = kern(*slab, *ghost, strag)
+        e = newton_errs(want, list(h) + [c for grp in gr for c in grp] + [s], scale)
+        check(e["rel"] < 1e-5 and e["slot"] < SLOT_TOL,
+              f"{what}: #6 halo_z (self_half={self_half}) vs plain {e['rel']:.3g} < 1e-5, "
+              f"per slot {e['slot']:.3g} < {SLOT_TOL}")
+        out[f"halo_self_half_{self_half}"] = e
+    return out
+
+
+def ragged_checks(dev) -> dict:
+    """The ragged-occupancy checks of #1 and #6 on the three grids, with
+    their launch plans printed first."""
+    import torch
+
+    out = {}
+    for k, (shape, fold) in enumerate(RAGGED_GRIDS):
+        st = ragged_state(dev, shape, fold, seed=90 + k, nan=True)
+        clean = ragged_state(dev, shape, fold, seed=90 + k)
+        tall = ragged_state(dev, shape, fold, seed=90 + k, extra_rows=1)
+        what = f"ragged NLANE {st.spec.nlane}"
+        print(json.dumps({"phase": "launch_plans", "what": what, **plan_of(st.spec)}),
+              flush=True)
+        occ = (st.x < 5e8).sum(dim=2)
+        entry = {"spec": list(st.spec.array_shape),
+                 "occupancy_min_mean_max": [int(occ.min()), float(occ.float().mean()),
+                                            int(occ.max())],
+                 "pair_force": check_ragged_pair(st, what),
+                 "newton_pair": check_ragged_newton(clean, tall, what)}
+        out[f"nlane_{st.spec.nlane}"] = entry
+        del st, clean, tall
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "ragged_kernel_checks", "ok": True, **out,
+                      "slot_tol": SLOT_TOL, "fast_recip_tol": FAST_RECIP_TOL,
+                      "fast_recip_slot_tol": FAST_RECIP_SLOT_TOL,
+                      "channel_tol": CHANNEL_TOL}), flush=True)
+    return out
 
 
 def dd_only(dev, card) -> int:
@@ -3971,6 +4198,7 @@ def main() -> int:
     only_unfused = "--only-unfused" in sys.argv[1:]
     only_poisson = "--only-poisson" in sys.argv[1:]
     only_dd = "--only-dd" in sys.argv[1:]
+    only_ragged = "--only-ragged" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4014,6 +4242,9 @@ def main() -> int:
         return poisson_only(dev, card)
     if only_dd:
         return dd_only(dev, card)
+    if only_ragged:
+        ragged_checks(dev)
+        return 0
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -4109,6 +4340,7 @@ def main() -> int:
     d_errs = slice_d_kernel_checks(dev)
     a3_errs = unfused_kernel_checks(dev)
     e1_checks = poisson_checks(dev)
+    ragged_checks(dev)
 
     kernels = {"pair_force": pair_kernel.PAIR_FORCE, "rebin": rebin_kernel.REBIN,
                "newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
@@ -4184,6 +4416,8 @@ def main() -> int:
         "overflow": False, "launches": launches_v2, "timed_launches": timed_v2,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }), flush=True)
+    for what, spec in (("v1 path (#1)", engine.spec), ("v2 path (#6)", engine2.spec)):
+        print(json.dumps({"phase": "launch_plans", "what": what, **plan_of(spec)}), flush=True)
 
     # 3c. the BDHI-FCM path, with its own zeroed launch counts
     fcm_path = fcm_main_path(dev, {"pencil_spread": pencil_ibm.SPREAD,
@@ -4192,6 +4426,8 @@ def main() -> int:
     # 3d. the BDHI-PSE path, with its own zeroed launch counts
     pse_path = pse_main_path(dev, pse_counters())
     check(not pse_path["fails"], "; ".join(pse_path["fails"]))
+    print(json.dumps({"phase": "launch_plans", "what": "PSE near grid (#6)",
+                      **plan_of(pse_path["be"].spec)}), flush=True)
 
     # 4. kernel times at each path's final shapes
     slot_bytes = 4 * engine.spec.n_slots

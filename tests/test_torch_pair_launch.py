@@ -1,0 +1,156 @@
+"""Launch plans of the cell-warp kernels #1 (``csrc/pair_force.cu``) and #6
+(``csrc/newton_pair.cu``), on the CPU: no JAX, no card.
+
+For every spec the port launches them on (the LJ paths, the PSE near grid,
+the domain-decomposed shards, the small straggler and clump systems) the
+plan fits sm_90's shared memory and thread limits, covers every cell once,
+and gives at least 2 x 132 blocks wherever the grid has that many cells.
+A spec that cannot fit raises ``ValueError`` before anything is launched.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from uammd_tpu_torch.engine import _build, kernel2, layout, md, pair_kernel
+from uammd_tpu_torch.engine.layout import GridSpec
+
+
+def _spec(shape, cap, fold, n_strag=0, box=128.0):
+    return GridSpec(box_size=(box,) * 3, shape=shape, cap=cap, fold=fold, cutoff=2.5,
+                    skin=1.2, n_strag=n_strag)
+
+
+# (name, spec) as [nz, nyb, CAP, NLANE] comments; shapes are (nx, ny, nz)
+SPECS = {
+    "lj_v1": _spec((32, 40, 42), 40, 4),  # [42, 10, 40, 128]
+    "lj_v2": _spec((32, 40, 42), 32, 4, 16),  # [42, 10, 32, 128]
+    "pse_near": _spec((19, 18, 19), 32, 6, 192, box=222.27),  # [19, 3, 32, 114]
+    "dd2_shard": _spec((32, 40, 10), 32, 4, 16),  # [10, 10, 32, 128]
+    "dd_v1_slab": _spec((32, 40, 12), 40, 4),  # [12, 10, 40, 128]
+    "clump_shard": _spec((16, 15, 4), 16, 5, 24, box=48.0),  # [4, 3, 16, 80]
+    "cap8_nlane16": _spec((4, 8, 4), 8, 4, 128, box=12.0),  # [4, 2, 8, 16]
+    "cap8_nlane48": _spec((12, 8, 6), 8, 4, 64, box=30.0),  # [6, 2, 8, 48]
+}
+PLANS = {"pair_force": pair_kernel.pair_launch_plan,
+         "newton_pair": kernel2.newton_launch_plan}
+
+
+def _smem(kind, spec, cc, fc):
+    w = (cc + 2) * (fc + 2)
+    if kind == "pair_force":  # float4 pos[3][cap][W | 1], float4 shift[3][W], int x 3 [3][W]
+        return 3 * (16 * spec.cap * (w | 1) + (16 + 12) * w)
+    # float4 pos[2][cap][W | 1], float react[3][2][cap][W | 1], float4
+    # shift[2][W], int x 2 [2][W], float strag[4][S], int reach[S], int box[8]
+    return 2 * (28 * spec.cap * (w | 1) + (16 + 8) * w) + 20 * spec.n_strag + 32
+
+
+@pytest.mark.parametrize("kind", sorted(PLANS))
+@pytest.mark.parametrize("name", sorted(SPECS))
+def test_plan_fits_and_fills_the_card(kind, name):
+    spec = SPECS[name]
+    plan = PLANS[kind](spec)
+    nx, _, nz = spec.shape
+    assert 1 <= plan.cc <= nx and 1 <= plan.fc <= spec.fold
+    assert plan.threads == 32 * plan.cc * plan.fc <= 1024
+    assert plan.smem == _smem(kind, spec, plan.cc, plan.fc) <= 232448
+    # every cell in exactly one block: ceil-divided chunks of x and the fold
+    assert plan.grid == (-(-nx // plan.cc) * -(-spec.fold // plan.fc), spec.nyb, nz)
+    assert plan.blocks >= min(264, spec.n_cells)
+    if spec.n_cells >= 264:
+        assert plan.blocks >= 264
+
+
+def test_main_path_plans():
+    """The 2^20 LJ specs take 4 x 4 cells a block (16 warps, 3360 blocks);
+    the PSE near grid's 57 (z, yb) columns are cut into 8 blocks each."""
+    for kind in PLANS:
+        for name in ("lj_v1", "lj_v2"):
+            plan = PLANS[kind](SPECS[name])
+            assert (plan.cc, plan.fc, plan.blocks, plan.threads) == (4, 4, 3360, 512)
+    # the path's own kernel at each spec: three blocks fit on an SM
+    for plan in (pair_kernel.pair_launch_plan(SPECS["lj_v1"]),
+                 kernel2.newton_launch_plan(SPECS["lj_v2"])):
+        assert 3 * (plan.smem + 1024) <= 233472
+    plan = kernel2.newton_launch_plan(SPECS["pse_near"])
+    assert plan.blocks >= 264 and plan.grid[1:] == (3, 19)
+
+
+def test_plan_matches_choose_spec_at_the_lj_spec():
+    """The LJ path's spec as choose_spec builds it has the shape planned above."""
+    spec = layout.choose_spec(128.0, 1 << 20, 2.5, cap=40)
+    assert spec.array_shape == (42, 10, 40, 128)
+    assert pair_kernel.pair_launch_plan(spec).blocks == 3360
+
+
+def test_small_grid_takes_a_block_per_cell():
+    spec = _spec((4, 4, 4), 8, 1, 128, box=12.0)  # the n 600 straggler system's grid
+    for plan_of in PLANS.values():
+        plan = plan_of(spec)
+        assert (plan.cc, plan.fc, plan.blocks, plan.threads) == (1, 1, 64, 32)
+
+
+@pytest.mark.parametrize("kind", sorted(PLANS))
+def test_unfittable_spec_raises(kind):
+    too_deep = _spec((8, 8, 8), 2000, 2, 16)  # 2000 slots a cell: > 227 KB even for one cell
+    with pytest.raises(ValueError, match="shared memory"):
+        PLANS[kind](too_deep)
+
+
+def test_too_many_stragglers_raise():
+    spec = _spec((8, 8, 8), 8, 2, 20000)  # 20 bytes a straggler row
+    with pytest.raises(ValueError):
+        kernel2.newton_launch_plan(spec)
+    pair_kernel.pair_launch_plan(spec)  # #1 takes no stragglers
+
+
+@pytest.fixture
+def no_device_checks(monkeypatch):
+    """Reach the wrappers' CUDA path with meta tensors (no card here):
+    the device check is skipped and every launch is recorded."""
+    launched = []
+    monkeypatch.setattr(_build, "check_cuda_tensor", lambda *a, **k: None)
+    monkeypatch.setattr(_build.Kernel, "__call__",
+                        lambda self, *a: launched.append(self.symbol))
+    return launched
+
+
+def test_wrappers_raise_before_any_launch(no_device_checks):
+    spec = _spec((8, 8, 8), 2000, 2, 16)
+    meta = [torch.empty(spec.array_shape, device="meta") for _ in range(3)]
+    with pytest.raises(ValueError):
+        pair_kernel.make_pair_force_kernel(spec, md.lj_g())(*meta)
+    with pytest.raises(ValueError):
+        pair_kernel.make_pair_force_kernel(spec, md.lj_g(), periodic_z=False)(*meta)
+    with pytest.raises(ValueError):
+        pair_kernel.make_pair_force_kernel(spec, md.lj_g(), md.lj_e(),
+                                           compute_virial=True)(*meta)
+    strag = torch.empty((4, spec.n_strag, spec.nlane), device="meta")
+    for halo in (False, True):
+        kern = kernel2.make_newton_pair_kernel(spec, md.lj_g_fused(rc2=6.25), halo_z=halo)
+        ghost = [torch.empty((1,) + spec.array_shape[1:], device="meta")] * 3 if halo else []
+        with pytest.raises(ValueError):
+            kern(*meta, *ghost, strag)
+    assert no_device_checks == []
+
+
+def test_wrappers_pass_the_plan(no_device_checks, monkeypatch):
+    """On a spec that fits, the launch gets the plan's block shape and
+    occ_trim 0 as its last three arguments."""
+    args = []
+    monkeypatch.setattr(_build.Kernel, "__call__", lambda self, *a: args.append(a))
+    monkeypatch.setattr(_build, "ptr", lambda t: 0)
+    spec = SPECS["lj_v2"]
+    meta = [torch.empty(spec.array_shape, device="meta") for _ in range(3)]
+    kern = pair_kernel.make_pair_force_kernel(spec, md.lj_g())
+    kern(*meta)
+    assert args[-1][-3:] == (4, 4, 0)
+    newton = kernel2.make_newton_pair_kernel(spec, md.lj_g_fused(rc2=6.25), self_half=True)
+    newton.occ_trim = 1  # the control
+    strag = torch.zeros((4, spec.n_strag, spec.nlane), device="meta")
+    newton(*meta, strag)
+    assert args[-1][-3:] == (4, 4, 1)
+    assert kernel2.NewtonPairKernel.occ_trim == 0
+    assert np.prod(kern.plan.grid) == kern.plan.blocks

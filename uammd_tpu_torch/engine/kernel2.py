@@ -55,6 +55,7 @@ import torch
 from . import _build
 from .layout import GridSpec, recip32, stencil_sources
 from .md import LJFused
+from .pair_kernel import LaunchPlan, cell_block_plan
 from .pse_near import (
     PSENear,
     _strag_inv,
@@ -82,14 +83,14 @@ REACTION_GROUPS = ((1, -1), (1, 0), (1, 1), (0, 1))
 
 # uammd_newton_pair(x, y, z, strag, out, sforce, nx, nyb, nz, F, cap, S,
 #                   self_half, cellcenter, approx, Lx, Ly, Lz, c1, c2, rc2,
-#                   lo, stream)
+#                   lo, cc, fc, occ_trim, stream)
 NEWTON_PAIR = _build.Kernel(
-    "newton_pair", "uammd_newton_pair", [_P] * 6 + [_I] * 9 + [_F] * 7)
+    "newton_pair", "uammd_newton_pair", [_P] * 6 + [_I] * 9 + [_F] * 7 + [_I] * 3)
 # uammd_newton_pair_halo(x, y, z, gx, gy, gz, strag, out, sforce, nx, nyb,
 #                        nz, F, cap, S, self_half, approx, Lx, Ly, Lz, c1,
-#                        c2, rc2, lo, stream): the halo_z mode
+#                        c2, rc2, lo, cc, fc, occ_trim, stream): the halo_z mode
 NEWTON_PAIR_HALO = _build.Kernel(
-    "newton_pair", "uammd_newton_pair_halo", [_P] * 9 + [_I] * 8 + [_F] * 7)
+    "newton_pair", "uammd_newton_pair_halo", [_P] * 9 + [_I] * 8 + [_F] * 7 + [_I] * 3)
 # uammd_fold(ins[15], out[3], nz, nyb, plane, stream)
 FOLD = _build.Kernel("fold", "uammd_fold", [_PP, _PP, _I, _I, _I])
 # uammd_fold_n(ins[5n], out[n], n, nz, nyb, plane, stream): the same source
@@ -101,10 +102,17 @@ FOLD_HALO = _build.Kernel("fold", "uammd_fold_halo", [_PP, _PP, _PP, _I, _I, _I]
 NEWTON_CHANNEL = _build.Kernel("newton_channel", "uammd_newton_channel",
                                [_P] * 7 + [_I] * 9 + [_F] * 6 + [_Struct])
 
-# candidate rows staged per pass in newton_pair.cu, and its shared-memory
-# budget: 9 staged rows of NLANE floats each, plus the [4, S] stragglers
-STAGE_ROWS = 8
-SMEM_BYTES = 48 * 1024
+
+def newton_launch_plan(spec: GridSpec) -> LaunchPlan:
+    """The launch of ``csrc/newton_pair.cu`` (both modes) for ``spec``: per
+    block, 2 z layers of W = (cc + 2) x (fc + 2) staged columns, each CAP
+    float4 slots and 3 reaction floats in rows W | 1 apart, plus a float4
+    shift and 2 ints; the [4, S] stragglers with an index each, and 8 ints
+    (``smem_bytes`` there)."""
+    def smem(cc, fc):
+        w = (cc + 2) * (fc + 2)
+        return 2 * (28 * spec.cap * (w | 1) + 24 * w) + 20 * spec.n_strag + 32
+    return cell_block_plan(spec, smem)
 
 
 def broadcast_stragglers(spec: GridSpec, spos, spid):
@@ -261,7 +269,13 @@ class NewtonPairKernel:
     raise. The CUDA kernel honours ``self_half`` (the self cell
     Newton-halved: each in-cell pair once) and ``strag_cellcenter`` (not
     in the halo mode, as in JAX), and takes the approximate reciprocal when
-    the radial's ``approx`` is set."""
+    the radial's ``approx`` is set. It launches with
+    ``newton_launch_plan(spec)``; a spec the plan cannot fit raises
+    ``ValueError`` before any launch. ``occ_trim`` is 0; a check's control
+    sets 1, which stops every candidate loop of the kernel one row short of
+    the cell's occupancy."""
+
+    occ_trim = 0
 
     def __init__(self, spec: GridSpec, g_fn: LJFused, *, self_half: bool = False,
                  strag_cellcenter: bool = False, halo_z: bool = False):
@@ -276,6 +290,14 @@ class NewtonPairKernel:
         self.self_half = bool(self_half)
         self.strag_cellcenter = bool(strag_cellcenter)
         self.halo_z = bool(halo_z)
+        self._plan = None
+
+    @property
+    def plan(self) -> LaunchPlan:
+        """The CUDA launch for this spec (``newton_launch_plan``)."""
+        if self._plan is None:
+            self._plan = newton_launch_plan(self.spec)
+        return self._plan
 
     def __call__(self, x, y, z, *rest):
         spec = self.spec
@@ -304,10 +326,8 @@ class NewtonPairKernel:
         if ghost is not None:
             for name, t in zip(("gx", "gy", "gz"), ghost):
                 _build.check_cuda_tensor(t, name, gshape)
-        smem = 4 * (9 * STAGE_ROWS * spec.nlane + 4 * S)
-        if smem > SMEM_BYTES:
-            raise ValueError(f"NLANE {spec.nlane} and S {S} need {smem} bytes of "
-                             f"shared memory, over the kernel's {SMEM_BYTES}")
+        plan = self.plan
+        launch = (plan.cc, plan.fc, int(self.occ_trim))
         T = spec.n_slots
         buf = torch.zeros(15 * T + 3 * S, dtype=torch.float32, device=x.device)
         out = buf[: 15 * T].view((15,) + shape)
@@ -326,13 +346,13 @@ class NewtonPairKernel:
                 P(x), P(y), P(z), sp, P(out), P(sforce),
                 nx, spec.nyb, nz, spec.fold, spec.cap, S,
                 int(self.self_half), int(self.strag_cellcenter), int(g.approx),
-                *spec.box_size, g.c1, g.c2, g.rc2, g.lo,
+                *spec.box_size, g.c1, g.c2, g.rc2, g.lo, *launch,
             )
         else:
             NEWTON_PAIR_HALO(
                 P(x), P(y), P(z), *(P(t) for t in ghost), sp, P(out), P(sforce),
                 nx, spec.nyb, nz, spec.fold, spec.cap, S, int(self.self_half), int(g.approx),
-                *spec.box_size, g.c1, g.c2, g.rc2, g.lo,
+                *spec.box_size, g.c1, g.c2, g.rc2, g.lo, *launch,
             )
         home = (out[0], out[1], out[2])
         groups = tuple((out[3 + 3 * i], out[4 + 3 * i], out[5 + 3 * i]) for i in range(4))

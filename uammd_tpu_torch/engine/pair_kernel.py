@@ -19,7 +19,9 @@ On CUDA tensors the wrapper launches the hand-written kernel
 for the forces alone, ``uammd_pair_force_obs`` with every output; on CPU
 tensors it runs ``pair_force_plain``, the plain PyTorch version that the
 tests hold against the JAX kernel and that ``chip_smoke.py`` holds the CUDA
-kernel against.
+kernel against. The kernel runs one warp per cell in blocks of up to 16
+cells; ``pair_launch_plan`` picks the blocks' shape from the spec
+(``cell_block_plan``, shared with the Newton kernel of ``kernel2``).
 
 Also the port of ``make_pair_channel_kernel`` (#2) and
 ``broadcast_strag_channels``: the 27-stencil transverser with n_chan
@@ -38,6 +40,7 @@ instantiated for the functor; CPU tensors run ``pair_channel_plain``
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -59,17 +62,90 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 
 # uammd_pair_force(x, y, z, fx, fy, fz, nx, nyb, nz, F, cap, Lx, Ly, Lz,
-#                  rc2, clamp_lo, neg24eps, s2, stream)
+#                  rc2, clamp_lo, neg24eps, s2, cc, fc, occ_trim, stream)
 PAIR_FORCE = _build.Kernel(
-    "pair_force", "uammd_pair_force", [_P] * 6 + [_I] * 5 + [_F] * 7)
+    "pair_force", "uammd_pair_force", [_P] * 6 + [_I] * 5 + [_F] * 7 + [_I] * 3)
 # uammd_pair_force_halo: the same arguments, the halo mode (periodic_z=False)
 PAIR_FORCE_HALO = _build.Kernel(
-    "pair_force", "uammd_pair_force_halo", [_P] * 6 + [_I] * 5 + [_F] * 7)
+    "pair_force", "uammd_pair_force_halo", [_P] * 6 + [_I] * 5 + [_F] * 7 + [_I] * 3)
 
 # uammd_pair_force_obs(x, y, z, fx, fy, fz, obs, nx, nyb, nz, F, cap, Lx,
-#                      Ly, Lz, rc2, neg24eps, s2, c4eps, e_shift, stream)
+#                      Ly, Lz, rc2, neg24eps, s2, c4eps, e_shift, cc, fc,
+#                      occ_trim, stream)
 PAIR_FORCE_OBS = _build.Kernel(
-    "pair_force", "uammd_pair_force_obs", [_P] * 7 + [_I] * 5 + [_F] * 8)
+    "pair_force", "uammd_pair_force_obs", [_P] * 7 + [_I] * 5 + [_F] * 8 + [_I] * 3)
+
+# The launch shape of the cell-warp kernels (csrc/pair_force.cu and
+# csrc/newton_pair.cu): a block is one (z, yb) and a rectangle of cc x fc
+# cells along x and the fold, one warp per cell.
+SM_COUNT = 132  # H100 SXM
+MIN_BLOCKS = 2 * SM_COUNT
+MAX_BLOCK_CELLS = 16  # warps, so at most 512 threads
+MAX_SMEM = 232448  # bytes of shared memory a block may opt in to on sm_90
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One launch of a cell-warp kernel: the block's cells along x (``cc``)
+    and along the fold (``fc``), the grid (x and fold chunks, nyb, nz), the
+    threads per block and its dynamic shared memory in bytes."""
+
+    cc: int
+    fc: int
+    grid: tuple
+    threads: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def as_dict(self) -> dict:
+        return {"cc": self.cc, "fc": self.fc, "grid": list(self.grid), "blocks": self.blocks,
+                "threads": self.threads, "smem_bytes": self.smem}
+
+
+def cell_block_plan(spec: GridSpec, smem_of) -> LaunchPlan:
+    """The block shape of a cell-warp kernel for ``spec``, ``smem_of(cc,
+    fc)`` giving a block's shared memory. It keeps to at least
+    ``MIN_BLOCKS`` blocks (or one per cell on a grid with fewer cells),
+    ``MAX_BLOCK_CELLS`` cells and ``MAX_SMEM`` bytes, prefers blocks small
+    enough for two to share an SM, and then the fewest staged columns over
+    the launch (each block stages its cells with a one-cell halo). Raises
+    ``ValueError`` when no shape fits."""
+    nx, _, nz = spec.shape
+    F, nyb = spec.fold, spec.nyb
+    if spec.n_slots >= 2 ** 31:
+        raise ValueError(f"{spec.n_slots} slots per grid exceed the kernels' 32-bit indices")
+    target = min(MIN_BLOCKS, spec.n_cells)
+    best = None
+    for cc in range(1, min(nx, MAX_BLOCK_CELLS) + 1):
+        for fc in range(1, min(F, MAX_BLOCK_CELLS // cc) + 1):
+            smem = int(smem_of(cc, fc))
+            grid = (-(-nx // cc) * -(-F // fc), nyb, nz)
+            blocks = grid[0] * nyb * nz
+            if smem > MAX_SMEM or blocks < target:
+                continue
+            key = (smem > MAX_SMEM // 2, blocks * (cc + 2) * (fc + 2), -cc * fc)
+            if best is None or key < best[0]:
+                best = (key, LaunchPlan(cc, fc, grid, 32 * cc * fc, smem))
+    if best is None:
+        raise ValueError(f"no block of the cell-warp kernel fits the spec "
+                         f"{spec.array_shape} (CAP {spec.cap}, S {spec.n_strag}) in "
+                         f"{MAX_SMEM} bytes of shared memory")
+    return best[1]
+
+
+def pair_launch_plan(spec: GridSpec) -> LaunchPlan:
+    """The launch of ``csrc/pair_force.cu`` (every mode) for ``spec``: per
+    block, 3 z layers of W = (cc + 2) x (fc + 2) staged columns, each CAP
+    float4 slots in rows W | 1 apart, plus a float4 shift and 3 ints
+    (``smem_bytes`` there)."""
+    def smem(cc, fc):
+        w = (cc + 2) * (fc + 2)
+        return 3 * (16 * spec.cap * (w | 1) + 28 * w)
+    return cell_block_plan(spec, smem)
+
 
 # uammd_pair_channel(x, y, z, ch, strag, out, spart, nv, nx, nyb, nz, F,
 #                    cap, S, rows, kJ, Lx, Ly, Lz, iLx, iLy, iLz, near, stream)
@@ -131,11 +207,6 @@ def _strag_functor_kernel(symbol: str, params) -> _build.Kernel:
 
 
 PAIR_CHANNEL_POISSON = _strag_functor_kernel("uammd_pair_channel_poisson", PoissonParams)
-
-# The kernel stages 9 * 8 candidate rows of NLANE floats in 48 KB of
-# shared memory.
-MAX_NLANE = 48 * 1024 // (9 * 8 * 4)
-
 
 class LJRadial:
     """(dE/dr)/r of 12-6 LJ as ``md.lj_g`` computes it: one reciprocal
@@ -270,7 +341,12 @@ class PairForceKernel:
     ``csrc/pair_force.cu`` (the force alone counted in
     ``PAIR_FORCE.launches``, its halo mode ``periodic_z=False`` in
     ``PAIR_FORCE_HALO.launches``, the observable mode in
-    ``PAIR_FORCE_OBS.launches``) or raise."""
+    ``PAIR_FORCE_OBS.launches``) with ``pair_launch_plan(spec)``, or raise
+    (a spec the plan cannot fit raises ``ValueError`` before any launch).
+    ``occ_trim`` is 0; a check's control sets 1, which stops every candidate
+    loop of the kernel one row short of the cell's occupancy."""
+
+    occ_trim = 0
 
     def __init__(self, spec: GridSpec, g_fn, clamp_lo: float = 4e-3, e_fn=None,
                  compute_virial: bool = False, compute_stress: bool = False,
@@ -284,6 +360,14 @@ class PairForceKernel:
         self.e_fn = e_fn
         self.compute_virial = bool(compute_virial)
         self.compute_stress = bool(compute_stress)
+        self._plan = None
+
+    @property
+    def plan(self) -> LaunchPlan:
+        """The CUDA launch for this spec (``pair_launch_plan``)."""
+        if self._plan is None:
+            self._plan = pair_launch_plan(self.spec)
+        return self._plan
 
     @property
     def observables(self) -> bool:
@@ -304,8 +388,8 @@ class PairForceKernel:
         if self.e_fn is not None and not isinstance(self.e_fn, LJEnergy):
             raise TypeError("the CUDA pair kernel computes the LJ energy only (md.lj_e)")
         spec = self.spec
-        if spec.nlane > MAX_NLANE:
-            raise ValueError(f"NLANE {spec.nlane} exceeds the kernel's {MAX_NLANE}")
+        plan = self.plan
+        launch = (plan.cc, plan.fc, int(self.occ_trim))
         nx, _, nz = spec.shape
         Lx, Ly, Lz = spec.box_size
         fx, fy, fz = (torch.empty_like(x) for _ in range(3))
@@ -317,7 +401,7 @@ class PairForceKernel:
                 nx, spec.nyb, nz, spec.fold, spec.cap,
                 Lx, Ly, Lz, rc2,
                 float(np.float32(self.clamp_lo)),
-                self.g_fn.neg24eps, self.g_fn.s2,
+                self.g_fn.neg24eps, self.g_fn.s2, *launch,
             )
             return fx, fy, fz
         # every output is computed; the ones not asked for are dropped
@@ -326,7 +410,7 @@ class PairForceKernel:
         PAIR_FORCE_OBS(
             P(x), P(y), P(z), P(fx), P(fy), P(fz), P(obs),
             nx, spec.nyb, nz, spec.fold, spec.cap, Lx, Ly, Lz, rc2,
-            self.g_fn.neg24eps, self.g_fn.s2, e.c4eps, e.e_shift,
+            self.g_fn.neg24eps, self.g_fn.s2, e.c4eps, e.e_shift, *launch,
         )
         out = (fx, fy, fz)
         if self.e_fn is not None:
