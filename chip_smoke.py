@@ -102,6 +102,20 @@ Imports nothing of JAX or of the JAX package. Phases:
      (``pair_kernel.pair_launch_plan``, ``kernel2.newton_launch_plan``) is
      printed (``launch_plans``) with the kernel's own count of its shared
      memory, which must equal the plan's.
+   - ragged occupancy of #2 (``ragged_channel_checks``): every functor
+     (DPD, SPH density and force, LJ mixture and masked, Poisson and PSE at
+     1 and 2 vectors, the last two with 15 valid straggler rows and an
+     invalid one) on three seeded states with cells of 3.0 and cutoffs of
+     2.9: NLANE 114 at CAP 40 (occupancies 0-40), a small-cell state (CAP
+     16, mean <= 8) and a large-cell one (CAP 160, mean >= 100), each with
+     an empty (z, yb) column and a cell full to CAP; periodic and, for the
+     straggler-free functors, in the halo mode on the state with a ghost
+     row above; clean and with one x = NaN, whose NaN must land in exactly
+     the plain version's slots and sums (grids and straggler totals). Each
+     within ``CHANNEL_TOL`` of max|ref| (SPH's force: of sum_j |term|);
+     control: the candidate loops one row short must fail it. The plans
+     (``pair_kernel.channel_launch_plan``) are printed with the kernel's own
+     shared memory and threads, which must equal the plan's.
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -202,7 +216,7 @@ the build and slice D's phases (the observables on the v2 engine's
 jittered fcc start), ``--only-unfused`` the build, slice A3's checks, the
 v1 melt and the unfused v2 path, ``--only-poisson`` the build and slice
 E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases,
-``--only-ragged`` the build and the ragged-occupancy checks of #1 and #6;
+``--only-ragged`` the build and the ragged-occupancy checks of #1, #6 and #2;
 none prints a result line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
@@ -1590,6 +1604,7 @@ def pse_breakdown(run, card, errs):
             t["pair_channel_6ch"], plain_27, ops2, ch_bytes, errs["err_27"],
             {"shape": "6 channels at the PSE path's final state", "pairs": pairs,
              "ms_3ch": t["pair_channel_3ch"],
+             "launch_plan": channel_plan_of(spec, be.near_fn(), 2),
              "note": "off the main path on the card (newton=False, and the cross-check of #10)"}),
         row("newton_channel", "newton_channel.cu", "uammd_tpu/engine/kernel2.py:992",
             t["newton_channel_6ch"], plain_nt, ops2, ch_bytes, errs["err_newton"],
@@ -2106,11 +2121,12 @@ def functor_pairs(spec, x, y, z, pid, rc2_of) -> dict:
 
 
 def functor_row(name, rep, launches, err_abs, ms, plain_ms, pairs, ops, n_io, spec,
-                int_ops=0, extra=None):
+                int_ops=0, extra=None, fn=None):
     """A kernels-line row for one #2 functor instantiation: the bound is the
     larger of the operations (OPS_PAIR_TEST per candidate pair, ``ops``
     float32 and ``int_ops`` integer operations per pair inside) and the
-    bytes (``n_io`` grids in and out)."""
+    bytes (``n_io`` grids in and out). With the functor ``fn`` the row also
+    carries the launch plan (``channel_plan_of``)."""
     ops_ms = 1e3 * ((OPS_PAIR_TEST * pairs["candidates"] + ops * pairs["inside"])
                     / PEAK_FP32_FLOPS + int_ops * pairs["inside"] / (PEAK_FP32_FLOPS / 2))
     bytes_ms = 1e3 * 4 * n_io * spec.n_slots / PEAK_HBM_BYTES
@@ -2119,7 +2135,8 @@ def functor_row(name, rep, launches, err_abs, ms, plain_ms, pairs, ops, n_io, sp
             "replaces": rep, "launches": launches, "max_abs_err": err_abs, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "library_ms": None,
-            "pairs": pairs, **(extra or {})}
+            "pairs": pairs, **(extra or {}),
+            **({"launch_plan": channel_plan_of(spec, fn)} if fn is not None else {})}
 
 
 def engine_breakdown(what, run, card, parts):
@@ -2181,7 +2198,7 @@ def slice_d_paths(dev, card, gs2, engine2):
                             dpd["launches"]["pair_channel_dpd"], err_abs, pair_ms, plain_ms,
                             pairs, OPS_DPD, 10, md.spec, int_ops=OPS_DPD_INT,
                             extra={"rel_err": err, "control_step_off_by_one": c,
-                                   "shape": list(md.spec.array_shape)}))
+                                   "shape": list(md.spec.array_shape)}, fn=fn))
     del dpd, md, gs, args
     # SPH
     sph = sph_main_path(dev)
@@ -2207,13 +2224,14 @@ def slice_d_paths(dev, card, gs2, engine2):
     rows.append(functor_row("pair_channel_sph_density", rep.format("sph_density_pair_fn", 42),
                             sph["launches"]["pair_channel_sph_density"], abs_rho, rho_ms,
                             rho_plain, pairs, OPS_SPH_DENSITY, 5, ms.spec,
-                            extra={"rel_err": e_rho, "shape": list(ms.spec.array_shape)}))
+                            extra={"rel_err": e_rho, "shape": list(ms.spec.array_shape)},
+                            fn=ms.rho_kern.fn))
     rows.append(functor_row("pair_channel_sph_force", rep.format("sph_force_pair_fn", 55),
                             sph["launches"]["pair_channel_sph_force"], abs_f, f_ms, f_plain,
                             pairs, OPS_SPH_FORCE, 11, ms.spec,
                             extra={"rel_err_vs_sum_abs_terms": e_f, **f_info,
                                    "control_p_j_dropped": c_f,
-                                   "shape": list(ms.spec.array_shape)}))
+                                   "shape": list(ms.spec.array_shape)}, fn=ms.f_kern.fn))
     del sph, ms, gs, a_rho, a_f
     # LJ mixture at N = 2^20
     rng = np.random.default_rng(15)
@@ -2245,7 +2263,7 @@ def slice_d_paths(dev, card, gs2, engine2):
                             "uammd_tpu/engine/mixtures.py:40)", mix_launches, abs_mix, mix_ms,
                             mix_plain, pairs, OPS_LJ_MIX, 8, mx.spec,
                             extra={"rel_err": e_mix, "shape": list(mx.spec.array_shape),
-                                   "forces_call_ms": forces_ms}))
+                                   "forces_call_ms": forces_ms}, fn=mx.kern.fn))
     print(json.dumps({"phase": "mixture_2^20", "n": N, "box": MIX_L, "density": MIX_RHO,
                       "spec": list(mx.spec.array_shape), "forces_ms": forces_ms,
                       "kernel_ms": mix_ms, "launches": mix_launches, "rel_err": e_mix,
@@ -2286,7 +2304,8 @@ def slice_d_paths(dev, card, gs2, engine2):
                             mh_c.coarse_spec,
                             extra={"rel_err": e_m, "control_mask_ignored": c_m,
                                    "shape": list(mh_c.coarse_spec.array_shape),
-                                   "note": "a kernel check on the hierarchy system, not a path"}))
+                                   "note": "a kernel check on the hierarchy system, not a path"},
+                            fn=fn))
     print(json.dumps({"phase": "mixture_hierarchy", "n": len(hp), "box": HIER_L,
                       "coarse_spec": list(mh_c.coarse_spec.array_shape),
                       "fine_spec": list(mh_c.fine.spec.array_shape), "launches": hier_launches,
@@ -3102,7 +3121,8 @@ def poisson_main_path(dev, card, checks):
                       "(poisson.py:350-395 functor)", launches["pair_channel_poisson"], err_abs,
                       t["near_pair_channel_poisson"], plain_ms, pairs, OPS_POISSON, 8, ps.spec,
                       extra={"checks": checks["functor"],
-                             "launches_per_timed_step": timed["pair_channel_poisson"] / E_TIMED})
+                             "launches_per_timed_step": timed["pair_channel_poisson"] / E_TIMED},
+                      fn=fn)
     return row, {"ms": ms, "launches": launches, "spread_ms": t["spread"],
                  "interp_ms": t["interpolate"]}
 
@@ -3936,7 +3956,8 @@ def dd_channel_rows(card, runs, checks):
                               int_ops=int_ops,
                               extra={"rel_err": checks[key][0],
                                      "control_ghost_shift_dropped": checks[key][1],
-                                     "shape": list(local.array_shape), "note": note})
+                                     "shape": list(local.array_shape), "note": note,
+                                     "launch_plan": channel_plan_of(local, fn)})
             rows.append(row)
         del xyz, v, pe, m
     return rows
@@ -3990,10 +4011,13 @@ RAGGED_GRIDS = (((19, 18, 8), 6), ((12, 24, 16), 4), ((4, 8, 5), 4))
 RAGGED_CELL, RAGGED_CAP, RAGGED_STRAG = 3.0, 40, 16
 
 
-def ragged_state(dev, shape, fold, seed, nan=False, extra_rows=0):
+def ragged_state(dev, shape, fold, seed, nan=False, extra_rows=0, cap=RAGGED_CAP, k=4,
+                 occ_lo=0):
     """The seeded ragged state on ``shape`` (nx, ny, nz) cells, with
-    ``extra_rows`` more z rows above (a halo mode's ghost row): a namespace
-    of spec, x, y, z, mask, spos, spid, as a ``GridState`` has them."""
+    ``extra_rows`` more z rows above (a halo mode's ghost row), CAP ``cap``,
+    occupancies drawn from ``occ_lo`` to CAP on a k^3 sub-lattice of each cell:
+    a namespace of spec, x, y, z, mask, spos, spid, as a ``GridState`` has
+    them."""
     import types
 
     import numpy as np
@@ -4003,10 +4027,9 @@ def ragged_state(dev, shape, fold, seed, nan=False, extra_rows=0):
     nx, ny, nz = shape
     nzt = nz + extra_rows
     box = (nx * RAGGED_CELL, ny * RAGGED_CELL, nzt * RAGGED_CELL)
-    spec = layout.GridSpec(box_size=box, shape=(nx, ny, nzt), cap=RAGGED_CAP, fold=fold,
+    spec = layout.GridSpec(box_size=box, shape=(nx, ny, nzt), cap=cap, fold=fold,
                            cutoff=2.5, skin=1.2, n_strag=RAGGED_STRAG)
     rng = np.random.default_rng(seed)
-    k = 4  # sub-lattice sites per axis of a cell
     sub = (np.stack(np.meshgrid(*[np.arange(k)] * 3, indexing="ij"), -1).reshape(-1, 3) + 0.5)
     sub = sub * (RAGGED_CELL / k)
     arr = np.full((3,) + spec.array_shape, layout.EMPTY_POS, np.float32)
@@ -4017,15 +4040,15 @@ def ragged_state(dev, shape, fold, seed, nan=False, extra_rows=0):
         for cy in range(ny):
             yb, f = divmod(cy, fold)
             for cx in range(nx):
-                n = int(rng.integers(0, RAGGED_CAP + 1))
+                n = int(rng.integers(occ_lo, cap + 1))
                 if (cz, yb) == empty_col:
                     n = 0
                 if (cx, cy, cz) == (1, 1, 1):
-                    n = RAGGED_CAP
+                    n = cap
                 sites = rng.permutation(len(sub))
-                rows = rng.choice(RAGGED_CAP, n, replace=False)
+                rows = rng.choice(cap, n, replace=False)
                 corner = lo + RAGGED_CELL * np.array([cx, cy, cz])
-                p = corner + sub[sites[:n]] + rng.uniform(-0.05, 0.05, (n, 3))
+                p = corner + sub[sites[:n]] + rng.uniform(-0.05, 0.05, (n, 3)) * (4 / k)
                 arr[:, cz, yb, rows, cx * fold + f] = p.T
                 if n < len(sub) and cz < nz:
                     free.append(corner + sub[sites[n]])
@@ -4153,9 +4176,195 @@ def check_ragged_newton(st, ghost_st, what) -> dict:
     return out
 
 
+def channel_plan_of(spec, fn, nvec=1) -> dict:
+    """#2's launch plan for ``spec`` and the functor ``fn``, with the
+    kernel's own count of its shared memory and threads, which must equal
+    the plan's."""
+    import ctypes
+    from uammd_tpu_torch.engine import _build, pair_kernel
+
+    plan = pair_kernel.channel_launch_plan(spec, fn, nvec)
+    ng = pair_kernel.channel_grid_channels(fn, nvec)
+    S = spec.n_strag if not isinstance(fn, pair_kernel.ChannelFunctor) or fn.strag else 0
+    lib = _build.load("pair_channel")
+    lib.uammd_pair_channel_smem.restype = ctypes.c_longlong
+    smem = lib.uammd_pair_channel_smem(spec.cap, plan.cc, plan.fc, ng, S)
+    threads = lib.uammd_pair_channel_threads(spec.cap, plan.cc, plan.fc)
+    name = type(fn).__name__ + (f" nvec {nvec}" if nvec > 1 else "")
+    check(smem == plan.smem and threads == plan.threads,
+          f"pair_channel ({name}) at {spec.array_shape}: the kernel's shared memory {smem} == "
+          f"the plan's {plan.smem}, threads {threads} == {plan.threads}")
+    return {"functor": name, "spec": list(spec.array_shape), "n_strag": S, **plan.as_dict()}
+
+
+# #2 on ragged occupancy: every functor on three seeded states with cells
+# of 3.0 and each functor's cutoff at 2.9 (the mixtures': 2.5 sigma_ij,
+# at most 2.75): RAGGED_GRIDS[0] (NLANE 114, CAP 40, occupancies 0-40), a
+# small-cell state (NLANE 48, CAP 16, occupancies 0-16 on a 3^3 sub-lattice:
+# mean <= 8) and a large-cell one (NLANE 16, CAP 160, occupancies 70-160
+# on a 6^3 sub-lattice: mean >= 100), each with an empty (z, yb) column and
+# a cell full to CAP; Poisson and PSE with the 16 straggler rows.
+RAGGED_CH_CUT = 2.9
+RAGGED_CH_STATES = (("cap40", RAGGED_GRIDS[0][0], RAGGED_GRIDS[0][1], {}),
+                    ("cap16", (12, 24, 16), 4, {"cap": 16, "k": 3}),
+                    ("cap160", (4, 8, 5), 4, {"cap": 160, "k": 6, "occ_lo": 70}))
+
+
+def ragged_channel_cases(st, seed):
+    """(name, functor, nvec, channels, straggler channels or None, scale
+    by sum_j |term|) for each functor of #2 on the ragged state ``st``:
+    seeded channels, 0 on empty slots (pid -1)."""
+    import math as m
+
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.electrostatics.poisson import GaussianNearField
+    from uammd_tpu_torch.engine.dpd import DPDPair
+    from uammd_tpu_torch.engine.mixtures import LJMixturePair, LJMixturePairMasked
+    from uammd_tpu_torch.engine.pse_near import PSENear
+    from uammd_tpu_torch.engine.sph import SPHDensityPair, SPHForcePair
+    from uammd_tpu_torch.interactors.sph import SPHParams
+
+    dev = st.x.device
+    occ = ~(st.x >= 5e8)
+    rng = np.random.default_rng(seed)
+    S = st.spec.n_strag
+
+    def grid(lo, hi):
+        v = torch.tensor(rng.uniform(lo, hi, tuple(st.x.shape)), dtype=torch.float32, device=dev)
+        return torch.where(occ, v, torch.zeros_like(v))
+
+    def rows(lo, hi):
+        return torch.tensor(rng.uniform(lo, hi, S), dtype=torch.float32, device=dev)
+
+    pid = torch.where(occ, torch.cumsum(occ.reshape(-1).long(), 0).reshape(occ.shape) - 1,
+                      torch.full_like(st.x, -1, dtype=torch.long)).to(torch.float32)
+    step = torch.tensor(7.0, dtype=torch.float32, device=dev)
+    vel = [grid(-1.0, 1.0) for _ in range(3)]
+    mass = occ.to(torch.float32)
+    hs = grid(0.3, 0.55)
+    se = grid(0.7, 1.0)
+    small = torch.where(occ & (hs < 0.42), 1.0, 0.0).to(torch.float32)
+    h = RAGGED_CH_CUT / 2
+    gw, ngw = 0.25, 0.478
+    near = GaussianNearField.create((30.0,) * 3, 1000, gw=gw, ngw=ngw, rcut=RAGGED_CH_CUT)
+    qb = 0.4
+    pse = PSENear(coef=([0.8, -0.3, 0.05, 0.01], [0.2, -0.1, 0.02],
+                        [0.1, 0.05, -0.02, 0.004], [0.03, -0.01, 0.002]),
+                  uscale=((2.0 / qb, -1.0), (2.0 / (1.0 - qb), -(1.0 + qb) / (1.0 - qb))),
+                  qb=qb, rcut=RAGGED_CH_CUT)
+    charge = torch.where(occ, torch.where(grid(0, 1) < 0.5, -1.0, 1.0), 0.0).to(torch.float32)
+    force = [grid(-1.0, 1.0) for _ in range(6)]
+    return [
+        ("dpd", DPDPair(RAGGED_CH_CUT, 25.0, 4.5, m.sqrt(2 * 4.5 / 0.01)), 1,
+         [*vel, pid, step], None, False),
+        ("sph_density", SPHDensityPair(h), 1, [mass], None, False),
+        ("sph_force", SPHForcePair(SPHParams(support=h, viscosity=20.0)), 1,
+         [grid(0.5, 2.0), *vel, mass], None, True),
+        ("lj_mix", LJMixturePair(2.5), 1, [se, hs], None, False),
+        ("lj_mix_masked", LJMixturePairMasked(2.5), 1, [se, hs, small], None, False),
+        ("poisson", near.pair_fn(), 1, [charge], [torch.where(rows(0, 1) < 0.5, -1.0, 1.0)],
+         False),
+        ("pse_nvec1", pse, 1, force[:3], [rows(-1, 1) for _ in range(3)], False),
+        ("pse_nvec2", pse, 2, force, [rows(-1, 1) for _ in range(6)], False),
+    ]
+
+
+def check_ragged_channel(st, case, what, periodic_z=True, control=False) -> dict:
+    """#2 with one functor on a ragged state against its plain version:
+    the NaN slots of every output (grids and straggler totals) exactly the
+    plain version's, the rest within CHANNEL_TOL of max|ref| (or of the
+    largest sum_j |term| where the case says so). With ``control`` each
+    candidate loop stops one row short and the bound must fail."""
+    import dataclasses
+
+    import torch
+    from uammd_tpu_torch.engine import pair_kernel
+
+    name, fn, nvec, chans, srows, by_terms = case
+    pse = not isinstance(fn, pair_kernel.ChannelFunctor)
+    spec = st.spec if srows is not None else dataclasses.replace(st.spec, n_strag=0)
+    kern = pair_kernel.make_pair_channel_kernel(spec, fn, nvec, periodic_z=periodic_z)
+    kern.occ_trim = int(control)
+    blk = rows = None
+    if srows is not None:
+        blk = pair_kernel.broadcast_strag_channels(spec, st.spos, tuple(srows), st.spid)
+        rows = blk[:, :, 0]
+    got = list(kern(st.x, st.y, st.z, *chans, strag=blk))
+    if pse:
+        g, sp = pair_kernel.pair_channel_plain(spec, fn, nvec, st.x, st.y, st.z, chans, blk)
+        want = list(g) + (list(sp) if sp is not None else [])
+    elif rows is not None:
+        want = list(pair_kernel.functor_plain(spec, fn, st.x, st.y, st.z, chans, rows))
+    else:
+        want = list(pair_kernel.channel_plain(spec, fn, fn.n_out, st.x, st.y, st.z, chans,
+                                              periodic_z))
+    n_nan = sum(int(b.isnan().sum()) for b in want)
+    nan_ok = all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(got, want))
+    fin = [b.isfinite() for b in want]
+    scale = max(float(b[f].abs().max()) if bool(f.any()) else 0.0 for b, f in zip(want, fin))
+    if by_terms:
+        absum = pair_kernel.channel_plain(spec, lambda *a: tuple(t.abs() for t in fn(*a)),
+                                          fn.n_out, st.x, st.y, st.z, chans, periodic_z)
+        scale = max(float(a[a.isfinite()].max()) for a in absum)
+    err = max(float((a[f] - b[f]).abs().max()) if bool(f.any()) else 0.0
+              for a, b, f in zip(got, want, fin)) / scale
+    mode = "halo" if not periodic_z else "periodic"
+    if control:
+        check(err > CHANNEL_TOL, f"{what}: #2 {name} {mode} control (candidate loops one row "
+                                 f"short) fails the bound ({err:.3g} > {CHANNEL_TOL})")
+        return {"control_one_row_short": err}
+    check(nan_ok, f"{what}: #2 {name} {mode} puts NaN in exactly the plain version's slots "
+                  f"and sums ({n_nan})")
+    check(err < CHANNEL_TOL, f"{what}: #2 {name} {mode} vs plain {err:.3g} < {CHANNEL_TOL}")
+    return {"rel_err": err, "nan_slots": n_nan}
+
+
+def ragged_channel_checks(dev) -> dict:
+    """#2's ragged-occupancy checks: each functor on each state of
+    RAGGED_CH_STATES, clean and with one x = NaN, periodic and (the
+    straggler-free functors) in the halo mode on the state with a ghost
+    row above, with the control on the clean periodic state; the launch
+    plans printed first."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for k, (label, shape, fold, kw) in enumerate(RAGGED_CH_STATES):
+        states = {(nan, extra): ragged_state(dev, shape, fold, seed=80 + k, nan=nan,
+                                             extra_rows=extra, **kw)
+                  for nan in (False, True) for extra in (0, 1)}
+        st = states[(False, 0)]
+        occ = (st.x < 5e8).sum(dim=2)
+        what = f"ragged #2 {label}"
+        entry = {"spec": list(st.spec.array_shape),
+                 "occupancy_min_mean_max": [int(occ.min()), float(occ.float().mean()),
+                                            int(occ.max())], "plans": [], "checks": {}}
+        for (nan, extra), s in states.items():
+            cases = ragged_channel_cases(s, seed=70 + k)
+            for case in cases:
+                name, fn, nvec, _, srows, _ = case
+                if extra and srows is not None:
+                    continue  # the halo mode serves the straggler-free functors
+                res = entry["checks"].setdefault(name, {})
+                if not nan and not extra:
+                    sp = s.spec if srows is not None else dataclasses.replace(s.spec, n_strag=0)
+                    entry["plans"].append(channel_plan_of(sp, fn, nvec))
+                    res.update(check_ragged_channel(s, case, what, control=True))
+                key = ("nan_" if nan else "") + ("halo" if extra else "periodic")
+                res[key] = check_ragged_channel(s, case, what, periodic_z=not extra)
+        print(json.dumps({"phase": "launch_plans", "what": what, "pair_channel": entry["plans"]}),
+              flush=True)
+        out[label] = entry
+        del states
+    torch.cuda.empty_cache()
+    return out
+
+
 def ragged_checks(dev) -> dict:
     """The ragged-occupancy checks of #1 and #6 on the three grids, with
-    their launch plans printed first."""
+    their launch plans printed first, then #2's (``ragged_channel_checks``)."""
     import torch
 
     out = {}
@@ -4175,6 +4384,7 @@ def ragged_checks(dev) -> dict:
         out[f"nlane_{st.spec.nlane}"] = entry
         del st, clean, tall
     torch.cuda.empty_cache()
+    out["pair_channel"] = ragged_channel_checks(dev)
     print(json.dumps({"phase": "ragged_kernel_checks", "ok": True, **out,
                       "slot_tol": SLOT_TOL, "fast_recip_tol": FAST_RECIP_TOL,
                       "fast_recip_slot_tol": FAST_RECIP_SLOT_TOL,

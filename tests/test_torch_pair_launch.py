@@ -1,11 +1,14 @@
 """Launch plans of the cell-warp kernels #1 (``csrc/pair_force.cu``) and #6
-(``csrc/newton_pair.cu``), on the CPU: no JAX, no card.
+(``csrc/newton_pair.cu``) and of the channel kernel #2
+(``csrc/pair_channel.cu``), on the CPU: no JAX, no card.
 
 For every spec the port launches them on (the LJ paths, the PSE near grid,
-the domain-decomposed shards, the small straggler and clump systems) the
-plan fits sm_90's shared memory and thread limits, covers every cell once,
-and gives at least 2 x 132 blocks wherever the grid has that many cells.
-A spec that cannot fit raises ``ValueError`` before anything is launched.
+the domain-decomposed shards, the small straggler and clump systems; for
+#2 the DPD, SPH, mixture, hierarchy, Poisson and PSE grids and the DD
+slabs, with each functor's channels) the plan fits sm_90's shared memory
+and thread limits, covers every cell once, and gives at least 2 x 132
+blocks wherever the grid has that many cells. A spec that cannot fit
+raises ``ValueError`` before anything is launched.
 """
 
 from __future__ import annotations
@@ -14,8 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from uammd_tpu_torch.electrostatics.poisson import PoissonNear
 from uammd_tpu_torch.engine import _build, kernel2, layout, md, pair_kernel
+from uammd_tpu_torch.engine.dpd import DPDPair
 from uammd_tpu_torch.engine.layout import GridSpec
+from uammd_tpu_torch.engine.mixtures import LJMixturePair, LJMixturePairMasked
+from uammd_tpu_torch.engine.pse_near import PSENear
+from uammd_tpu_torch.engine.sph import SPHDensityPair, SPHForcePair
+from uammd_tpu_torch.interactors.sph import SPHParams
 
 
 def _spec(shape, cap, fold, n_strag=0, box=128.0):
@@ -154,3 +163,115 @@ def test_wrappers_pass_the_plan(no_device_checks, monkeypatch):
     assert args[-1][-3:] == (4, 4, 1)
     assert kernel2.NewtonPairKernel.occ_trim == 0
     assert np.prod(kern.plan.grid) == kern.plan.blocks
+
+
+# #2: (spec as [nz, nyb, CAP, NLANE], functor, nvec); shapes are (nx, ny, nz)
+_POISSON = PoissonNear(17.5, 0.3, [[1.0, 0.5]] * 2, [[0.2, 0.1]] * 2, ((1.0, 0.0), (1.0, 0.0)))
+_PSE = PSENear(coef=([1.0, 0.5],) * 4, uscale=((1.0, 0.0), (1.0, 0.0)), qb=0.3, rcut=4.0)
+CHANNEL_CASES = {
+    "dpd": (_spec((64, 64, 64), 16, 2, box=70.4), DPDPair(1.0, 25.0, 4.5, 30.0), 1),
+    "sph_density": (_spec((32, 36, 36), 48, 4, box=81.3), SPHDensityPair(1.0), 1),
+    "sph_force": (_spec((32, 36, 36), 48, 4, box=81.3), SPHForcePair(SPHParams()), 1),
+    "lj_mix": (_spec((32, 36, 37), 48, 4, box=151.8), LJMixturePair(2.5), 1),
+    "hierarchy": (_spec((7, 6, 7), 24, 2, box=72.0), LJMixturePairMasked(2.5), 1),
+    "poisson": (_spec((10, 9, 10), 216, 3, box=192.0), _POISSON, 1),
+    "poisson_strag64": (_spec((10, 9, 10), 216, 3, 64, box=192.0), _POISSON, 1),
+    "pse_nvec1": (SPECS["pse_near"], _PSE, 1),
+    "pse_nvec2": (SPECS["pse_near"], _PSE, 2),
+    "dd_dpd_slab": (_spec((64, 64, 18), 16, 2, box=70.4), DPDPair(1.0, 25.0, 4.5, 30.0), 1),
+    "dd_sph_slab": (_spec((32, 36, 11), 48, 4, box=81.3), SPHForcePair(SPHParams()), 1),
+}
+CHANNEL_SHAPES = {
+    "dpd": (64, 32, 16, 128), "sph_density": (36, 9, 48, 128), "sph_force": (36, 9, 48, 128),
+    "lj_mix": (37, 9, 48, 128), "hierarchy": (7, 3, 24, 14), "poisson": (10, 3, 216, 30),
+    "poisson_strag64": (10, 3, 216, 30), "pse_nvec1": (19, 3, 32, 114),
+    "pse_nvec2": (19, 3, 32, 114), "dd_dpd_slab": (18, 32, 16, 128),
+    "dd_sph_slab": (11, 9, 48, 128),
+}
+
+
+def _channel_warps(cap, cc, fc):
+    """The chunks the block's cells should give at the mean occupancy
+    cap^2 // (cap + 48): ~26 lanes a chunk below 27, else ceil(mean / 32)
+    chunks a cell; 1 to 16."""
+    m = max(1, cap * cap // (cap + 48))
+    w = -(-cc * fc * m // 26) if m <= 26 else cc * fc * -(-m // 32)
+    return min(16, max(1, w))
+
+
+def _channel_smem(cap, cc, fc, ng, S):
+    """float4 positions, 3 layers x CAP rows of W | 1 columns; a float4
+    shift and 3 ints a column; per warp a ring of 128 int2 pairs and 8 box
+    floats; a count and CAP list entries a home cell; chunk starts + 1 and
+    16 scalars; the straggler rows [ng + 4, S] and their kept list."""
+    w = (cc + 2) * (fc + 2)
+    cells = cc * fc
+    return (3 * cap * (w | 1) * 16 + 3 * w * 28 + 4 * cells * (1 + cap)
+            + 4 * (cells * -(-cap // 32) + 1 + 16)
+            + (8 * 128 + 32) * _channel_warps(cap, cc, fc) + 4 * (ng + 5) * S)
+
+
+@pytest.mark.parametrize("name", sorted(CHANNEL_CASES))
+def test_channel_plan_fits_and_fills_the_card(name):
+    spec, fn, nvec = CHANNEL_CASES[name]
+    assert spec.array_shape == CHANNEL_SHAPES[name]
+    plan = pair_kernel.channel_launch_plan(spec, fn, nvec)
+    nx, _, nz = spec.shape
+    ng = 3 * nvec if isinstance(fn, PSENear) else fn.n_chan - fn.n_uniform
+    S = spec.n_strag if isinstance(fn, PSENear) or fn.strag else 0
+    assert 1 <= plan.cc <= nx and 1 <= plan.fc <= spec.fold and plan.cc * plan.fc <= 64
+    assert plan.threads == 32 * _channel_warps(spec.cap, plan.cc, plan.fc) <= 1024
+    assert plan.smem == _channel_smem(spec.cap, plan.cc, plan.fc, ng, S) <= 232448
+    assert plan.grid == (-(-nx // plan.cc) * -(-spec.fold // plan.fc), spec.nyb, nz)
+    assert plan.blocks >= min(264, spec.n_cells)
+    if spec.n_cells >= 264:
+        assert plan.blocks >= 264
+
+
+def test_channel_plan_unfittable_spec_raises():
+    """A spec whose cells cannot be staged (2000 slots a cell: > 227 KB for
+    one cell of any functor) raises before any launch."""
+    spec = _spec((8, 8, 8), 2000, 2)
+    for fn in (DPDPair(1.0, 25.0, 4.5, 30.0), SPHDensityPair(1.0), _POISSON):
+        with pytest.raises(ValueError, match="shared memory"):
+            pair_kernel.channel_launch_plan(spec, fn)
+    with pytest.raises(ValueError, match="shared memory"):
+        pair_kernel.channel_launch_plan(_spec((8, 8, 8), 16, 2, 20000), _PSE, 2)
+    # 671M slots: fits #1's indices, but not 4 channels of them
+    with pytest.raises(ValueError, match="32-bit"):
+        pair_kernel.channel_launch_plan(_spec((256, 256, 256), 40, 4),
+                                        DPDPair(1.0, 25.0, 4.5, 30.0))
+
+
+def test_channel_wrappers_pass_the_plan(no_device_checks, monkeypatch):
+    """#2's launches get the plan's block shape and occ_trim as (cc, fc,
+    occ_trim); an unfittable spec raises before any launch."""
+    args = []
+    monkeypatch.setattr(_build.Kernel, "__call__",
+                        lambda self, *a: args.append((self.symbol, a)))
+    monkeypatch.setattr(_build, "ptr", lambda t: 0)
+    for name in ("dpd", "poisson_strag64", "pse_nvec2"):
+        spec, fn, nvec = CHANNEL_CASES[name]
+        kern = pair_kernel.make_pair_channel_kernel(spec, fn, nvec)
+        meta = [torch.empty(spec.array_shape, device="meta") for _ in range(3)]
+        ng = pair_kernel.channel_grid_channels(fn, nvec)
+        chans = [torch.empty(spec.array_shape, device="meta") for _ in range(ng)]
+        chans += [torch.zeros((), device="meta")] * (0 if isinstance(fn, PSENear) else
+                                                     fn.n_uniform)
+        strag = None
+        if spec.n_strag:
+            strag = torch.zeros((3 + ng + 1, spec.n_strag, spec.nlane), device="meta")
+        kern.occ_trim = 1 if name == "dpd" else 0
+        kern(*meta, *chans, strag=strag)
+        plan = kern.plan
+        sym, a = args[-1]
+        lead = a[:-7] if spec.n_strag or isinstance(fn, PSENear) else a[:-4]
+        assert lead[-3:] == (plan.cc, plan.fc, kern.occ_trim), (name, sym)
+    assert pair_kernel.PairChannelKernel.occ_trim == 0
+    spec = _spec((8, 8, 8), 2000, 2)
+    meta = [torch.empty(spec.array_shape, device="meta") for _ in range(7)]
+    n = len(args)
+    with pytest.raises(ValueError):
+        pair_kernel.make_pair_channel_kernel(spec, DPDPair(1.0, 25.0, 4.5, 30.0))(
+            *meta, torch.zeros((), device="meta"))
+    assert len(args) == n

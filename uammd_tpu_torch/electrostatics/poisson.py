@@ -274,6 +274,9 @@ class PoissonNear(ChannelFunctor):
                                  f"{POISSON_NCOEF - 1}")
             self.coef.append([f32(c) for c in cs])
 
+    def reach(self, hs: float = 0.0) -> float:
+        return math.sqrt(self.rc2)
+
     def params(self) -> PoissonParams:
         p = PoissonParams()
         p.c[:] = [c for cs in self.coef for c in cs + [0.0] * (POISSON_NCOEF - len(cs))]

@@ -15,10 +15,26 @@
 // DPD step counter), NOUT sums, and kStrag when it also serves the straggler
 // block. fwd(r2, d, ci, cj, cs, acc) adds the contributions of candidate j
 // onto home i to acc[NOUT]: ci holds the home's NG + NU channels, cj points
-// at the candidate's first channel in shared memory with stride cs. Each
+// at the candidate's first channel with stride cs (the grid's slots in
+// device memory, or a straggler row's in shared memory). Each
 // functor returns early outside its cutoff (and on the self pair), where
 // the JAX pair_fn selects 0; its plain PyTorch form, with the JAX pair_fn
 // signature, is in the Python module named beside it.
+//
+// What the kernel reads besides fwd:
+//   kDisp        which sums carry the displacement: 0 none (SPH density),
+//                1 sum k < 3 carries d_k alone (DPD, SPH force, the
+//                mixtures, Poisson's first three), 2 every sum carries
+//                all of d (PSE: f F + (g / r2)(d . F) d). The JAX pair_fn
+//                multiplies a zero coefficient by d outside the cutoff, so
+//                a pair whose d is not finite puts 0 * d_k = NaN into
+//                exactly those sums (zero_terms in pair_channel.cu).
+//   reach(hs)    the largest distance at which fwd can add a term (the
+//                kernel's cutoff cull); thr2(hs) an r2 below which every
+//                pair that fwd counts lies. hs is the largest sum of two
+//                half_sigma channels (kReachChan, the mixtures) and is
+//                ignored by the functors with a fixed cutoff, whose thr2
+//                is their own cutoff^2 bit for bit.
 //
 // Bit-level edges: r2 comes rounded as the plain version rounds it
 // (pse::dist2), and so does the mixture's per-pair cutoff
@@ -30,6 +46,7 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #include "pse_near.cuh"
@@ -42,10 +59,15 @@ struct PSEFn {
   static constexpr int NU = 0;
   static constexpr int NOUT = 3 * NV;
   static constexpr bool kStrag = true;
+  static constexpr int kDisp = 2;
+  static constexpr int kReachChan = -1;
   pse::Near p;
 
+  __device__ __forceinline__ float reach(float) const { return sqrtf(p.rc2); }
+  __device__ __forceinline__ float thr2(float) const { return p.rc2; }
+
   __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float*,
-                                      const float* cj, int cs, float* acc) const {
+                                      const float* cj, size_t cs, float* acc) const {
     float fr, gr;
     if (!pse::radial(r2, p, &fr, &gr)) return;
     float Fj[NG];
@@ -95,10 +117,15 @@ struct DPDFn {
   static constexpr int NU = 1;
   static constexpr int NOUT = 3;
   static constexpr bool kStrag = false;
+  static constexpr int kDisp = 1;
+  static constexpr int kReachChan = -1;
   DPDParams p;
 
+  __device__ __forceinline__ float reach(float) const { return sqrtf(p.rc2); }
+  __device__ __forceinline__ float thr2(float) const { return p.rc2; }
+
   __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float* ci,
-                                      const float* cj, int cs, float* acc) const {
+                                      const float* cj, size_t cs, float* acc) const {
     if (!(r2 < p.rc2 && r2 > 1e-10f)) return;
     const float rinv = rsqrtf(r2);
     const float w = 1.0f - __fmul_rn(__fmul_rn(r2, rinv), p.inv_rc);
@@ -131,10 +158,15 @@ struct SPHDensityFn {
   static constexpr int NU = 0;
   static constexpr int NOUT = 1;
   static constexpr bool kStrag = false;
+  static constexpr int kDisp = 0;
+  static constexpr int kReachChan = -1;
   SPHParams p;
 
+  __device__ __forceinline__ float reach(float) const { return sqrtf(p.cut2); }
+  __device__ __forceinline__ float thr2(float) const { return p.cut2; }
+
   __device__ __forceinline__ void fwd(float r2, float, float, float, const float*,
-                                      const float* cj, int, float* acc) const {
+                                      const float* cj, size_t, float* acc) const {
     if (!(r2 < p.cut2 && r2 > 1e-12f)) return;
     const float q = sqrtf(__fadd_rn(r2, 1e-32f)) / p.h;
     const float twomq = fmaxf(2.0f - q, 0.0f);
@@ -150,10 +182,15 @@ struct SPHForceFn {
   static constexpr int NU = 0;
   static constexpr int NOUT = 3;
   static constexpr bool kStrag = false;
+  static constexpr int kDisp = 1;
+  static constexpr int kReachChan = -1;
   SPHParams p;
 
+  __device__ __forceinline__ float reach(float) const { return sqrtf(p.cut2); }
+  __device__ __forceinline__ float thr2(float) const { return p.cut2; }
+
   __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float* ci,
-                                      const float* cj, int cs, float* acc) const {
+                                      const float* cj, size_t cs, float* acc) const {
     if (!(r2 < p.cut2 && r2 > 1e-12f)) return;
     const float dvdotdr =
         (cj[cs] - ci[1]) * dx + (cj[2 * cs] - ci[2]) * dy + (cj[3 * cs] - ci[3]) * dz;
@@ -184,10 +221,20 @@ struct LJMixFn {
   static constexpr int NU = 0;
   static constexpr int NOUT = 3;
   static constexpr bool kStrag = false;
+  static constexpr int kDisp = 1;
+  static constexpr int kReachChan = 1;  // half_sigma
   LJMixParams p;
 
+  // the per-pair cutoff sqrt(cs2) (hs_i + hs_j) is below reach(hs) for any
+  // pair whose half_sigma sum is at most hs; thr2 adds the cull's margin
+  __device__ __forceinline__ float reach(float hs) const { return sqrtf(p.cs2) * hs; }
+  __device__ __forceinline__ float thr2(float hs) const {
+    const float c = reach(hs) + 1.0e-2f;
+    return c * c;
+  }
+
   __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float* ci,
-                                      const float* cj, int cs, float* acc) const {
+                                      const float* cj, size_t cs, float* acc) const {
     const float sig = ci[1] + cj[cs];
     const float sig2 = __fmul_rn(sig, sig);
     // empty slots carry zero channels: rc2 = 0, never inside
@@ -221,7 +268,12 @@ struct PoissonFn {
   static constexpr int NU = 0;
   static constexpr int NOUT = 4;
   static constexpr bool kStrag = true;
+  static constexpr int kDisp = 1;  // the fourth sum, q_j G, carries no displacement
+  static constexpr int kReachChan = -1;
   PoissonParams p;
+
+  __device__ __forceinline__ float reach(float) const { return sqrtf(p.rc2); }
+  __device__ __forceinline__ float thr2(float) const { return p.rc2; }
 
   // (g, e) of a pair inside the cutoff; false otherwise (and on the self pair)
   __device__ __forceinline__ bool radial(float r2, float* g, float* e) const {
@@ -248,7 +300,7 @@ struct PoissonFn {
   }
 
   __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float*,
-                                      const float* cj, int, float* acc) const {
+                                      const float* cj, size_t, float* acc) const {
     float g, e;
     if (!radial(r2, &g, &e)) return;
     const float gq = g * cj[0];

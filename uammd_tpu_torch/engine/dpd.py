@@ -90,6 +90,9 @@ class DPDPair(ChannelFunctor):
     def params(self) -> DPDParams:
         return DPDParams(self.rc2, self.inv_rc, self.A, self.gamma, self.sigma, self.sq6)
 
+    def reach(self, hs: float = 0.0) -> float:
+        return math.sqrt(self.rc2)
+
     def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
         vxi, vyi, vzi, pidi, stepf = ch_i
         vxj, vyj, vzj, pidj, _ = ch_j

@@ -24,8 +24,9 @@ import torch
 
 from ..device import resolve_device
 from .layout import GridSpec, choose_spec, pack_channels, unpack_values
-from .pair_kernel import (PAIR_CHANNEL_LJ_MIX, PAIR_CHANNEL_LJ_MIX_MASKED, ChannelFunctor,
-                          LJMixParams, make_pair_channel_kernel)
+from .pair_kernel import (PAIR_CHANNEL_LJ_MIX, PAIR_CHANNEL_LJ_MIX_HALO,
+                          PAIR_CHANNEL_LJ_MIX_MASKED, PAIR_CHANNEL_LJ_MIX_MASKED_HALO,
+                          ChannelFunctor, LJMixParams, make_pair_channel_kernel)
 
 
 class LJMixturePair(ChannelFunctor):
@@ -37,6 +38,7 @@ class LJMixturePair(ChannelFunctor):
 
     n_chan, n_out = 2, 3
     kernel = PAIR_CHANNEL_LJ_MIX
+    kernel_halo = PAIR_CHANNEL_LJ_MIX_HALO
 
     def __init__(self, cut_scale: float = 2.5, clamp_lo: float = 4e-3):
         self.cs2 = float(np.float32(cut_scale * cut_scale))
@@ -44,6 +46,10 @@ class LJMixturePair(ChannelFunctor):
 
     def params(self) -> LJMixParams:
         return LJMixParams(self.cs2, self.lo)
+
+    def reach(self, hs: float = 0.0) -> float:
+        """The per-pair cutoff sqrt(cs2) (hs_i + hs_j) at ``hs`` = hs_i + hs_j."""
+        return float(np.sqrt(np.float32(self.cs2))) * hs
 
     def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
         se_i, hs_i = ch_i[:2]
@@ -67,6 +73,7 @@ class LJMixturePairMasked(LJMixturePair):
 
     n_chan = 3
     kernel = PAIR_CHANNEL_LJ_MIX_MASKED
+    kernel_halo = PAIR_CHANNEL_LJ_MIX_MASKED_HALO
 
     def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
         fx, fy, fz = super().__call__(r2, dxv, dyv, dzv, ch_i, ch_j)

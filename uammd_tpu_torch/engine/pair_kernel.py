@@ -32,9 +32,11 @@ pair functor: the PSE near field (``pse_near.PSENear``, on 1 or 2 stacked
 density and force, the LJ mixtures on straggler-free specs; the Poisson
 near field, ``electrostatics.poisson.PoissonNear``, also with the
 straggler block). CUDA tensors launch ``csrc/pair_channel.cu``
-instantiated for the functor; CPU tensors run ``pair_channel_plain``
-(PSE) or ``functor_plain`` (a functor's plain form, which has the JAX
-``pair_fn`` signature).
+instantiated for the functor, in blocks of cells whose shape
+``channel_launch_plan`` picks (``cell_block_plan`` with the functor's
+shared memory); CPU tensors run ``pair_channel_plain`` (PSE) or
+``functor_plain`` (a functor's plain form, which has the JAX ``pair_fn``
+signature).
 """
 
 from __future__ import annotations
@@ -52,7 +54,6 @@ from .pse_near import (
     _strag_inv,
     _Struct,
     channel_launch_args,
-    channel_launch_shape,
     check_cpu_inputs,
     strag_channel_block,
 )
@@ -105,30 +106,38 @@ class LaunchPlan:
                 "threads": self.threads, "smem_bytes": self.smem}
 
 
-def cell_block_plan(spec: GridSpec, smem_of) -> LaunchPlan:
+def cell_block_plan(spec: GridSpec, smem_of, max_cells: int = MAX_BLOCK_CELLS,
+                    threads_of=None, key_of=None) -> LaunchPlan:
     """The block shape of a cell-warp kernel for ``spec``, ``smem_of(cc,
-    fc)`` giving a block's shared memory. It keeps to at least
+    fc)`` giving a block's shared memory and ``threads_of(cc, fc)`` its
+    threads (default one warp per cell). It keeps to at least
     ``MIN_BLOCKS`` blocks (or one per cell on a grid with fewer cells),
-    ``MAX_BLOCK_CELLS`` cells and ``MAX_SMEM`` bytes, prefers blocks small
-    enough for two to share an SM, and then the fewest staged columns over
-    the launch (each block stages its cells with a one-cell halo). Raises
-    ``ValueError`` when no shape fits."""
+    ``max_cells`` cells and ``MAX_SMEM`` bytes, and takes the shape of the
+    smallest ``key_of(cc, fc, smem, blocks)``; by default it prefers blocks
+    small enough for two to share an SM, and then the fewest staged columns
+    over the launch (each block stages its cells with a one-cell halo).
+    Raises ``ValueError`` when no shape fits."""
     nx, _, nz = spec.shape
     F, nyb = spec.fold, spec.nyb
     if spec.n_slots >= 2 ** 31:
         raise ValueError(f"{spec.n_slots} slots per grid exceed the kernels' 32-bit indices")
+    if threads_of is None:
+        threads_of = lambda cc, fc: 32 * cc * fc  # noqa: E731
+    if key_of is None:
+        def key_of(cc, fc, smem, blocks):
+            return (smem > MAX_SMEM // 2, blocks * (cc + 2) * (fc + 2), -cc * fc)
     target = min(MIN_BLOCKS, spec.n_cells)
     best = None
-    for cc in range(1, min(nx, MAX_BLOCK_CELLS) + 1):
-        for fc in range(1, min(F, MAX_BLOCK_CELLS // cc) + 1):
+    for cc in range(1, min(nx, max_cells) + 1):
+        for fc in range(1, min(F, max_cells // cc) + 1):
             smem = int(smem_of(cc, fc))
             grid = (-(-nx // cc) * -(-F // fc), nyb, nz)
             blocks = grid[0] * nyb * nz
             if smem > MAX_SMEM or blocks < target:
                 continue
-            key = (smem > MAX_SMEM // 2, blocks * (cc + 2) * (fc + 2), -cc * fc)
+            key = key_of(cc, fc, smem, blocks)
             if best is None or key < best[0]:
-                best = (key, LaunchPlan(cc, fc, grid, 32 * cc * fc, smem))
+                best = (key, LaunchPlan(cc, fc, grid, threads_of(cc, fc), smem))
     if best is None:
         raise ValueError(f"no block of the cell-warp kernel fits the spec "
                          f"{spec.array_shape} (CAP {spec.cap}, S {spec.n_strag}) in "
@@ -148,9 +157,92 @@ def pair_launch_plan(spec: GridSpec) -> LaunchPlan:
 
 
 # uammd_pair_channel(x, y, z, ch, strag, out, spart, nv, nx, nyb, nz, F,
-#                    cap, S, rows, kJ, Lx, Ly, Lz, iLx, iLy, iLz, near, stream)
+#                    cap, S, cc, fc, occ_trim, Lx, Ly, Lz, iLx, iLy, iLz,
+#                    near, stream)
 PAIR_CHANNEL = _build.Kernel("pair_channel", "uammd_pair_channel",
-                             [_P] * 7 + [_I] * 9 + [_F] * 6 + [_Struct])
+                             [_P] * 7 + [_I] * 10 + [_F] * 6 + [_Struct])
+
+# The launch shape of the channel kernel #2 (csrc/pair_channel.cu): a block
+# is one (z, yb) and a rectangle of cc x fc cells (at most 64) staged with a
+# one-cell halo; its warps loop over chunks of the cells' occupied slots.
+MAX_CHANNEL_CELLS = 64
+MAX_CHANNEL_WARPS = 16
+CHANNEL_RING = 128  # a warp's pairs waiting for a round (kRing)
+CHANNEL_HDR = 16  # a block's scalars (kHdr)
+SM_SMEM = 233472  # bytes of shared memory an SM holds, 1024 of them reserved a block
+SM_WARPS = 32  # warps an SM holds at 64 registers a thread
+SM_BLOCKS = 32  # blocks an SM holds
+
+
+def channel_warps(cap: int, cc: int, fc: int) -> int:
+    """The warps of a #2 block (``warps_of`` in the .cu): the chunks its
+    cells should give at the mean occupancy cap^2 // (cap + 48) that CAP
+    (the occupancy's high quantile) suggests; cells below 27 share chunks
+    of ~26 lanes, larger ones take ceil(mean / 32) each; 1 to 16."""
+    cells = cc * fc
+    m = max(1, cap * cap // (cap + 48))
+    w = -(-cells * m // 26) if m <= 26 else cells * -(-m // 32)
+    return min(MAX_CHANNEL_WARPS, max(1, w))
+
+
+def channel_smem_bytes(cap: int, cc: int, fc: int, ng: int, n_strag: int) -> int:
+    """The dynamic shared memory of a #2 block (``smem_bytes`` in the .cu):
+    3 z layers of W = (cc + 2) x (fc + 2) staged columns of CAP float4
+    positions in rows W | 1 apart; a float4 shift and 3 ints a column; per
+    warp a ring of 128 pairs (int2) and its chunk's box (8 floats); per home
+    cell a count and CAP list entries; the chunk starts and 16 scalars; the
+    straggler rows [ng + 4, S] and their kept list. The ``ng`` channels
+    stay in device memory."""
+    w = (cc + 2) * (fc + 2)
+    cells = cc * fc
+    npc = -(-cap // 32)
+    per_warp = 8 * CHANNEL_RING + 32
+    return (3 * cap * (w | 1) * 16 + 3 * w * 28 + 4 * cells * (1 + cap)
+            + 4 * (cells * npc + 1 + CHANNEL_HDR) + per_warp * channel_warps(cap, cc, fc)
+            + 4 * (ng + 5) * n_strag)
+
+
+def channel_grid_channels(fn, nvec: int = 1) -> int:
+    """The grid channels of ``fn`` on the card: 3 nvec for the PSE
+    functor, a ``ChannelFunctor``'s channels less its uniform ones."""
+    if isinstance(fn, PSENear):
+        return 3 * nvec
+    return fn.n_chan - fn.n_uniform
+
+
+def channel_launch_plan(spec: GridSpec, fn, nvec: int = 1) -> LaunchPlan:
+    """The launch of ``csrc/pair_channel.cu`` for ``spec`` and the functor
+    ``fn`` (``PSENear`` at ``nvec`` vectors, or a ``ChannelFunctor``): the
+    block shape from ``cell_block_plan`` over ``channel_smem_bytes`` (the
+    straggler rows counted for a straggler-serving functor), up to 64 cells
+    a block and ``channel_warps`` warps, preferring the most home slots
+    resident on an SM at the mean occupancy that CAP suggests, then the
+    fewest staged columns. Raises ``ValueError`` when no block fits or the
+    channels pass the kernel's 32-bit indices."""
+    ng = channel_grid_channels(fn, nvec)
+    pse = isinstance(fn, PSENear)
+    S = spec.n_strag if (pse or fn.strag) else 0
+    n_out = 3 * nvec if pse else fn.n_out
+    cap = spec.cap
+    if cap > 65535:
+        raise ValueError(f"CAP {cap} is above the channel kernel's 65535")
+    if spec.n_slots * max(ng, n_out) >= 2 ** 31:
+        raise ValueError(f"{spec.n_slots} slots x {max(ng, n_out)} channels exceed the channel "
+                         f"kernel's 32-bit indices")
+
+    m = max(1, cap * cap // (cap + 48))  # channel_warps' mean occupancy
+
+    def key(cc, fc, smem, blocks):
+        # the home slots an SM holds at once, at most 32 lanes a warp
+        warps = channel_warps(cap, cc, fc)
+        resident = min(SM_BLOCKS, SM_WARPS // warps, SM_SMEM // (smem + 1024))
+        busy = min(SM_WARPS * 32, resident * min(32 * warps, cc * fc * m))
+        return (-busy, blocks * (cc + 2) * (fc + 2), -cc * fc)
+
+    return cell_block_plan(spec, lambda cc, fc: channel_smem_bytes(cap, cc, fc, ng, S),
+                           max_cells=MAX_CHANNEL_CELLS,
+                           threads_of=lambda cc, fc: 32 * channel_warps(cap, cc, fc),
+                           key_of=key)
 
 
 class DPDParams(ctypes.Structure):
@@ -172,9 +264,9 @@ class LJMixParams(ctypes.Structure):
 
 
 def _functor_kernel(symbol: str, params) -> _build.Kernel:
-    # symbol(x, y, z, ch, uni, out, nx, nyb, nz, F, cap, rows, kJ, Lx, Ly,
-    #        Lz, params, stream)
-    return _build.Kernel("pair_channel", symbol, [_P] * 6 + [_I] * 7 + [_F] * 3 + [params])
+    # symbol(x, y, z, ch, uni, out, nx, nyb, nz, F, cap, cc, fc, occ_trim,
+    #        Lx, Ly, Lz, params, stream)
+    return _build.Kernel("pair_channel", symbol, [_P] * 6 + [_I] * 8 + [_F] * 3 + [params])
 
 
 # one entry point, and one launch count, per functor instantiation of #2,
@@ -189,6 +281,9 @@ PAIR_CHANNEL_DPD_HALO = _functor_kernel("uammd_pair_channel_dpd_halo", DPDParams
 PAIR_CHANNEL_SPH_DENSITY_HALO = _functor_kernel("uammd_pair_channel_sph_density_halo",
                                                 SPHParams)
 PAIR_CHANNEL_SPH_FORCE_HALO = _functor_kernel("uammd_pair_channel_sph_force_halo", SPHParams)
+PAIR_CHANNEL_LJ_MIX_HALO = _functor_kernel("uammd_pair_channel_lj_mix_halo", LJMixParams)
+PAIR_CHANNEL_LJ_MIX_MASKED_HALO = _functor_kernel("uammd_pair_channel_lj_mix_masked_halo",
+                                                  LJMixParams)
 
 POISSON_NCOEF = 21  # chan::kPoissonNCoef: polynomials up to degree 20
 
@@ -201,9 +296,9 @@ class PoissonParams(ctypes.Structure):
 
 
 def _strag_functor_kernel(symbol: str, params) -> _build.Kernel:
-    # symbol(x, y, z, ch, strag, out, spart, nx, nyb, nz, F, cap, S, rows, kJ,
-    #        Lx, Ly, Lz, iLx, iLy, iLz, params, stream)
-    return _build.Kernel("pair_channel", symbol, [_P] * 7 + [_I] * 8 + [_F] * 6 + [params])
+    # symbol(x, y, z, ch, strag, out, spart, nx, nyb, nz, F, cap, S, cc, fc,
+    #        occ_trim, Lx, Ly, Lz, iLx, iLy, iLz, params, stream)
+    return _build.Kernel("pair_channel", symbol, [_P] * 7 + [_I] * 9 + [_F] * 6 + [params])
 
 
 PAIR_CHANNEL_POISSON = _strag_functor_kernel("uammd_pair_channel_poisson", PoissonParams)
@@ -464,12 +559,35 @@ class ChannelFunctor:
     strag: bool = False
     kernel: _build.Kernel
     kernel_halo: _build.Kernel | None = None
+    # which sums carry the displacement (``kDisp`` of the CUDA functor,
+    # ``displacement_sums``): 0 none, 1 sum k < 3 carries d_k alone
+    disp: int = 1
 
     def params(self) -> ctypes.Structure:
         raise NotImplementedError
 
+    def reach(self, hs: float = 0.0) -> float:
+        """The largest distance at which a pair can give a non-zero term:
+        the CUDA kernel's cull radius (``reach`` of its functor). ``hs`` is
+        the pair's sum of half_sigma channels, read by the mixtures."""
+        raise NotImplementedError
+
     def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
         raise NotImplementedError
+
+
+def displacement_sums(fn, nvec: int = 1) -> tuple:
+    """For each sum of the functor ``fn`` (``PSENear`` at ``nvec`` vectors,
+    or a ``ChannelFunctor``), the displacement components it carries: a
+    pair outside the cutoff whose component d_a is not finite gives NaN in
+    exactly the sums that carry a (the plain version's 0 * d). It mirrors
+    the ``kDisp`` of the functor's CUDA form (csrc/channel_functors.cuh)."""
+    n_out = 3 * nvec if isinstance(fn, PSENear) else fn.n_out
+    if fn.disp == 2:
+        return ((0, 1, 2),) * n_out
+    if fn.disp == 1:
+        return ((0,), (1,), (2,)) + ((),) * (n_out - 3)
+    return ((),) * n_out
 
 
 def channel_plain(spec: GridSpec, pair_fn, n_out: int, x, y, z, channels,
@@ -570,7 +688,14 @@ class PairChannelKernel:
     (counted in ``fn.kernel.launches``) or raise. ``periodic_z=False`` is
     the halo mode of a straggler-free functor (``fn.kernel_halo``): the
     caller passes a z-slab extended by image-shifted ghost rows and drops
-    their outputs."""
+    their outputs.
+
+    Every launch takes ``channel_launch_plan(spec, fn, nvec)`` (a spec the
+    plan cannot fit raises ``ValueError`` before any launch). ``occ_trim``
+    is 0; a check's control sets 1, which stops every candidate loop of the
+    kernel one row short of the cell's occupancy."""
+
+    occ_trim = 0
 
     def __init__(self, spec: GridSpec, fn, nvec: int = 1, periodic_z: bool = True):
         if not periodic_z and (not isinstance(fn, ChannelFunctor) or fn.kernel_halo is None):
@@ -588,6 +713,14 @@ class PairChannelKernel:
         self.fn = fn
         self.nvec = nvec
         self.periodic_z = bool(periodic_z)
+        self._plan = None
+
+    @property
+    def plan(self) -> LaunchPlan:
+        """The CUDA launch for this spec and functor (``channel_launch_plan``)."""
+        if self._plan is None:
+            self._plan = channel_launch_plan(self.spec, self.fn, self.nvec)
+        return self._plan
 
     def __call__(self, x, y, z, *channels, strag=None):
         spec, fn, nvec = self.spec, self.fn, self.nvec
@@ -609,7 +742,7 @@ class PairChannelKernel:
         ch, srows = channel_launch_args(spec, n_chan, x, y, z, channels, strag,
                                         "the channel kernel")
         n_out = n_chan if pse else fn.n_out
-        rows, kj = channel_launch_shape(spec, n_chan)
+        plan = self.plan
         T = spec.n_slots
         buf = torch.zeros(n_out * (T + S), dtype=torch.float32, device=x.device)
         out = buf[: n_out * T].view((n_out,) + spec.array_shape)
@@ -619,8 +752,8 @@ class PairChannelKernel:
         kernel, lead, params = ((PAIR_CHANNEL, (nvec,), fn.struct()) if pse
                                 else (fn.kernel, (), fn.params()))
         kernel(P(x), P(y), P(z), P(ch), P(srows) if S else _P(0), P(out), P(spart), *lead,
-               nx, spec.nyb, nz, spec.fold, spec.cap, S, rows, kj, *spec.box_size,
-               *_strag_inv(spec), params)
+               nx, spec.nyb, nz, spec.fold, spec.cap, S, plan.cc, plan.fc, int(self.occ_trim),
+               *spec.box_size, *_strag_inv(spec), params)
         return tuple(out) + (tuple(spart) if S else ())
 
     def _functor(self, x, y, z, channels):
@@ -633,13 +766,14 @@ class PairChannelKernel:
         ng = fn.n_chan - fn.n_uniform
         ch = torch.stack(channels[:ng])
         uni = torch.stack(channels[ng:]) if fn.n_uniform else None
-        rows, kj = channel_launch_shape(spec, ng)
+        plan = self.plan
         out = torch.empty((fn.n_out,) + spec.array_shape, dtype=torch.float32, device=x.device)
         nx, _, nz = spec.shape
         P = _build.ptr
         kernel = fn.kernel if self.periodic_z else fn.kernel_halo
         kernel(P(x), P(y), P(z), P(ch), P(uni) if uni is not None else _P(0), P(out),
-               nx, spec.nyb, nz, spec.fold, spec.cap, rows, kj, *spec.box_size, fn.params())
+               nx, spec.nyb, nz, spec.fold, spec.cap, plan.cc, plan.fc, int(self.occ_trim),
+               *spec.box_size, fn.params())
         return tuple(out)
 
 

@@ -19,8 +19,9 @@ PyTorch form of the functor and the source of the constant struct that
 zeros, which leaves every Horner step bit-identical.
 
 Also what the two channel kernels share (#2 in ``pair_kernel.py``, #10 in
-``kernel2.py``): the straggler block of their plain versions, their input
-checks and their launch shape.
+``kernel2.py``): the straggler block of their plain versions and their
+input checks; and #10's launch shape (#2 takes its own plan,
+``pair_kernel.channel_launch_plan``).
 """
 
 from __future__ import annotations
@@ -59,9 +60,17 @@ class PSENear:
     qb: float
     rcut: float
 
+    # every sum carries all of d: f F + (g / r2)(d . F) d (``kDisp`` 2 of
+    # the CUDA functor, ``pair_kernel.displacement_sums``)
+    disp = 2
+
     @property
     def rc2(self) -> float:
         return _f32(self.rcut * self.rcut)
+
+    def reach(self, hs: float = 0.0) -> float:
+        """The cutoff: the CUDA kernel's cull radius."""
+        return float(np.sqrt(self.rc2))
 
     def _consts(self):
         (a1, b1), (a2, b2) = self.uscale
@@ -177,7 +186,7 @@ def strag_channel_block(spec: GridSpec, pair_fn, n_chan: int, xi, yi, zi, ch_i, 
             torch.stack([t.expand(r2.shape).sum(dim=(0, 1, 2, 4)) for t in bwd]))
 
 
-# threads per block of the channel kernels (rows x NLANE) and their
+# threads per block of the Newton channel kernel #10 (rows x NLANE) and its
 # shared-memory budget: 3 staged y-blocks of (3 + n_chan) arrays x kJ rows x
 # NLANE floats, plus the [3 + n_chan + 1, S] straggler rows
 CHANNEL_THREADS = 512
@@ -185,9 +194,11 @@ CHANNEL_SMEM = 48 * 1024
 
 
 def channel_launch_shape(spec: GridSpec, n_chan: int):
-    """(rows, kJ) of a channel kernel launch staging ``n_chan`` channels
-    (3 nvec for the PSE functor); raises ValueError when not even one
-    staged row fits the shared-memory budget."""
+    """(rows, kJ) of a launch of the Newton channel kernel #10
+    (csrc/newton_channel.cu) staging ``n_chan`` channels (3 nvec); raises
+    ValueError when not even one staged row fits the shared-memory
+    budget. The 27-stencil channel kernel #2 launches by
+    ``pair_kernel.channel_launch_plan`` instead."""
     na = 3 + n_chan
     strag_bytes = 4 * (na + 1) * spec.n_strag
     per_row = 4 * 3 * na * spec.nlane

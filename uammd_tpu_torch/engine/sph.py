@@ -45,11 +45,14 @@ class _SPHPair(ChannelFunctor):
     def params(self) -> _SPHStruct:
         return self._struct
 
+    def reach(self, hs: float = 0.0) -> float:
+        return math.sqrt(self.cut2)
+
 
 class SPHDensityPair(_SPHPair):
     """``sph_density_pair_fn`` (sph.py:42-52): channel (mass), 1 sum out."""
 
-    n_chan, n_out = 1, 1
+    n_chan, n_out, disp = 1, 1, 0
     kernel = PAIR_CHANNEL_SPH_DENSITY
     kernel_halo = PAIR_CHANNEL_SPH_DENSITY_HALO
 
