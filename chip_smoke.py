@@ -116,6 +116,20 @@ Imports nothing of JAX or of the JAX package. Phases:
      control: the candidate loops one row short must fail it. The plans
      (``pair_kernel.channel_launch_plan``) are printed with the kernel's own
      shared memory and threads, which must equal the plan's.
+   - slice G2a (``g2_kernels_vs_plain``): the three kernel modes of the
+     composed multi-shard PSE steps against their plain versions on every
+     shard of a 4-shard mesh: #2 with the PSE functor in the halo mode over
+     the combined own + neighbour straggler rows (the reverse sums of the
+     slab's interior rows only), #2 with the fused LJ radial force
+     (``pair_kernel.RadialForce``, halo mode, straggler rows) and #1 with
+     the fused LJ radial (halo mode), on __graft_entry__.py strategy 8's
+     clump system (n 2048, 10 real straggler rows) and on the full path's
+     first state, clean and with one x = NaN (NaN in exactly the plain
+     version's entries and straggler sums), within ``CHANNEL_TOL`` (#1:
+     ``PAIR_FUSED_TOL``) of max|ref|. Controls on the clump that must fail
+     the bound by 100x: the straggler rows dropped, the ghost rows counted
+     into the straggler partials (the periodic entry), the candidate loops
+     one row short (``occ_trim`` 1).
 3. The main paths at full size, as bench.py's LJ protocol runs them: N =
    2^20, box 128^3 (rho 0.5), rcut 2.5, T 1.5.
    - v1: melt 300 steps at dt 0.004 from the fcc lattice, then a fresh v1
@@ -194,6 +208,29 @@ Imports nothing of JAX or of the JAX package. Phases:
      shard per step. On one card the exchanges are device-local copies: a
      mesh measures the halo machinery and the migration, not interconnect
      traffic (``breakdown_dd2``).
+   - G2a (``main_path_pse_dd2_4``, ``_1``, ``main_path_pse_dd``): the
+     composed multi-shard PSE steps of ``parallel/pse_dd2.py`` (persistent
+     sharded slots, ``G2_STRAG`` = 192 straggler rows a shard) on 4 shards
+     and on 1, and ``parallel/pse_dd.py`` (replicated pack, no stragglers)
+     on 4, at bench.py's PSE size (N = 131072, volume fraction 0.05, fcc
+     start, far grid 144 on x-slabs, tolerance 1e-4, Lanczos m = 4, the
+     WCA with the exact reciprocal, dt 0.01, T 1, nz a multiple of 4):
+     20 + 40 steps each. Gates: ``ovf`` 0 and the count audit (pse_dd2), no
+     overflow (pse_dd), a rebin in pse_dd2's timed window (forced if none
+     fires), finite state, the rms displacement within 0.2-8x
+     sqrt(2 kT m0 dt steps) (tests/test_pse_dd.py:158-164), each new
+     mode's launches exactly as predicted (per shard per step: 1 + m #2
+     PSE halo launches, one #2 radial or #1 fused halo launch, one Lanczos
+     sqrt). ``g2_parity``: at T = 0 pse_dd's step
+     against the single-grid ``displacement_with_pair_force`` on the dimer
+     system at N = 131072 (forces within 1e-4 max(fscale, 1), positions
+     within 2e-4 max(dscale, 1)), pse_dd2 on the clump system on 4 and 2
+     shards against the single-grid steps, 3 + 3 steps through a forced
+     rebin (positions within 1e-4), and the far bucket control (far_m2 = 8
+     must latch ``ovf``). ``breakdown_pse_dd2``: CUDA events around each
+     phase of the pse_dd2 step (drift read, rebin, ghosts, pair force,
+     matvec x (1 + m), Lanczos, bucketing, far field, update) and the host
+     reads per step.
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -208,16 +245,18 @@ Imports nothing of JAX or of the JAX package. Phases:
    its path's final shapes, check them against each other once more there,
    print the v2, FCM, PSE, DPD, SPH, unfused v2 and Poisson steps'
    breakdowns and the kernels' JSON line (thirteen kernels, the six new
-   functors of #2, #1's observable mode, the Lanczos sqrt kernel, and
-   slice G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows).
+   functors of #2, #1's observable mode, the Lanczos sqrt kernel, slice
+   G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows, and slice G2a's #2 PSE
+   halo, #2 radial halo and #1 fused halo rows).
 
 ``--only-pse`` runs the build and the PSE phases alone, ``--only-slice-d``
 the build and slice D's phases (the observables on the v2 engine's
 jittered fcc start), ``--only-unfused`` the build, slice A3's checks, the
 v1 melt and the unfused v2 path, ``--only-poisson`` the build and slice
 E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases,
-``--only-ragged`` the build and the ragged-occupancy checks of #1, #6 and #2;
-none prints a result line (for work on those paths).
+``--only-ragged`` the build and the ragged-occupancy checks of #1, #6 and #2,
+``--only-g2`` the build and slice G2a's checks and paths; none prints a
+result line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -4392,6 +4431,882 @@ def ragged_checks(dev) -> dict:
     return out
 
 
+# ------------------------------------------------ slice G2a: the composed multi-shard PSE steps
+# bench.py:104-160's PSE suspension (PSE_N, PSE_L, fcc start, far grid 144,
+# tolerance 1e-4) on a z-slab mesh of this one card: the near grid's nz
+# floored to a multiple of G2_SHARDS, Lanczos m = 4 (the PSE path's tuned
+# count), the WCA lj_g_fused(1, 2, rc2 = (2^(1/6) 2)^2) with the exact
+# reciprocal (pse_dd2's straggler pairs evaluate it in plain torch), dt 0.01,
+# T 1. pse_dd2 keeps G2_STRAG straggler rows a shard (the single-grid PSE
+# path's 192: the fcc start fills no cell past CAP, and 60 steps move a
+# particle ~0.3, under the cell slack), pse_dd none (CAP from the largest
+# occupancy).
+G2_SHARDS = 4
+G2_M = 4
+G2_STRAG = 192
+G2_WARM, G2_TIMED = 20, 40
+# each DD step against the single-grid PSE step at T = 0: forces within
+# 1e-4 max(fscale, 1), positions within 2e-4 max(dscale, 1)
+# (tests/test_pse_dd.py:80-88)
+G2_F_TOL, G2_P_TOL = 1e-4, 2e-4
+# pse_dd2's trajectory within 1e-4 after 3 + 3 steps through a forced
+# rebin (tests/test_pse_dd2.py:113-115)
+G2_TRAJ_TOL, G2_TRAJ_STEPS = 1e-4, 3
+# __graft_entry__.py strategy 8's clump system: n 2048, 18 particles 1.5
+# apart in the near grid's centre cell (real straggler rows at CAP 8)
+G2C_N, G2C_FAR, G2C_TOL, G2C_STRAG, G2C_DT = 2048, 120, 1e-2, 64, 1e-4
+G2_BAND = (0.2, 8.0)  # rms displacement / sqrt(2 kT m0 dt steps), test_pse_dd.py:158-164
+PAIR_FUSED_TOL = 1e-5  # #1 with the fused radial against plain, x max|f|
+G2_FAR_M2_CONTROL = 8  # a bucket far below its load: ovf must latch
+G2_BREAKDOWN_STEPS = 5
+# fcc nearest-neighbour pairs of the full path's start pulled to 1.5 apart
+# (inside the WCA cutoff 2.245), so the WCA modes meet pairs on its slabs
+G2_CONTACTS, G2_CONTACT_GAP, G2_CONTACT_SEED = 256, 1.5, 41
+# float32 operations per pair inside the WCA cutoff, each pair once and both
+# directions: the select, clamp, 1/r2, t2 t3 t4, c1 t3 + c2 times t4 (9),
+# g * d (3) and the sums into both particles (6)
+OPS_PAIR_FUSED = 18
+
+
+def g2_wca():
+    from uammd_tpu_torch.engine.md import lj_g_fused
+
+    rc = 2.0 ** (1.0 / 6.0) * 2.0
+    return lj_g_fused(1.0, 2.0, rc2=rc * rc, approx=False)
+
+
+def g2_backend(b, n, pos, *, n_strag, far_grid=PSE_FAR_GRID, tolerance=PSE_TOLERANCE):
+    from uammd_tpu_torch.integrators.bdhi.pse_engine import PSEGrid
+
+    return PSEGrid.create(b, n, viscosity=1.0, radius=1.0, far_grid=far_grid,
+                          tolerance=tolerance, lanczos_iterations=G2_M, pos=pos,
+                          n_strag=n_strag, nz_multiple=G2_SHARDS)
+
+
+def g2_clump(dev):
+    """__graft_entry__.py strategy 8's system: (box, positions [numpy], the
+    pse_dd2 backend with G2C_STRAG rows)."""
+    import numpy as np
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    n = G2C_N
+    L = (n * (4.0 / 3.0) * math.pi / 0.05) ** (1.0 / 3.0)
+    b = box(L, device=dev)
+    sites = np.asarray(lattice(n, L, "fcc"))
+    probe = g2_backend(b, n, sites.astype(np.float32), n_strag=G2C_STRAG, far_grid=G2C_FAR,
+                       tolerance=G2C_TOL)
+    sh = np.asarray(probe.spec.shape)
+    center = (sh // 2 + 0.5) / sh * L - 0.5 * L
+    gx, gy, gz = np.meshgrid(*[np.arange(3) * 1.5] * 2, np.arange(2) * 1.5)
+    clump = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=-1)
+    clump = clump - clump.mean(axis=0) + center
+    lo, hi = clump.min(axis=0) - 2.4, clump.max(axis=0) + 2.4
+    sites = sites[~np.all((sites > lo) & (sites < hi), axis=1)][: n - len(clump)]
+    pos = np.concatenate([sites, clump]).astype(np.float32)
+    pos = pos - np.float32(L) * np.round(pos / np.float32(L))
+    be = g2_backend(b, n, pos, n_strag=G2C_STRAG, far_grid=G2C_FAR, tolerance=G2C_TOL)
+    return b, pos, be
+
+
+def g2_dimers(dev):
+    """tests/test_pse_dd.py:24-36's dimer system at PSE_N: PSE_N / 2 fcc
+    sites of the PSE box, each with a partner 1.5 along x (inside the WCA
+    cutoff, so the T = 0 step moves them). (box, positions [numpy])."""
+    import numpy as np
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    sites = np.asarray(lattice(PSE_N // 2, PSE_L, "fcc"))
+    pos = np.concatenate([sites, sites + np.array([1.5, 0.0, 0.0])])
+    pos = pos - PSE_L * np.round(pos / PSE_L)
+    return box(PSE_L, device=dev), pos.astype(np.float32)
+
+
+def g2_steps(dev, be, n, temperature, dt, n_shards=G2_SHARDS, **kw):
+    """(pse_dd2 step, pse_dd step) on an n_shards mesh of the card (either
+    None when ``be``'s straggler list does not fit it)."""
+    from uammd_tpu_torch.parallel import pse_dd, pse_dd2
+
+    mesh = dd_mesh(dev, n_shards)
+    if be.spec.n_strag:
+        return pse_dd2.make_sharded_pse_em_step2(mesh, be, g_pair=g2_wca(), dt=dt,
+                                                 temperature=temperature, n=n, **kw)
+    return pse_dd.make_sharded_pse_em_step(mesh, be, g_pair=g2_wca(), dt=dt,
+                                           temperature=temperature, n=n, **kw)
+
+
+def g2_inputs(step2, st, seed):
+    """Every shard's kernel inputs for pse_dd2's modes: the ghost-extended
+    slabs, the combined straggler lists, seeded slot channels (masked, with
+    their ghost rows) and the combined straggler channel rows."""
+    import torch
+    from uammd_tpu_torch.parallel.domain import halo_extend
+
+    dev = st.x[0].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    masks = [(p > 0.5).to(torch.float32) for p in st.pidf]
+    sm = [s > 0.5 for s in st.spidf]
+    Lz = step2.Ls[2]
+    ext = [halo_extend(st.x), halo_extend(st.y), halo_extend(st.z, -Lz, Lz)]
+    comb = step2.combined_strag(st.spos, st.spidf)
+    g3 = [torch.randn((3,) + tuple(m.shape), generator=gen, device=dev) * m for m in masks]
+    sg3 = [torch.randn((3, step2.S), generator=gen, device=dev) * s for s in sm]
+    return {"ext": ext, "comb": comb, "hg": halo_extend(g3, dim=1), "cr": step2.comb_rows(sg3),
+            "pidf": halo_extend(st.pidf)}
+
+
+def g2_nan_slab(ext, i):
+    """A copy of shard i's slab with x = NaN at its first occupied interior
+    slot."""
+    import torch
+
+    x = ext[0][i].clone()
+    idx = (x[1:-1] < 1e8).nonzero()[0]
+    x[1 + int(idx[0]), int(idx[1]), int(idx[2]), int(idx[3])] = float("nan")
+    return [x, ext[1][i], ext[2][i]]
+
+
+def g2_mode_outputs(step2, mode, inp, i, plain=False, xyz=None, drop_strag=False,
+                    periodic=False):
+    """Shard i's outputs of one of pse_dd2's #2 modes ("pse": the PSE
+    matvec over the combined rows; "radial": the WCA force) as a list (3
+    grids, 3 straggler totals): the kernel, its plain version (``plain``),
+    or a control (``drop_strag``: every row marked invalid; ``periodic``:
+    the periodic entry, which sums the ghost rows' reverse terms too)."""
+    import torch
+    from uammd_tpu_torch.engine import pair_kernel
+
+    xyz = xyz or [a[i] for a in inp["ext"]]
+    comb = inp["comb"][i]
+    if drop_strag:
+        comb = torch.cat([comb[:, :3], torch.zeros_like(comb[:, 3:])], dim=1)
+    local = step2.local_spec
+    if mode == "pse":
+        ch = [inp["hg"][i][c] for c in range(3)]
+        blk = step2.bblock(comb, tuple(inp["cr"][i]))
+        fn, kern = step2.near_fn, step2.nkern
+    else:
+        ch, blk = [], step2.bblock(comb)
+        fn, kern = step2.force_fn, step2.fkern
+    if plain:
+        if mode == "pse":
+            g, sp = pair_kernel.pair_channel_plain(local, fn, 1, *xyz, ch, blk, periodic_z=False)
+            return list(g) + list(sp)
+        return list(pair_kernel.functor_plain(local, fn, *xyz, ch, blk[:, :, 0],
+                                              periodic_z=False))
+    if periodic:
+        kern = pair_kernel.make_pair_channel_kernel(local, fn, 1, periodic_z=True)
+    return list(kern(*xyz, *ch, strag=blk))
+
+
+def g2_scale(refs) -> float:
+    """max|ref grid| over the finite entries of several outputs' lists."""
+    import torch
+
+    return max(float(torch.nan_to_num(a, nan=0.0).abs().max()) for ref in refs for a in ref[:3])
+
+
+def g2_compare(ref, test, scale=None):
+    """(max|d| over the finite entries / ``scale`` (default max|ref grid|),
+    NaN in the same entries of every output, max|d|)."""
+    import torch
+
+    scale = g2_scale([ref]) if scale is None else scale
+    same_nan = all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(ref, test))
+    err = max(float(torch.nan_to_num(a - b, nan=0.0).abs().max()) for a, b in zip(ref, test))
+    return err / max(scale, 1e-30), same_nan, err
+
+
+def g2_contacts(specs, pos):
+    """The fcc start ``pos`` with G2_CONTACTS disjoint nearest-neighbour
+    pairs pulled to G2_CONTACT_GAP apart about their midpoints. A pair is
+    pulled only where both ends stay in their cells of every spec in
+    ``specs``, so the cells' occupancy, and with it the pack, keeps the
+    start's shape. Returns (positions on pos's device, pairs pulled)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout
+
+    p = pos.cpu().numpy()
+    L = np.float32(specs[0].box_size[0])
+
+    def keys(q):
+        t = torch.from_numpy(np.ascontiguousarray(q, dtype=np.float32))
+        ok = torch.ones(len(q), dtype=torch.bool)
+        return [layout._cell_key(s, t[:, 0], t[:, 1], t[:, 2], ok).numpy() for s in specs]
+
+    k0 = keys(p)
+    used = np.zeros(len(p), bool)
+    q = p.copy()
+    pairs = 0
+    for i in np.random.default_rng(G2_CONTACT_SEED).permutation(len(p)):
+        if pairs == G2_CONTACTS:
+            break
+        if used[i]:
+            continue
+        d = p - p[i]
+        d -= L * np.round(d / L)
+        r = np.sqrt((d * d).sum(axis=1))
+        r[used] = np.inf
+        r[i] = np.inf
+        j = int(np.argmin(r))
+        u = d[j] / r[j]
+        mid = p[i] + 0.5 * d[j]
+        ends = np.stack([mid - 0.5 * G2_CONTACT_GAP * u,
+                         mid + 0.5 * G2_CONTACT_GAP * u]).astype(np.float32)
+        ends -= L * np.round(ends / L)
+        if all(k[0] == k_0[i] and k[1] == k_0[j] for k, k_0 in zip(keys(ends), k0)):
+            q[i], q[j] = ends
+            used[i] = used[j] = True
+            pairs += 1
+    return torch.from_numpy(q).to(pos.device), pairs
+
+
+def g2_check_modes(step2, step1, st2, st1, what, controls, want_pairs=False):
+    """Every shard's #2 PSE (halo, combined straggler rows) and #2 radial
+    modes of ``step2`` on ``st2``, and #1 fused (halo) of ``step1`` on
+    ``st1``, against their plain versions within CHANNEL_TOL x max|ref|
+    (#1: PAIR_FUSED_TOL x max|f|), clean and with one x = NaN (NaN in
+    exactly the plain version's entries); with ``controls`` the straggler
+    rows dropped, the ghost rows counted and occ_trim 1 must each fail the
+    bound by 100x; with ``want_pairs`` every mode must meet pairs inside
+    its cutoff (max|ref| > 0). Returns the worst errors and the controls'."""
+    import torch
+    from uammd_tpu_torch.engine import pair_kernel
+    from uammd_tpu_torch.parallel.domain import halo_extend
+
+    out = {}
+    inp = g2_inputs(step2, st2, 21)
+    for mode in ("pse", "radial"):
+        worst = {"rel": 0.0, "abs": 0.0, "nan_rel": 0.0}
+        refs = [g2_mode_outputs(step2, mode, inp, i, plain=True) for i in range(step2.D)]
+        scale = worst["max_ref"] = g2_scale(refs)
+        if want_pairs:
+            check(scale > 0.0, f"{what}: #2 {mode} halo meets pairs (max|ref| {scale:.3g} > 0)")
+        if scale == 0.0:  # no pair inside the cutoff (the WCA on a lattice): exact zeros
+            scale = 1.0
+        for i in range(step2.D):
+            ref = refs[i]
+            got = g2_mode_outputs(step2, mode, inp, i)
+            rel, same_nan, err = g2_compare(ref, got, scale)
+            check(same_nan and rel < CHANNEL_TOL,
+                  f"{what} shard {i}: #2 {mode} halo vs plain {rel:.3g} < {CHANNEL_TOL}")
+            worst["rel"], worst["abs"] = max(worst["rel"], rel), max(worst["abs"], err)
+            xyz = g2_nan_slab(inp["ext"], i)
+            ref = g2_mode_outputs(step2, mode, inp, i, plain=True, xyz=xyz)
+            got = g2_mode_outputs(step2, mode, inp, i, xyz=xyz)
+            rel, same_nan, _ = g2_compare(ref, got, scale)
+            n_nan = sum(int(torch.isnan(a).sum()) for a in ref)
+            check(same_nan and n_nan > 0 and rel < CHANNEL_TOL,
+                  f"{what} shard {i}: #2 {mode} halo with a NaN: NaN where plain puts it "
+                  f"({n_nan}), finite within {rel:.3g} < {CHANNEL_TOL}")
+            worst["nan_rel"] = max(worst["nan_rel"], rel)
+            worst["nan_entries"] = max(worst.get("nan_entries", 0), n_nan)
+        if controls:
+            ctrl = {"strag_dropped": 0.0, "ghost_counted": 0.0, "occ_trim": 0.0}
+            kern = step2.nkern if mode == "pse" else step2.fkern
+            for i in range(step2.D):
+                ref = refs[i]
+                bad = g2_mode_outputs(step2, mode, inp, i, drop_strag=True)
+                ctrl["strag_dropped"] = max(ctrl["strag_dropped"],
+                                            g2_compare(ref, bad, scale)[0])
+                bad = g2_mode_outputs(step2, mode, inp, i, periodic=True)
+                ctrl["ghost_counted"] = max(ctrl["ghost_counted"], max(
+                    float((a - b).abs().max()) for a, b in zip(ref[3:], bad[3:])) / scale)
+                kern.occ_trim = 1
+                try:
+                    bad = g2_mode_outputs(step2, mode, inp, i)
+                finally:
+                    kern.occ_trim = 0
+                ctrl["occ_trim"] = max(ctrl["occ_trim"], g2_compare(ref, bad, scale)[0])
+            for k, v in ctrl.items():
+                check(v > 100 * CHANNEL_TOL, f"{what}: #2 {mode} control ({k}) fails the bound "
+                                             f"by 100x ({v:.3g} > {100 * CHANNEL_TOL})")
+            worst["controls"] = ctrl
+        out[f"pair_channel_{mode}_halo"] = worst
+    # #1 with the fused radial on pse_dd's slabs
+    Lz = step1.spec.box_size[2]
+    ext = [halo_extend(step1.slabs(a)) for a in (st1.x, st1.y)] + [
+        halo_extend(step1.slabs(st1.z), -Lz, Lz)]
+    local, g = step1.local_spec, step1.fkern.g_fn
+    worst = {"rel": 0.0, "abs": 0.0, "nan_rel": 0.0, "max_f": 0.0}
+    ctrl = 0.0
+    for i in range(step1.mesh.size):
+        for xyz in ([a[i] for a in ext], g2_nan_slab(ext, i)):
+            ref = pair_kernel.pair_force_plain(local, g, *xyz, periodic_z=False)
+            got = step1.fkern(*xyz)
+            fmax = max(float(torch.nan_to_num(a, nan=0.0).abs().max()) for a in ref)
+            same_nan = all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(ref, got))
+            err = max(float(torch.nan_to_num(a - b, nan=0.0).abs().max()) for a, b in zip(ref, got))
+            rel = err / max(fmax, 1.0)
+            check(same_nan and rel < PAIR_FUSED_TOL,
+                  f"{what} shard {i}: #1 fused halo vs plain {rel:.3g} < {PAIR_FUSED_TOL} "
+                  f"(max|f| {fmax:.3g}), NaN where plain puts it")
+            key = "rel" if xyz[0] is ext[0][i] else "nan_rel"
+            worst[key] = max(worst[key], rel)
+            if key == "rel":
+                worst["abs"] = max(worst["abs"], err)
+                worst["max_f"] = max(worst["max_f"], fmax)
+                if controls:
+                    step1.fkern.occ_trim = 1
+                    try:
+                        bad = step1.fkern(*xyz)
+                    finally:
+                        step1.fkern.occ_trim = 0
+                    ctrl = max(ctrl, max(float((a - b).abs().max()) for a, b in zip(ref, bad))
+                               / max(fmax, 1.0))
+    if want_pairs:
+        check(worst["max_f"] > 0.0, f"{what}: #1 fused halo meets pairs (max|f| "
+                                    f"{worst['max_f']:.3g} > 0)")
+    if controls:
+        check(ctrl > 100 * PAIR_FUSED_TOL, f"{what}: #1 fused control (occ_trim) fails the "
+                                           f"bound by 100x ({ctrl:.3g})")
+        worst["control_occ_trim"] = ctrl
+    out["pair_force_fused_halo"] = worst
+    return out
+
+
+def g2_kernel_checks(dev, full, clump):
+    """g2_kernels_vs_plain: the three new modes on the clump system's halo
+    slabs (4 shards, real straggler rows; with the controls), on the full
+    path's first state's slabs, and on the same spec's slabs with
+    G2_CONTACTS pairs inside the WCA cutoff."""
+    import torch
+
+    b, pos, be2 = clump
+    be1 = g2_backend(b, G2C_N, pos, n_strag=0, far_grid=G2C_FAR, tolerance=G2C_TOL)
+    step2 = g2_steps(dev, be2, G2C_N, 0.0, G2C_DT)
+    step1 = g2_steps(dev, be1, G2C_N, 0.0, G2C_DT)
+    st2 = step2.make_state(pos)
+    n_strag = sum(int((s > 0.5).sum()) for s in st2.spidf)
+    check(n_strag > 0, "clump system: real straggler rows")
+    from uammd_tpu_torch.engine.layout import pack_channels
+
+    cg1 = pack_channels(be1.spec, torch.from_numpy(pos).to(dev), torch.zeros((G2C_N, 0),
+                                                                              device=dev))
+    out = {"clump": g2_check_modes(step2, step1, st2, cg1, "clump 4 shards", controls=True),
+           "clump_stragglers": n_strag, "clump_spec": list(be2.spec.array_shape),
+           "clump_v1_spec": list(be1.spec.array_shape)}
+    out["full_first_state"] = g2_check_modes(full["step2"], full["step1"], full["st2"],
+                                             full["cg1"], "full first state 4 shards",
+                                             controls=False)
+    # the first state has no pair inside the WCA cutoff: the same spec with
+    # contacts pulled in, where the WCA modes compute non-zero forces
+    step2, step1 = full["step2"], full["step1"]
+    pos_c, n_pairs = g2_contacts([step2.spec, step1.spec], full["pos"])
+    check(n_pairs == G2_CONTACTS, f"full contacts: {n_pairs} == {G2_CONTACTS} pairs pulled")
+    st2c = step2.make_state(pos_c)
+    cg1c = pack_channels(step1.spec, pos_c, torch.zeros((PSE_N, 0), device=dev))
+    check(not bool(cg1c.overflow) and max(float(o) for o in st2c.ovf) == 0.0
+          and sum(int((s > 0.5).sum()) for s in st2c.spidf)
+          == sum(int((s > 0.5).sum()) for s in full["st2"].spidf),
+          "full contacts: the packs keep the first state's shape")
+    out["full_contacts"] = g2_check_modes(step2, step1, st2c, cg1c, "full contacts 4 shards",
+                                          controls=False, want_pairs=True)
+    out["full_contact_pairs"] = n_pairs
+    print(json.dumps({"phase": "g2_kernels_vs_plain", "ok": True, **out,
+                      "channel_tol": CHANNEL_TOL, "pair_fused_tol": PAIR_FUSED_TOL}),
+          flush=True)
+    return out
+
+
+def g2_parity(dev, clump):
+    """At T = 0 each DD step against the port's single-grid PSE step
+    (``displacement_with_pair_force``): pse_dd on the dimer system at PSE_N
+    (one step: forces and positions), pse_dd2 on the clump system on 4 and
+    2 shards (3 + 3 steps through a forced rebin); and the far bucket
+    overflow control (far_m2 = 8 must latch ``ovf``)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.parallel import pse_dd2
+
+    out = {}
+    b, pos = g2_dimers(dev)
+    be = g2_backend(b, PSE_N, pos, n_strag=0)
+    p0 = torch.from_numpy(pos).to(dev)
+    fs = be.make_pair_force_slots(g2_wca())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    dx_ref, f_ref, ovf = be.displacement_with_pair_force(fs, p0, gen, PSE_DT, 0.0)
+    check(not bool(ovf), "dimers: single-grid step without overflow")
+    p_ref = b.wrap_position(p0 + dx_ref)
+    step = g2_steps(dev, be, PSE_N, 0.0, PSE_DT)
+    p_dd, f_dd, ovf_dd = step(p0)
+    check(not bool(ovf_dd), "dimers: pse_dd step without overflow")
+    fscale = float(f_ref.abs().max())
+    dscale = float(dx_ref.abs().max())
+    f_err = float((f_dd - f_ref).abs().max())
+    d = p_dd - p_ref
+    d = d - PSE_L * torch.round(d / PSE_L)
+    p_err = float(d.abs().max())
+    check(fscale > 1.0, f"dimers: the WCA force is not zero ({fscale:.3g})")
+    check(f_err < G2_F_TOL * max(fscale, 1.0) and p_err < G2_P_TOL * max(dscale, 1.0),
+          f"pse_dd at N = {PSE_N}: forces {f_err:.3g} < {G2_F_TOL} x {max(fscale, 1.0):.3g}, "
+          f"positions {p_err:.3g} < {G2_P_TOL} x {max(dscale, 1.0):.3g}")
+    out["pse_dd_dimers"] = {"n": PSE_N, "force_err": f_err, "fscale": fscale,
+                            "pos_err": p_err, "dscale": dscale,
+                            "spec": list(be.spec.array_shape)}
+    del be, step, fs
+    b, pos, be = clump
+    fs = be.make_pair_force_slots(g2_wca())
+    p = torch.from_numpy(pos).to(dev)
+    for _ in range(2 * G2_TRAJ_STEPS):
+        dx, _, ovf = be.displacement_with_pair_force(fs, p, gen, G2C_DT, 0.0)
+        check(not bool(ovf), "clump: single-grid step without overflow")
+        p = b.wrap_position(p + dx)
+    p_ref = p.cpu().numpy()
+    L = b.lengths[0]
+    for n_shards in (G2_SHARDS, 2):
+        step = g2_steps(dev, be, G2C_N, 0.0, G2C_DT, n_shards=n_shards)
+        st = step.make_state(pos)
+        n_strag = sum(int((s > 0.5).sum()) for s in st.spidf)
+        for _ in range(G2_TRAJ_STEPS):
+            st = step(st)
+        st = st.replace(rx=[r + 10.0 * be.spec.drift_threshold for r in st.rx])
+        for _ in range(G2_TRAJ_STEPS):
+            st = step(st)
+        ovf = max(float(o) for o in st.ovf)
+        reb = min(int(r) for r in st.n_rebin)
+        d = pse_dd2.gather_positions(st, G2C_N) - p_ref
+        d -= L * np.round(d / L)
+        err = float(np.abs(d).max())
+        check(ovf == 0.0 and reb >= 1 and n_strag > 0 and err < G2_TRAJ_TOL,
+              f"pse_dd2 clump {n_shards} shards: ovf {ovf} = 0, rebins {reb} >= 1, stragglers "
+              f"{n_strag} > 0, positions {err:.3g} < {G2_TRAJ_TOL}")
+        out[f"pse_dd2_clump_{n_shards}"] = {"pos_err": err, "rebins": reb,
+                                            "stragglers": n_strag, "ovf": ovf}
+    step = g2_steps(dev, be, G2C_N, 0.0, G2C_DT, far_m2=G2_FAR_M2_CONTROL)
+    st = step(step.make_state(pos))
+    latch = max(float(o) for o in st.ovf)
+    check(latch > 0.0, f"control: far_m2 = {G2_FAR_M2_CONTROL} latches ovf ({latch})")
+    out["far_bucket_control_ovf"] = latch
+    print(json.dumps({"phase": "g2_parity", "ok": True, **out, "force_tol": G2_F_TOL,
+                      "pos_tol": G2_P_TOL, "traj_tol": G2_TRAJ_TOL}), flush=True)
+    return out
+
+
+def g2_counters() -> dict:
+    from uammd_tpu_torch.engine import pair_kernel
+    from uammd_tpu_torch.solvers import lanczos
+
+    return {"pair_channel_pse_halo": pair_kernel.PAIR_CHANNEL_HALO,
+            "pair_channel_radial_halo": pair_kernel.PAIR_CHANNEL_RADIAL_HALO,
+            "pair_force_fused_halo": pair_kernel.PAIR_FORCE_FUSED_HALO,
+            "lanczos_sqrt": lanczos.LANCZOS_SQRT,
+            "pair_channel": pair_kernel.PAIR_CHANNEL,
+            "pair_channel_radial": pair_kernel.PAIR_CHANNEL_RADIAL,
+            "pair_force_fused": pair_kernel.PAIR_FORCE_FUSED}
+
+
+def g2_full(dev):
+    """The full path's backends, steps and first states: pse_dd2 with
+    G2_STRAG rows a shard and pse_dd without, both at nz_multiple 4."""
+    import torch
+    from uammd_tpu_torch.engine.layout import pack_channels
+
+    b, pos = pse_box_and_fcc(dev)
+    t0 = time.perf_counter()
+    be2 = g2_backend(b, PSE_N, pos, n_strag=G2_STRAG)
+    be1 = g2_backend(b, PSE_N, pos, n_strag=0)
+    step2 = g2_steps(dev, be2, PSE_N, PSE_T, PSE_DT)
+    step1 = g2_steps(dev, be1, PSE_N, PSE_T, PSE_DT)
+    st2 = step2.make_state(pos)
+    cg1 = pack_channels(be1.spec, pos, torch.zeros((PSE_N, 0), device=dev))
+    torch.cuda.synchronize()
+    return {"box": b, "pos": pos, "be2": be2, "be1": be1, "step2": step2, "step1": step1,
+            "st2": st2, "cg1": cg1, "setup_s": time.perf_counter() - t0}
+
+
+def g2_band(pos0, pos1, L, steps) -> tuple:
+    """(rms displacement, its expected scale sqrt(2 kT m0 dt steps))."""
+    import torch
+
+    d = pos1 - pos0
+    d = d - L * torch.round(d / L)
+    rms = float(torch.sqrt((d.double() ** 2).sum(dim=1).mean()))
+    m0 = 1.0 / (6.0 * math.pi)
+    return rms, math.sqrt(2.0 * PSE_T * m0 * PSE_DT * steps)
+
+
+def main_path_pse_dd2(dev, card, full, n_shards):
+    """main_path_pse_dd2: pse_dd2 on ``n_shards`` shards of the card at
+    bench.py's PSE size, G2_WARM + G2_TIMED steps at T = 1 from the fcc
+    start, with the launch counts zeroed just before the steps; a rebin is
+    forced in the middle of the timed window if none fired. Gates: ovf 0,
+    the count audit, a rebin in the window, finite state, the rms
+    displacement band, each kernel's launches as predicted."""
+    import torch
+    from uammd_tpu_torch.parallel import pse_dd2
+
+    step = full["step2"] if n_shards == G2_SHARDS else g2_steps(
+        dev, full["be2"], PSE_N, PSE_T, PSE_DT, n_shards=n_shards)
+    st = step.make_state(full["pos"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    counted = g2_counters()
+    for k in counted.values():
+        k.launches = 0
+    step.rebins = 0
+    for _ in range(G2_WARM):
+        st = step(st, gen)
+    torch.cuda.synchronize()
+    reb0 = step.rebins
+    forced = False
+    t0 = time.perf_counter()
+    for k in range(G2_TIMED):
+        if k == G2_TIMED // 2 and step.rebins == reb0:
+            st = step.step_z(st, *step.draw(gen), force_rebin=True)
+            forced = True
+        else:
+            st = step(st, gen)
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    steps = G2_WARM + G2_TIMED
+    D, m = n_shards, full["be2"].lanczos_iterations
+    want = {"pair_channel_pse_halo": steps * D * (1 + m), "pair_channel_radial_halo": steps * D,
+            "lanczos_sqrt": steps * D}
+    for k, v in counted.items():
+        check(launches[k] == want.get(k, 0),
+              f"pse_dd2 {D} shards: {k} launched {launches[k]} = {want.get(k, 0)} times")
+    ovf = max(float(o) for o in st.ovf)
+    count = sum(int((p > 0.5).sum()) + int((s > 0.5).sum()) for p, s in zip(st.pidf, st.spidf))
+    n_strag = sum(int((s > 0.5).sum()) for s in st.spidf)
+    p1 = torch.from_numpy(pse_dd2.gather_positions(st, PSE_N)).to(dev)
+    rms, expected = g2_band(full["pos"], p1, PSE_L, steps)
+    check(ovf == 0.0, f"pse_dd2 {D} shards: ovf {ovf} = 0")
+    check(count == PSE_N, f"pse_dd2 {D} shards: count audit {count} = {PSE_N}")
+    check(step.rebins - reb0 >= 1, f"pse_dd2 {D} shards: a rebin in the timed window")
+    check(bool(torch.isfinite(p1).all()), f"pse_dd2 {D} shards: finite state")
+    check(G2_BAND[0] * expected < rms < G2_BAND[1] * expected,
+          f"pse_dd2 {D} shards: rms displacement {rms:.4g} within {G2_BAND} x {expected:.4g}")
+    ms = 1e3 * timed_s / G2_TIMED
+    res = {"phase": f"main_path_pse_dd2_{D}", "card": card, "n": PSE_N, "shards": D,
+           "spec": list(step.spec.array_shape), "local_spec": list(step.local_spec.array_shape),
+           "n_strag_per_shard": step.S, "n_comb": step.n_comb, "far_m2": step.far_m2,
+           "far_grid": list(full["be2"].far.shape), "far_support": full["be2"].far.support,
+           "lanczos_m": m, "warm_steps": G2_WARM, "timed_steps": G2_TIMED,
+           "timed_seconds": timed_s, "ms_per_step": ms,
+           "particle_steps_per_s": PSE_N * G2_TIMED / timed_s, "rebins_warm": reb0,
+           "rebins_timed": step.rebins - reb0, "rebin_forced": forced, "ovf": ovf,
+           "count": count, "stragglers_final": n_strag, "rms_displacement": rms,
+           "rms_expected": expected, "launches": launches, "launches_predicted": want,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(json.dumps(res), flush=True)
+    res.update(step=step, st=st, gen=gen)
+    return res
+
+
+def main_path_pse_dd(dev, card, full):
+    """main_path_pse_dd: pse_dd (v1) on G2_SHARDS shards at bench.py's PSE
+    size without a straggler list, G2_WARM + G2_TIMED steps at T = 1 from
+    the fcc start. Gates: no overflow, finite, the band, the launches."""
+    import torch
+
+    step = full["step1"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    counted = g2_counters()
+    for k in counted.values():
+        k.launches = 0
+    p = full["pos"]
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(G2_WARM):
+        p, _, o = step(p, gen)
+        ovf = ovf | o
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(G2_TIMED):
+        p, f, o = step(p, gen)
+        ovf = ovf | o
+    torch.cuda.synchronize()
+    timed_s = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in counted.items()}
+    steps = G2_WARM + G2_TIMED
+    D, m = G2_SHARDS, full["be1"].lanczos_iterations
+    want = {"pair_channel_pse_halo": steps * D * (1 + m), "pair_force_fused_halo": steps * D,
+            "lanczos_sqrt": steps * D}
+    for k, v in counted.items():
+        check(launches[k] == want.get(k, 0),
+              f"pse_dd: {k} launched {launches[k]} = {want.get(k, 0)} times")
+    rms, expected = g2_band(full["pos"], p, PSE_L, steps)
+    check(not bool(ovf), "pse_dd: no overflow (near pack, far binning)")
+    check(bool(torch.isfinite(p).all()), "pse_dd: finite positions")
+    check(G2_BAND[0] * expected < rms < G2_BAND[1] * expected,
+          f"pse_dd: rms displacement {rms:.4g} within {G2_BAND} x {expected:.4g}")
+    reads = host_reads(lambda: step(p, gen), 2)
+    res = {"phase": "main_path_pse_dd", "card": card, "n": PSE_N, "shards": D,
+           "spec": list(step.spec.array_shape), "local_spec": list(step.local_spec.array_shape),
+           "far_m_cap": step.far_m_cap, "lanczos_m": m, "warm_steps": G2_WARM,
+           "timed_steps": G2_TIMED, "timed_seconds": timed_s,
+           "ms_per_step": 1e3 * timed_s / G2_TIMED,
+           "particle_steps_per_s": PSE_N * G2_TIMED / timed_s, "overflow": False,
+           "rms_displacement": rms, "rms_expected": expected, "launches": launches,
+           "launches_predicted": want, "host_reads_per_step": len(reads) / 2,
+           "host_read_lines": sorted(set(reads))}
+    print(json.dumps(res), flush=True)
+    res.update(step=step, pos=p)
+    return res
+
+
+class SpanTimer:
+    """CUDA events around each named phase of a step (``span(name)``);
+    ``ms()`` sums them per name."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, name):
+        import torch
+
+        rec = self.events
+
+        @contextlib.contextmanager
+        def span():
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            yield
+            e.record()
+            rec.append((name, s, e))
+
+        return span()
+
+    def ms(self) -> tuple:
+        import torch
+
+        torch.cuda.synchronize()
+        tot, cnt = {}, {}
+        for name, s, e in self.events:
+            tot[name] = tot.get(name, 0.0) + s.elapsed_time(e)
+            cnt[name] = cnt.get(name, 0) + 1
+        return tot, cnt
+
+
+def breakdown_pse_dd2(card, dd4, dd1):
+    """breakdown_pse_dd2: the ms of each layer of a pse_dd2 step (CUDA
+    events around each phase, G2_BREAKDOWN_STEPS steps at each path's final
+    state, then one forced rebin), the host reads per step, and the
+    4-shard step against the 1-shard one."""
+    out = {}
+    for run in (dd4, dd1):
+        step, st, gen = run["step"], run["st"], run["gen"]
+        timer = SpanTimer()
+        step.span = timer
+        try:
+            for _ in range(G2_BREAKDOWN_STEPS):
+                st = step(st, gen)
+            tot, cnt = timer.ms()
+            timer.events.clear()
+            st = step.step_z(st, *step.draw(gen), force_rebin=True)
+            reb, _ = timer.ms()
+        finally:
+            del step.span
+        k = G2_BREAKDOWN_STEPS
+        per = {n: v / k for n, v in tot.items()}
+        m = step.be.lanczos_iterations
+        mv = per.get("matvec", 0.0)
+        layers = {"drift_and_host_read": per.get("drift", 0.0),
+                  "rebin_forced": reb.get("rebin", 0.0), "ghosts": per.get("halo", 0.0),
+                  "pair_force": per.get("pair_force", 0.0),
+                  "matvec_x_(1+m)": mv, "matvec_one": mv / (1 + m),
+                  "lanczos_without_matvecs": per.get("lanczos", 0.0) - mv * m / (1 + m),
+                  "bucketing": per.get("bucket", 0.0), "far_field": per.get("far", 0.0),
+                  "update": per.get("update", 0.0)}
+        step_ms = sum(per[n] for n in ("drift", "halo", "pair_force", "bucket", "far", "update")
+                      if n in per) + mv / (1 + m) + per.get("lanczos", 0.0)
+        reads = host_reads(lambda: step(st, gen), 3)
+        out[f"shards_{step.D}"] = {
+            "ms_per_step_timed": run["ms_per_step"], "ms_per_step_spans": step_ms,
+            "layers_ms": layers, "span_calls_per_step": {n: c / k for n, c in cnt.items()},
+            "host_reads_per_step": len(reads) / 3, "host_read_lines": sorted(set(reads))}
+        run["st"] = st
+    print(json.dumps({"phase": "breakdown_pse_dd2", "card": card, **out,
+                      "note": "CUDA events around each phase of one step (the lanczos span "
+                              "holds m of the 1 + m matvecs); on one card the exchanges are "
+                              "device-local copies"}), flush=True)
+    return out
+
+
+def g2_pairs(local, ext, pidf_ext, comb, rc2) -> dict:
+    """The work of a halo-mode channel kernel on one shard: ordered
+    candidate pairs of distinct particles from the slab's interior home
+    slots and those inside rc2, and the (interior home, valid combined
+    row) pairs inside rc2 (minimum image)."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine.kernel2 import _box
+
+    x, y, z = ext
+    rows = torch.arange(local.cap, device=x.device)[None, None, :, None]
+    pid = pidf_ext.to(torch.int64) - 1
+    inner = torch.zeros_like(pid, dtype=torch.bool)
+    inner[1:-1] = True
+    pid_i = pid[:, :, :, None, :]
+    home = [a[:, :, :, None, :] for a in (x, y, z)]
+    cand = cut = 0
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                zs, ybs, lane, shifts = layout.stencil_sources(local, dz, dy, dx, x.device,
+                                                               periodic_z=False)
+                pid_j = pid[zs, ybs, rows, lane][:, :, None]
+                both = (inner[:, :, :, None, :] & (pid_i >= 0) & (pid_j >= 0)
+                        & (pid_i != pid_j))
+                r2 = sum(((a[zs, ybs, rows, lane] + s)[:, :, None] - h) ** 2
+                         for a, s, h in zip((x, y, z), shifts, home))
+                cand += int(both.sum())
+                cut += int((both & (r2 < rc2)).sum())
+    Ls, iLs = _box(local.box_size, x.device)
+    act = (inner & (pid >= 0)).reshape(-1)
+    hp = torch.stack([a.reshape(-1)[act] for a in (x, y, z)], -1)
+    sp = comb[comb[:, 3] > 0.5][:, :3]
+    d = sp[None, :, :] - hp[:, None, :]
+    d = d - Ls * torch.round(d * iLs)
+    return {"candidates": cand, "inside": cut, "straggler": int(act.sum()) * int(sp.shape[0]),
+            "straggler_inside": int(((d * d).sum(-1) < rc2).sum())}
+
+
+def g2_rows(card, dd4, pd, checks):
+    """The kernels-line rows of the three new modes: #2 PSE and #2 radial
+    (halo, combined straggler rows) at the 4-shard pse_dd2 path's final
+    state, #1 fused (halo) at the pse_dd path's final state; ms, plain ms
+    and bound cover one step's launches of one sweep over the shards."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import pair_kernel
+    from uammd_tpu_torch.parallel.domain import halo_extend
+
+    step, st = dd4["step"], dd4["st"]
+    D = step.D
+    inp = g2_inputs(step, st, 31)
+    local = step.local_spec
+    note = (f"ms, plain_ms and bound_ms cover one sweep's {D} launches (one per shard) at "
+            "the path's final state; the pse row's launches are 1 + m sweeps a step")
+    rows = []
+    fx = {"pse": step.near_fn, "radial": step.force_fn}
+    rc2s = {"pse": float(np.float32(step.be.rcut ** 2)), "radial": float(step.g_pair.rc2)}
+    for mode, name, kname in (("pse", "pair_channel_pse_halo", "pair_channel_pse_halo"),
+                              ("radial", "pair_channel_radial_halo",
+                               "pair_channel_radial_halo")):
+        # the kernel's inputs made once, outside the timed launches
+        kern = step.nkern if mode == "pse" else step.fkern
+        args = [([a[i] for a in inp["ext"]]
+                 + ([inp["hg"][i][c] for c in range(3)] if mode == "pse" else []),
+                 step.bblock(inp["comb"][i], tuple(inp["cr"][i]) if mode == "pse" else ()))
+                for i in range(D)]
+        ms = cuda_ms(lambda: [kern(*a, strag=blk) for a, blk in args], reps=10)
+        plain = cuda_ms(lambda: [g2_mode_outputs(step, mode, inp, i, plain=True)
+                                 for i in range(D)], reps=1, warmup=1)
+        err = max(g2_compare(g2_mode_outputs(step, mode, inp, i, plain=True),
+                             g2_mode_outputs(step, mode, inp, i))[2] for i in range(D))
+        pairs = [g2_pairs(local, [a[i] for a in inp["ext"]], inp["pidf"][i], inp["comb"][i],
+                          rc2s[mode]) for i in range(D)]
+        tot = {k: sum(p[k] for p in pairs) for k in pairs[0]}
+        cand = tot["candidates"] // 2 + tot["straggler"]
+        inside = tot["inside"] // 2 + tot["straggler_inside"]
+        if mode == "pse":
+            ops = OPS_CH_TEST * cand + (OPS_CH_RADIAL + 2 * OPS_CH_APPLY) * inside
+            n_io = 9  # x, y, z and 3 channels in, 3 sums out
+        else:
+            ops = OPS_PAIR_TEST * cand + OPS_PAIR_FUSED * inside
+            n_io = 6
+        ops_ms = 1e3 * ops / PEAK_FP32_FLOPS
+        ng = 3 if mode == "pse" else 0
+        bytes_ms = 1e3 * D * 4 * (n_io * local.n_slots + (ng + 4 + 3) * step.n_comb) \
+            / PEAK_HBM_BYTES
+        rows.append({"name": name, "route": "cuda",
+                     "source": "uammd_tpu_torch/engine/csrc/pair_channel.cu (+ "
+                               "channel_functors.cuh)",
+                     "replaces": "uammd_tpu/engine/pair_kernel.py:538 (periodic_z=False, "
+                                 ":381-385, with straggler rows; "
+                                 + ("pse_dd2.py:110-113" if mode == "pse"
+                                    else "pse_dd2.py:119-127") + ")",
+                     "launches": dd4["launches"][kname], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+                     "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                     "library_ms": None, "pairs": tot, "checks": checks["clump"][kname],
+                     "checks_full_first_state": checks["full_first_state"][kname],
+                     "checks_full_contacts": checks["full_contacts"][kname],
+                     "launch_plan": channel_plan_of(local, fx[mode]),
+                     "shape": list(local.array_shape), "n_comb": step.n_comb, "note": note})
+    # #1 fused at the pse_dd path's final state
+    step1 = pd["step"]
+    from uammd_tpu_torch.engine.layout import pack_channels
+
+    cg = pack_channels(step1.spec, pd["pos"], torch.zeros((PSE_N, 0), device=pd["pos"].device))
+    Lz = step1.spec.box_size[2]
+    ext = [halo_extend(step1.slabs(a)) for a in (cg.x, cg.y)] + [
+        halo_extend(step1.slabs(cg.z), -Lz, Lz)]
+    pidf = halo_extend(step1.slabs((cg.pid + 1).to(torch.float32)))
+    local1, g = step1.local_spec, step1.fkern.g_fn
+    ms = cuda_ms(lambda: [step1.fkern(ext[0][i], ext[1][i], ext[2][i]) for i in range(D)],
+                 reps=10)
+    plain = cuda_ms(lambda: [pair_kernel.pair_force_plain(local1, g, ext[0][i], ext[1][i],
+                                                          ext[2][i], periodic_z=False)
+                             for i in range(D)], reps=1, warmup=1)
+    err = max(max(float((a - b).abs().max()) for a, b in zip(
+        step1.fkern(ext[0][i], ext[1][i], ext[2][i]),
+        pair_kernel.pair_force_plain(local1, g, ext[0][i], ext[1][i], ext[2][i],
+                                     periodic_z=False))) for i in range(D))
+    empty = torch.zeros((0, 4), device=cg.x.device)
+    # the kernel culls at the nearer of the spec's cutoff and the radial's
+    rc2 = min(float(np.float32(step1.spec.cutoff ** 2)), g.rc2)
+    pairs = [g2_pairs(local1, [a[i] for a in ext], pidf[i], empty, rc2) for i in range(D)]
+    tot = {k: sum(p[k] for p in pairs) for k in pairs[0]}
+    ops_ms = 1e3 * (OPS_PAIR_TEST * tot["candidates"] // 2
+                    + OPS_PAIR_FUSED * tot["inside"] // 2) / PEAK_FP32_FLOPS
+    bytes_ms = 1e3 * D * 4 * 6 * local1.n_slots / PEAK_HBM_BYTES
+    rows.append({"name": "pair_force_fused_halo", "route": "cuda",
+                 "source": "uammd_tpu_torch/engine/csrc/pair_force.cu",
+                 "replaces": "uammd_tpu/engine/pair_kernel.py:272 (periodic_z=False, "
+                             ":99-102, g_fn = md.lj_g_fused; pse_dd.py:173-177)",
+                 "launches": pd["launches"]["pair_force_fused_halo"], "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+                 "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                 "library_ms": None, "pairs": tot,
+                 "checks": checks["clump"]["pair_force_fused_halo"],
+                 "checks_full_first_state": checks["full_first_state"]["pair_force_fused_halo"],
+                 "checks_full_contacts": checks["full_contacts"]["pair_force_fused_halo"],
+                 "launch_plan": plan_of(local1)["pair_force"], "shape": list(local1.array_shape),
+                 "cutoff": step1.spec.cutoff, "note": note})
+    return rows
+
+
+def g2_phases(dev, card) -> list:
+    """Slice G2a's phases in order; returns the kernels-line rows."""
+    import torch
+
+    full = g2_full(dev)
+    clump = g2_clump(dev)
+    checks = g2_kernel_checks(dev, full, clump)
+    parity = g2_parity(dev, clump)
+    torch.cuda.empty_cache()
+    dd4 = main_path_pse_dd2(dev, card, full, G2_SHARDS)
+    dd1 = main_path_pse_dd2(dev, card, full, 1)
+    pd = main_path_pse_dd(dev, card, full)
+    breakdown_pse_dd2(card, dd4, dd1)
+    rows = g2_rows(card, dd4, pd, checks)
+    print(json.dumps({"phase": "g2_summary", "card": card, "setup_s": full["setup_s"],
+                      "pse_dd2_4_ms_per_step": dd4["ms_per_step"],
+                      "pse_dd2_1_ms_per_step": dd1["ms_per_step"],
+                      "pse_dd_4_ms_per_step": pd["ms_per_step"],
+                      "parity": {k: v for k, v in parity.items()}}), flush=True)
+    del full, dd4, dd1, pd
+    torch.cuda.empty_cache()
+    return rows
+
+
+def g2_only(dev, card) -> int:
+    """``--only-g2``: slice G2a's checks and paths alone, for working on
+    them; prints no result line."""
+    rows = g2_phases(dev, card)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def dd_only(dev, card) -> int:
     """``--only-dd``: slice G1's phases alone (after the v1 melt), for
     working on them; prints no result line."""
@@ -4409,6 +5324,7 @@ def main() -> int:
     only_poisson = "--only-poisson" in sys.argv[1:]
     only_dd = "--only-dd" in sys.argv[1:]
     only_ragged = "--only-ragged" in sys.argv[1:]
+    only_g2 = "--only-g2" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4455,6 +5371,8 @@ def main() -> int:
     if only_ragged:
         ragged_checks(dev)
         return 0
+    if only_g2:
+        return g2_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -4791,6 +5709,9 @@ def main() -> int:
     # slice G1: the grid engines on a z-slab mesh, each path with its own
     # zeroed launch counts
     rows += dd_phases(dev, card, melted, a3["ms"])
+    # slice G2a: the composed multi-shard PSE steps, each path with its own
+    # zeroed launch counts
+    rows += g2_phases(dev, card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,3 +73,24 @@ def test_make_mesh_checks_devices():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA"):
             tm.make_mesh(2)
+
+
+@pytest.mark.parametrize("split_dim,concat_dim", [(0, 0), (2, 0), (0, 2), (1, 2)])
+def test_all_to_all_matches_jax(split_dim, concat_dim):
+    """The tiled ``jax.lax.all_to_all`` of spectral.py's distributed FFT
+    (kz split, x gather, and back) and pse_dd2.py's bucket exchange."""
+    rng = np.random.default_rng(split_dim * 3 + concat_dim)
+    shape = [N * N, 4, 8]  # the leading axis holds the N shards
+    a = rng.normal(size=shape).astype(np.float32)
+    want = _jax_collective(lambda x: jax.lax.all_to_all(
+        x, "z", split_axis=split_dim, concat_axis=concat_dim, tiled=True), a)
+    shards = [torch.from_numpy(p.copy()) for p in np.split(a, N)]
+    got = tm.all_to_all(shards, split_dim, concat_dim)
+    np.testing.assert_array_equal(np.concatenate([g.numpy() for g in got]), want)
+    got[0].zero_()  # fresh copies
+    assert all(float(s.abs().sum()) > 0 for s in shards)
+
+
+def test_all_to_all_needs_equal_chunks():
+    with pytest.raises(ValueError, match="does not split"):
+        tm.all_to_all([torch.zeros(3, 2) for _ in range(N)], 0, 0)

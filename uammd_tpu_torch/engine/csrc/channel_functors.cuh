@@ -9,6 +9,8 @@
 //                   and lj_mixture_pair_fn_masked                  (3 in, 3 out)
 //   PoissonFn       uammd_tpu/electrostatics/poisson.py:GaussianNearField._pair_fn
 //                                                                  (1 in, 4 out)
+//   RadialForceFn   uammd_tpu/parallel/pse_dd2.py:115-127, g(r2) d with the
+//                   fused LJ radial md.lj_g_fused                  (0 in, 3 out)
 //
 // A functor declares NG grid channels (staged for home and candidate slots),
 // NU uniform channels (home side only, one value for the whole launch: the
@@ -308,6 +310,51 @@ struct PoissonFn {
     acc[1] += gq * dy;
     acc[2] += gq * dz;
     acc[3] += e * cj[0];
+  }
+};
+
+// ---------------------------------------------------------------- radial force
+// The fused LJ radial of uammd_tpu/engine/md.py:lj_g_fused (md.LJFused):
+// g = r2 < rc2 ? t^4 (c1 t^3 + c2) : 0 with t = 1 / max(r2, lo), rounded as
+// the plain version rounds it (no FMA); approx takes rcp.approx.ftz.f32 for
+// the division, as the Newton pair kernel does.
+struct RadialParams {
+  float c1, c2, rc2, lo;
+  int approx;
+};
+
+// no channels; sums g(r2) d onto i (the reverse direction is the same body
+// on the row's own displacement, -d rounded as a grid candidate's). The
+// clamp keeps the self pair's g finite, and its d = 0 adds nothing.
+struct RadialForceFn {
+  static constexpr int NG = 0;
+  static constexpr int NU = 0;
+  static constexpr int NOUT = 3;
+  static constexpr bool kStrag = true;
+  static constexpr int kDisp = 1;
+  static constexpr int kReachChan = -1;
+  RadialParams p;
+
+  __device__ __forceinline__ float reach(float) const { return sqrtf(p.rc2); }
+  __device__ __forceinline__ float thr2(float) const { return p.rc2; }
+
+  __device__ __forceinline__ void fwd(float r2, float dx, float dy, float dz, const float*,
+                                      const float*, size_t, float* acc) const {
+    if (!(r2 < p.rc2)) return;
+    const float r2c = fmaxf(r2, p.lo);
+    float t;
+    if (p.approx) {
+      asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(r2c));
+    } else {
+      t = __fdiv_rn(1.0f, r2c);
+    }
+    const float t2 = __fmul_rn(t, t);
+    const float t3 = __fmul_rn(t2, t);
+    const float t4 = __fmul_rn(t2, t2);
+    const float g = __fmul_rn(t4, __fadd_rn(__fmul_rn(p.c1, t3), p.c2));
+    acc[0] += g * dx;
+    acc[1] += g * dy;
+    acc[2] += g * dz;
   }
 };
 

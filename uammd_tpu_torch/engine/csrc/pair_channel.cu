@@ -6,15 +6,21 @@
 // with the pair_fn chosen at compile time as a functor of
 // channel_functors.cuh (PSE near field at 1 or 2 stacked 3-vectors, DPD,
 // SPH density and force, LJ mixture and its masked form, the Poisson near
-// field). Every home slot sums the functor's contributions over the CAP
-// slots of exactly the 27 cells around it (its own cell included: each
-// functor's r2 > eps test drops the self pair). With a functor that serves
-// stragglers (kStrag: PSE, Poisson) the straggler list ([3 + NG + 1, S]:
+// field, the fused LJ radial force). Every home slot sums the functor's
+// contributions over the CAP slots of exactly the 27 cells around it (its
+// own cell included: each functor's r2 > eps test, or its zero
+// displacement, drops the self pair). With a functor that serves
+// stragglers (kStrag: PSE, Poisson, the radial force) the straggler list
+// ([3 + NG + 1, S]:
 // x, y, z, channels, valid; each direction's displacement rounded as for a
 // grid candidate of an image cell, pse::image_pair) adds its forward
 // contributions, and the rows' reverse contributions are reduced into
 // spart [NOUT, S] (the JAX kernel returns per-program partials that its
-// caller sums over (z, yb, lane)). The other functors run on
+// caller sums over (z, yb, lane)). In the halo mode the caller sums those
+// partials over the slab's interior rows only (parallel/pse_dd2.py:344-347),
+// so the home slots of the two ghost rows (z = 0 and z = nz - 1) add
+// nothing to spart; their own outputs are dropped by the caller and left
+// as the periodic mode leaves them. The other functors run on
 // straggler-free specs (S = 0), as the JAX engines build them.
 //
 // Layout: arrays are [nz, nyb, CAP, NLANE] float32; lane l = cx*F + f is
@@ -581,7 +587,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_channel_kernel(
 #pragma unroll
       for (int k = 0; k < NO; ++k) t[k] = 0.0f;
       if (has) {
-        float hc[NG + NU];
+        float hc[NG + NU > 0 ? NG + NU : 1];
 #pragma unroll
         for (int k = 0; k < NG; ++k) hc[k] = ch[k * Ti + hi];
 #pragma unroll
@@ -698,7 +704,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_channel_kernel(
     while (tail > head) round(min(32, tail - head));
 
     if constexpr (Fn::kStrag) {
-      float ci[NG];
+      // a ghost row's home slots add nothing to spart (halo mode)
+      const bool ghost = !g.periodic_z && (zc == 0 || zc == g.nz - 1);
+      float ci[NG > 0 ? NG : 1];
 #pragma unroll
       for (int k = 0; k < NG; ++k) ci[k] = live ? ch[k * T + hidx] : 0.0f;
       const int nk = hdr[2];
@@ -714,7 +722,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_channel_kernel(
           pse::image_pair(srow[s], h.x, g.Lx, g.iLx, &d[0], &e[0]);
           pse::image_pair(srow[S + s], h.y, g.Ly, g.iLy, &d[1], &e[1]);
           pse::image_pair(srow[2 * S + s], h.z, g.Lz, g.iLz, &d[2], &e[2]);
-          float Fj[NG];
+          float Fj[NG > 0 ? NG : 1];
 #pragma unroll
           for (int k = 0; k < NG; ++k) Fj[k] = srow[(3 + k) * S + s];
           const float r2 = pse::dist2(d[0], d[1], d[2]);
@@ -725,7 +733,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_channel_kernel(
           } else {
             zero_terms<Fn>(d[0], d[1], d[2], acc);
           }
-          if (valid && r2e <= FLT_MAX) {
+          if (ghost) {
+            // nothing to add
+          } else if (valid && r2e <= FLT_MAX) {
             fn.fwd(r2e, e[0], e[1], e[2], Fj, ci, 1, rev);
           } else {
             zero_terms<Fn>(e[0], e[1], e[2], rev);
@@ -803,6 +813,43 @@ int launch_plain(void* x, void* y, void* z, void* ch, void* uni, void* out, int 
                     fn, 0, static_cast<cudaStream_t>(stream));
 }
 
+// The PSE near field at nv = 1 or 2 stacked 3-vectors, periodic in z or in
+// the halo mode (periodic_z 0).
+int pse_launch(void* x, void* y, void* z, void* ch, void* strag, void* out, void* spart, int nv,
+               int nx, int nyb, int nz, int F, int cap, int S, int cc, int fc, int occ_trim,
+               float Lx, float Ly, float Lz, float iLx, float iLy, float iLz,
+               const pse::Near& p, void* stream, int periodic_z) {
+  const Geom g =
+      geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, iLx, iLy, iLz, periodic_z, cc, fc, occ_trim);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fx = static_cast<const float*>(x);
+  const float* fy = static_cast<const float*>(y);
+  const float* fz = static_cast<const float*>(z);
+  const float* fc_ = static_cast<const float*>(ch);
+  const float* fs = static_cast<const float*>(strag);
+  float* fo = static_cast<float*>(out);
+  float* fp = static_cast<float*>(spart);
+  if (nv == 1) return launch(fx, fy, fz, fc_, nullptr, fs, fo, fp, g, chan::PSEFn<1>{p}, S, st);
+  if (nv == 2) return launch(fx, fy, fz, fc_, nullptr, fs, fo, fp, g, chan::PSEFn<2>{p}, S, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A straggler-serving functor: ch float32 [NG, T]; strag [3 + NG + 1, S] or
+// null when S == 0; out [NOUT, T]; spart [NOUT, S], zeroed.
+template <class Fn>
+int strag_launch(void* x, void* y, void* z, void* ch, void* strag, void* out, void* spart,
+                 int nx, int nyb, int nz, int F, int cap, int S, int cc, int fc, int occ_trim,
+                 float Lx, float Ly, float Lz, float iLx, float iLy, float iLz, const Fn& fn,
+                 void* stream, int periodic_z) {
+  return launch(static_cast<const float*>(x), static_cast<const float*>(y),
+                static_cast<const float*>(z), static_cast<const float*>(ch), nullptr,
+                static_cast<const float*>(strag), static_cast<float*>(out),
+                static_cast<float*>(spart),
+                geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, iLx, iLy, iLz, periodic_z, cc, fc,
+                     occ_trim),
+                fn, S, static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // cc, fc: the block's cells along x and the fold (pair_kernel.channel_launch_plan);
@@ -815,18 +862,22 @@ extern "C" int uammd_pair_channel(void* x, void* y, void* z, void* ch, void* str
                                   int S, int cc, int fc, int occ_trim, float Lx, float Ly,
                                   float Lz, float iLx, float iLy, float iLz, pse::Near p,
                                   void* stream) {
-  const Geom g = geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, iLx, iLy, iLz, 1, cc, fc, occ_trim);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* fx = static_cast<const float*>(x);
-  const float* fy = static_cast<const float*>(y);
-  const float* fz = static_cast<const float*>(z);
-  const float* fc_ = static_cast<const float*>(ch);
-  const float* fs = static_cast<const float*>(strag);
-  float* fo = static_cast<float*>(out);
-  float* fp = static_cast<float*>(spart);
-  if (nv == 1) return launch(fx, fy, fz, fc_, nullptr, fs, fo, fp, g, chan::PSEFn<1>{p}, S, st);
-  if (nv == 2) return launch(fx, fy, fz, fc_, nullptr, fs, fo, fp, g, chan::PSEFn<2>{p}, S, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return pse_launch(x, y, z, ch, strag, out, spart, nv, nx, nyb, nz, F, cap, S, cc, fc,
+                    occ_trim, Lx, Ly, Lz, iLx, iLy, iLz, p, stream, 1);
+}
+
+// The same in the z-slab halo mode of parallel/pse_dd.py and pse_dd2.py
+// (pair_kernel.py:381-385, periodic_z=False): x, y, z are a slab extended by
+// one image-shifted ghost row at each end; the z index wraps but takes no Lz
+// shift; spart sums the interior rows' reverse terms only. The straggler
+// minimum image still takes the box's L in all three axes.
+extern "C" int uammd_pair_channel_halo(void* x, void* y, void* z, void* ch, void* strag,
+                                       void* out, void* spart, int nv, int nx, int nyb, int nz,
+                                       int F, int cap, int S, int cc, int fc, int occ_trim,
+                                       float Lx, float Ly, float Lz, float iLx, float iLy,
+                                       float iLz, pse::Near p, void* stream) {
+  return pse_launch(x, y, z, ch, strag, out, spart, nv, nx, nyb, nz, F, cap, S, cc, fc,
+                    occ_trim, Lx, Ly, Lz, iLx, iLy, iLz, p, stream, 0);
 }
 
 // The straggler-free functors: ch float32 [NG, T] (the grid channels),
@@ -865,12 +916,32 @@ extern "C" int uammd_pair_channel_poisson(void* x, void* y, void* z, void* ch, v
                                           int F, int cap, int S, int cc, int fc, int occ_trim,
                                           float Lx, float Ly, float Lz, float iLx, float iLy,
                                           float iLz, chan::PoissonParams p, void* stream) {
-  return launch(static_cast<const float*>(x), static_cast<const float*>(y),
-                static_cast<const float*>(z), static_cast<const float*>(ch), nullptr,
-                static_cast<const float*>(strag), static_cast<float*>(out),
-                static_cast<float*>(spart),
-                geom(nx, nyb, nz, F, cap, Lx, Ly, Lz, iLx, iLy, iLz, 1, cc, fc, occ_trim),
-                chan::PoissonFn{p}, S, static_cast<cudaStream_t>(stream));
+  return strag_launch(x, y, z, ch, strag, out, spart, nx, nyb, nz, F, cap, S, cc, fc, occ_trim,
+                      Lx, Ly, Lz, iLx, iLy, iLz, chan::PoissonFn{p}, stream, 1);
+}
+
+// The fused LJ radial force g(r2) d of parallel/pse_dd2.py:115-127 (no
+// channels, 3 sums, both directions over the straggler rows): ch unused
+// (any pointer); strag [4, S] (x, y, z, valid) or null when S == 0; out
+// [3, T]; spart [3, S], zeroed. _halo: the z-slab halo mode, as
+// uammd_pair_channel_halo.
+extern "C" int uammd_pair_channel_radial(void* x, void* y, void* z, void* ch, void* strag,
+                                         void* out, void* spart, int nx, int nyb, int nz, int F,
+                                         int cap, int S, int cc, int fc, int occ_trim, float Lx,
+                                         float Ly, float Lz, float iLx, float iLy, float iLz,
+                                         chan::RadialParams p, void* stream) {
+  return strag_launch(x, y, z, ch, strag, out, spart, nx, nyb, nz, F, cap, S, cc, fc, occ_trim,
+                      Lx, Ly, Lz, iLx, iLy, iLz, chan::RadialForceFn{p}, stream, 1);
+}
+
+extern "C" int uammd_pair_channel_radial_halo(void* x, void* y, void* z, void* ch, void* strag,
+                                              void* out, void* spart, int nx, int nyb, int nz,
+                                              int F, int cap, int S, int cc, int fc,
+                                              int occ_trim, float Lx, float Ly, float Lz,
+                                              float iLx, float iLy, float iLz,
+                                              chan::RadialParams p, void* stream) {
+  return strag_launch(x, y, z, ch, strag, out, spart, nx, nyb, nz, F, cap, S, cc, fc, occ_trim,
+                      Lx, Ly, Lz, iLx, iLy, iLz, chan::RadialForceFn{p}, stream, 0);
 }
 
 // The dynamic shared memory and the threads of one block, for the wrapper's

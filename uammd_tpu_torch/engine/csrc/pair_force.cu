@@ -1,7 +1,8 @@
 // Short-range LJ pair force on the grid-resident layout, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel uammd_tpu/engine/pair_kernel.py:
-// make_pair_force_kernel (:81, pallas_call at :272), in three modes.
+// make_pair_force_kernel (:81, pallas_call at :272), in three modes, each
+// force-only mode with either of two radials.
 //
 // Force only (:192-205, entry uammd_pair_force): for every home slot
 // (z, yb, c, lane) it sums g(r2) * d over the slots of the 27 neighbour
@@ -24,6 +25,14 @@
 // on a z-slab of parallel/domain.py, extended by one ghost row at each end
 // whose z the caller has image-shifted. The z index still wraps, but no Lz
 // shift is applied; the ghost rows' own outputs are garbage the caller drops.
+//
+// Radials: md.lj_g (entries above), or the fused LJ radial md.lj_g_fused
+// (md.LJFused; entries uammd_pair_force_fused and _fused_halo, as
+// parallel/pse_dd.py:173-177 runs it): the kernel's own cutoff and clamp
+// around it, g = r2 < rc2 ? fused(max(r2, clamp_lo)) : 0 with
+// fused(r) = r < frc2 ? t^4 (c1 t^3 + c2) : 0, t = 1 / max(r, flo), rounded
+// as the plain version rounds it; approx takes rcp.approx.ftz.f32 for the
+// division, as the Newton pair kernel does.
 //
 // Layout: arrays are [nz, nyb, CAP, NLANE] float32; lane l = cx*F + f is
 // cell (cx, y = yb*F + f). A slot is empty iff x >= 5e8 (EMPTY_POS is 1e9;
@@ -134,7 +143,13 @@ struct Sums {
 
 struct Lj {
   float rc2, clamp_lo, neg24eps, s2, c4eps, e_shift;
+  float c1, c2, frc2, flo;  // the fused radial's (RAD kFused*)
 };
+
+// the radial of the force-only modes
+constexpr int kLjG = 0;          // md.lj_g
+constexpr int kFused = 1;        // md.lj_g_fused, IEEE division
+constexpr int kFusedApprox = 2;  // md.lj_g_fused, rcp.approx.ftz.f32
 
 // (dE/dr)/r of 12-6 LJ, written with one reciprocal as
 // uammd_tpu/engine/md.py:lj_g. neg24eps = -24*epsilon, s2 = sigma^2.
@@ -153,12 +168,34 @@ __device__ __forceinline__ float lj_e(float r2, float c4eps, float s2, float e_s
   return c4eps * (inv6 * inv6 - inv6) - e_shift;
 }
 
+// md.lj_g_fused at r (already clamped at the kernel's clamp_lo).
+template <bool APPROX>
+__device__ __forceinline__ float lj_fused(float r, const Lj& lj) {
+  const float rc = fmaxf(r, lj.flo);
+  float t;
+  if (APPROX) {
+    asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(rc));
+  } else {
+    t = __fdiv_rn(1.0f, rc);
+  }
+  const float t2 = __fmul_rn(t, t);
+  const float t3 = __fmul_rn(t2, t);
+  const float t4 = __fmul_rn(t2, t2);
+  return r < lj.frc2 ? __fmul_rn(t4, __fadd_rn(__fmul_rn(lj.c1, t3), lj.c2)) : 0.0f;
+}
+
+template <int RAD>
+__device__ __forceinline__ float radial(float r2c, const Lj& lj) {
+  if (RAD == kLjG) return lj_g(r2c, lj.neg24eps, lj.s2);
+  return lj_fused<RAD == kFusedApprox>(r2c, lj);
+}
+
 __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
 // The terms of candidate p on home slot h, into a.
-template <bool OBS>
+template <bool OBS, int RAD>
 __device__ __forceinline__ void pair_terms(const float4& p, const float4& h, Sums& a,
                                            const Lj& lj) {
   const float dxv = p.x - h.x;
@@ -198,7 +235,7 @@ __device__ __forceinline__ void pair_terms(const float4& p, const float4& h, Sum
   // Branch around the division only: a NaN r2 still reaches the sums
   // through 0 * NaN, as in the TPU kernel's select.
   float gr = 0.0f;
-  if (r2 < lj.rc2) gr = lj_g(fmaxf(r2, lj.clamp_lo), lj.neg24eps, lj.s2);
+  if (r2 < lj.rc2) gr = radial<RAD>(fmaxf(r2, lj.clamp_lo), lj);
   a.ax += gr * dxv;
   a.ay += gr * dyv;
   a.az += gr * dzv;
@@ -221,12 +258,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // OBS: obs holds the 8 grids energy, virial, stress x 6, each
 // T = nz * nyb * CAP * NLANE floats apart.
-template <bool OBS>
+template <bool OBS, int RAD>
 __global__ void __launch_bounds__(kMaxThreads, 2) pair_force_kernel(
     const float* __restrict__ x, const float* __restrict__ y, const float* __restrict__ z,
     float* __restrict__ fx, float* __restrict__ fy, float* __restrict__ fz,
-    float* __restrict__ obs, Geom g, float rc2, float clamp_lo, float neg24eps, float s2,
-    float c4eps, float e_shift) {
+    float* __restrict__ obs, Geom g, Lj lj) {
   extern __shared__ float4 smem4[];
   const int W = window(g.cc, g.fc);
   const int R = W | 1;  // the row stride of pos
@@ -323,8 +359,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_force_kernel(
   const int npass = (g.cap + 31) >> 5;
   const size_t blk = (static_cast<size_t>(zc) * g.nyb + yb) * plane;
   const size_t T = static_cast<size_t>(g.nz) * g.nyb * plane;
-  const Lj lj{rc2, clamp_lo, neg24eps, s2, c4eps, e_shift};
-  const float cut = sqrtf(rc2) + 1.0e-2f;  // the cull's reach, with a margin for rounding
+  const float cut = sqrtf(lj.rc2) + 1.0e-2f;  // the cull's reach, with a margin for rounding
   const float cut2 = cut * cut;
   for (int item = warp; item < ncell * npass; item += nwarps) {
     const int pass = item / ncell;
@@ -383,12 +418,12 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_force_kernel(
                 while (b) {
                   const int j = j0 + __ffs(b) - 1;
                   b &= b - 1;
-                  pair_terms<OBS>(q[j * R], h, a, lj);  // the same slot for every lane
+                  pair_terms<OBS, RAD>(q[j * R], h, a, lj);  // the same slot for every lane
                 }
               }
             } else {
 #pragma unroll 4
-              for (int j = 0; j < n; ++j) pair_terms<OBS>(q[j * R], h, a, lj);
+              for (int j = 0; j < n; ++j) pair_terms<OBS, RAD>(q[j * R], h, a, lj);
             }
           }
         }
@@ -432,10 +467,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pair_force_kernel(
   }
 }
 
-template <bool OBS>
+template <bool OBS, int RAD = kLjG>
 int launch(void* x, void* y, void* z, void* fx, void* fy, void* fz, void* obs, const Geom& g,
-           float rc2, float clamp_lo, float neg24eps, float s2, float c4eps, float e_shift,
-           void* stream) {
+           const Lj& lj, void* stream) {
   const size_t smem = smem_bytes(g.cap, g.cc, g.fc);
   if (g.cc < 1 || g.fc < 1 || g.cc * g.fc > kMaxWarps || g.cc > g.nx || g.fc > g.F ||
       g.occ_trim < 0 || smem > kMaxSmem) {
@@ -443,11 +477,11 @@ int launch(void* x, void* y, void* z, void* fx, void* fy, void* fz, void* obs, c
   }
   static size_t enabled = 0;  // dynamic shared memory allowed so far
   if (smem > enabled) {
-    cudaError_t e = cudaFuncSetAttribute(pair_force_kernel<OBS>,
+    cudaError_t e = cudaFuncSetAttribute(pair_force_kernel<OBS, RAD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e == cudaSuccess) {
-      e = cudaFuncSetAttribute(pair_force_kernel<OBS>,
+      e = cudaFuncSetAttribute(pair_force_kernel<OBS, RAD>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     }
@@ -458,11 +492,10 @@ int launch(void* x, void* y, void* z, void* fx, void* fy, void* fz, void* obs, c
   const int ncf = (g.F + g.fc - 1) / g.fc;
   const dim3 grid(ncx * ncf, g.nyb, g.nz);
   const dim3 block(32 * g.cc * g.fc);
-  pair_force_kernel<OBS><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  pair_force_kernel<OBS, RAD><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(z), static_cast<float*>(fx), static_cast<float*>(fy),
-      static_cast<float*>(fz), static_cast<float*>(obs), g, rc2, clamp_lo, neg24eps, s2, c4eps,
-      e_shift);
+      static_cast<float*>(fz), static_cast<float*>(obs), g, lj);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -476,8 +509,8 @@ extern "C" int uammd_pair_force(void* x, void* y, void* z, void* fx, void* fy,
                                 float rc2, float clamp_lo, float neg24eps,
                                 float s2, int cc, int fc, int occ_trim, void* stream) {
   const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, 1, cc, fc, occ_trim};
-  return launch<false>(x, y, z, fx, fy, fz, nullptr, g, rc2, clamp_lo, neg24eps, s2, 0.0f, 0.0f,
-                       stream);
+  const Lj lj{rc2, clamp_lo, neg24eps, s2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return launch<false>(x, y, z, fx, fy, fz, nullptr, g, lj, stream);
 }
 
 // The halo mode of parallel/domain.py (pair_kernel.py:89, periodic_z=False):
@@ -489,8 +522,46 @@ extern "C" int uammd_pair_force_halo(void* x, void* y, void* z, void* fx, void* 
                                      float neg24eps, float s2, int cc, int fc, int occ_trim,
                                      void* stream) {
   const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, 0, cc, fc, occ_trim};
-  return launch<false>(x, y, z, fx, fy, fz, nullptr, g, rc2, clamp_lo, neg24eps, s2, 0.0f, 0.0f,
-                       stream);
+  const Lj lj{rc2, clamp_lo, neg24eps, s2, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  return launch<false>(x, y, z, fx, fy, fz, nullptr, g, lj, stream);
+}
+
+namespace {
+
+int fused_launch(void* x, void* y, void* z, void* fx, void* fy, void* fz, int nx, int nyb,
+                 int nz, int F, int cap, float Lx, float Ly, float Lz, float rc2,
+                 float clamp_lo, float c1, float c2, float frc2, float flo, int approx, int cc,
+                 int fc, int occ_trim, void* stream, int periodic_z) {
+  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, periodic_z, cc, fc, occ_trim};
+  const Lj lj{rc2, clamp_lo, 0.0f, 0.0f, 0.0f, 0.0f, c1, c2, frc2, flo};
+  if (approx) return launch<false, kFusedApprox>(x, y, z, fx, fy, fz, nullptr, g, lj, stream);
+  return launch<false, kFused>(x, y, z, fx, fy, fz, nullptr, g, lj, stream);
+}
+
+}  // namespace
+
+// The force-only mode with the fused LJ radial (md.LJFused: c1, c2, its
+// cutoff frc2 and clamp flo; approx 1 for the approximate reciprocal),
+// inside the kernel's own cutoff rc2 and clamp_lo. rc2 is also the cull's
+// reach, so the wrapper passes min(rc2, frc2): the radial is 0 beyond frc2.
+extern "C" int uammd_pair_force_fused(void* x, void* y, void* z, void* fx, void* fy, void* fz,
+                                      int nx, int nyb, int nz, int F, int cap, float Lx,
+                                      float Ly, float Lz, float rc2, float clamp_lo, float c1,
+                                      float c2, float frc2, float flo, int approx, int cc, int fc,
+                                      int occ_trim, void* stream) {
+  return fused_launch(x, y, z, fx, fy, fz, nx, nyb, nz, F, cap, Lx, Ly, Lz, rc2, clamp_lo, c1,
+                      c2, frc2, flo, approx, cc, fc, occ_trim, stream, 1);
+}
+
+// The same in the halo mode (parallel/pse_dd.py:173-177).
+extern "C" int uammd_pair_force_fused_halo(void* x, void* y, void* z, void* fx, void* fy,
+                                           void* fz, int nx, int nyb, int nz, int F, int cap,
+                                           float Lx, float Ly, float Lz, float rc2,
+                                           float clamp_lo, float c1, float c2, float frc2,
+                                           float flo, int approx, int cc, int fc, int occ_trim,
+                                           void* stream) {
+  return fused_launch(x, y, z, fx, fy, fz, nx, nyb, nz, F, cap, Lx, Ly, Lz, rc2, clamp_lo, c1,
+                      c2, frc2, flo, approx, cc, fc, occ_trim, stream, 0);
 }
 
 // obs: float32 [8, T] (energy, virial, stress xx xy xz yy yz zz).
@@ -500,8 +571,8 @@ extern "C" int uammd_pair_force_obs(void* x, void* y, void* z, void* fx, void* f
                                     float c4eps, float e_shift, int cc, int fc, int occ_trim,
                                     void* stream) {
   const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, 1, cc, fc, occ_trim};
-  return launch<true>(x, y, z, fx, fy, fz, obs, g, rc2, 0.0f, neg24eps, s2, c4eps, e_shift,
-                      stream);
+  const Lj lj{rc2, 0.0f, neg24eps, s2, c4eps, e_shift, 0.0f, 0.0f, 0.0f, 0.0f};
+  return launch<true>(x, y, z, fx, fy, fz, obs, g, lj, stream);
 }
 
 // The dynamic shared memory of one block, for the wrapper's plan to check.

@@ -14,10 +14,11 @@ row at each end, already image-shifted, and drops the ghost rows of the
 output; the z index still wraps, but takes no Lz shift.
 
 On CUDA tensors the wrapper launches the hand-written kernel
-``csrc/pair_force.cu`` (which has the LJ radial and energy compiled in, so
-``g_fn`` must be ``md.lj_g`` and ``e_fn`` ``md.lj_e``): ``uammd_pair_force``
-for the forces alone, ``uammd_pair_force_obs`` with every output; on CPU
-tensors it runs ``pair_force_plain``, the plain PyTorch version that the
+``csrc/pair_force.cu`` (which has the LJ radials and energy compiled in, so
+``g_fn`` must be ``md.lj_g`` or, force only, ``md.lj_g_fused``, and
+``e_fn`` ``md.lj_e``): ``uammd_pair_force`` (``_fused`` with the fused
+radial) for the forces alone, ``uammd_pair_force_obs`` with every output;
+on CPU tensors it runs ``pair_force_plain``, the plain PyTorch version that the
 tests hold against the JAX kernel and that ``chip_smoke.py`` holds the CUDA
 kernel against. The kernel runs one warp per cell in blocks of up to 16
 cells; ``pair_launch_plan`` picks the blocks' shape from the spec
@@ -25,14 +26,15 @@ cells; ``pair_launch_plan`` picks the blocks' shape from the spec
 
 Also the port of ``make_pair_channel_kernel`` (#2) and
 ``broadcast_strag_channels``: the 27-stencil transverser with n_chan
-per-particle payload channels in and n_out sums out, periodic in z (or,
-for a straggler-free ``ChannelFunctor``, in the halo mode as above), over a
-pair functor: the PSE near field (``pse_near.PSENear``, on 1 or 2 stacked
-3-vectors, with the straggler block) or a ``ChannelFunctor`` (DPD, SPH
-density and force, the LJ mixtures on straggler-free specs; the Poisson
-near field, ``electrostatics.poisson.PoissonNear``, also with the
-straggler block). CUDA tensors launch ``csrc/pair_channel.cu``
-instantiated for the functor, in blocks of cells whose shape
+per-particle payload channels in and n_out sums out, periodic in z (or in
+the halo mode as above, where the straggler rows' reverse sums cover the
+slab's interior rows only), over a pair functor: the PSE near field
+(``pse_near.PSENear``, on 1 or 2 stacked 3-vectors, with the straggler
+block) or a ``ChannelFunctor`` (DPD, SPH density and force, the LJ
+mixtures on straggler-free specs; the Poisson near field,
+``electrostatics.poisson.PoissonNear``, and the fused LJ radial force
+``RadialForce``, also with the straggler block). CUDA tensors launch
+``csrc/pair_channel.cu`` instantiated for the functor, in blocks of cells whose shape
 ``channel_launch_plan`` picks (``cell_block_plan`` with the functor's
 shared memory); CPU tensors run ``pair_channel_plain`` (PSE) or
 ``functor_plain`` (a functor's plain form, which has the JAX ``pair_fn``
@@ -56,6 +58,7 @@ from .pse_near import (
     channel_launch_args,
     check_cpu_inputs,
     strag_channel_block,
+    strag_row_totals,
 )
 
 _F = ctypes.c_float
@@ -69,6 +72,15 @@ PAIR_FORCE = _build.Kernel(
 # uammd_pair_force_halo: the same arguments, the halo mode (periodic_z=False)
 PAIR_FORCE_HALO = _build.Kernel(
     "pair_force", "uammd_pair_force_halo", [_P] * 6 + [_I] * 5 + [_F] * 7 + [_I] * 3)
+
+# uammd_pair_force_fused(x, y, z, fx, fy, fz, nx, nyb, nz, F, cap, Lx, Ly,
+#                        Lz, rc2, clamp_lo, c1, c2, frc2, flo, approx, cc, fc,
+#                        occ_trim, stream): the fused LJ radial (md.LJFused)
+PAIR_FORCE_FUSED = _build.Kernel(
+    "pair_force", "uammd_pair_force_fused", [_P] * 6 + [_I] * 5 + [_F] * 9 + [_I] * 4)
+# uammd_pair_force_fused_halo: the same arguments, the halo mode
+PAIR_FORCE_FUSED_HALO = _build.Kernel(
+    "pair_force", "uammd_pair_force_fused_halo", [_P] * 6 + [_I] * 5 + [_F] * 9 + [_I] * 4)
 
 # uammd_pair_force_obs(x, y, z, fx, fy, fz, obs, nx, nyb, nz, F, cap, Lx,
 #                      Ly, Lz, rc2, neg24eps, s2, c4eps, e_shift, cc, fc,
@@ -161,6 +173,10 @@ def pair_launch_plan(spec: GridSpec) -> LaunchPlan:
 #                    near, stream)
 PAIR_CHANNEL = _build.Kernel("pair_channel", "uammd_pair_channel",
                              [_P] * 7 + [_I] * 10 + [_F] * 6 + [_Struct])
+# uammd_pair_channel_halo: the same arguments, the halo mode (straggler
+# partials over the slab's interior rows)
+PAIR_CHANNEL_HALO = _build.Kernel("pair_channel", "uammd_pair_channel_halo",
+                                  [_P] * 7 + [_I] * 10 + [_F] * 6 + [_Struct])
 
 # The launch shape of the channel kernel #2 (csrc/pair_channel.cu): a block
 # is one (z, yb) and a rectangle of cc x fc cells (at most 64) staged with a
@@ -303,6 +319,18 @@ def _strag_functor_kernel(symbol: str, params) -> _build.Kernel:
 
 PAIR_CHANNEL_POISSON = _strag_functor_kernel("uammd_pair_channel_poisson", PoissonParams)
 
+
+class RadialParams(ctypes.Structure):
+    """``chan::RadialParams`` of csrc/channel_functors.cuh."""
+
+    _fields_ = [(k, _F) for k in ("c1", "c2", "rc2", "lo")] + [("approx", _I)]
+
+
+PAIR_CHANNEL_RADIAL = _strag_functor_kernel("uammd_pair_channel_radial", RadialParams)
+PAIR_CHANNEL_RADIAL_HALO = _strag_functor_kernel("uammd_pair_channel_radial_halo",
+                                                 RadialParams)
+
+
 class LJRadial:
     """(dE/dr)/r of 12-6 LJ as ``md.lj_g`` computes it: one reciprocal
     t = 1/r2, then -24 eps t (2 (s2 t)^6 - (s2 t)^3) in float32. Called on
@@ -435,7 +463,8 @@ class PairForceKernel:
     CPU tensors go to ``pair_force_plain``; CUDA tensors launch
     ``csrc/pair_force.cu`` (the force alone counted in
     ``PAIR_FORCE.launches``, its halo mode ``periodic_z=False`` in
-    ``PAIR_FORCE_HALO.launches``, the observable mode in
+    ``PAIR_FORCE_HALO.launches``, with the fused LJ radial ``md.LJFused`` in
+    ``PAIR_FORCE_FUSED`` and ``PAIR_FORCE_FUSED_HALO``, the observable mode in
     ``PAIR_FORCE_OBS.launches``) with ``pair_launch_plan(spec)``, or raise
     (a spec the plan cannot fit raises ``ValueError`` before any launch).
     ``occ_trim`` is 0; a check's control sets 1, which stops every candidate
@@ -478,8 +507,12 @@ class PairForceKernel:
                                     self.compute_virial, self.compute_stress, self.periodic_z)
         for name, t in (("x", x), ("y", y), ("z", z)):
             _build.check_cuda_tensor(t, name, shape)
-        if not isinstance(self.g_fn, LJRadial):
-            raise TypeError("the CUDA pair kernel computes the LJ radial only (md.lj_g)")
+        from .md import LJFused
+
+        fused = isinstance(self.g_fn, LJFused)
+        if not (isinstance(self.g_fn, LJRadial) or (fused and not self.observables)):
+            raise TypeError("the CUDA pair kernel computes the LJ radial (md.lj_g) or, force "
+                            "only, the fused LJ radial (md.lj_g_fused)")
         if self.e_fn is not None and not isinstance(self.e_fn, LJEnergy):
             raise TypeError("the CUDA pair kernel computes the LJ energy only (md.lj_e)")
         spec = self.spec
@@ -490,6 +523,18 @@ class PairForceKernel:
         fx, fy, fz = (torch.empty_like(x) for _ in range(3))
         P = _build.ptr
         rc2 = float(np.float32(spec.cutoff * spec.cutoff))
+        if fused:
+            # the fused radial is 0 beyond its own cutoff, so the kernel's
+            # cull and mask reach no further than the nearer of the two
+            g = self.g_fn
+            rc2 = min(rc2, g.rc2)
+            (PAIR_FORCE_FUSED if self.periodic_z else PAIR_FORCE_FUSED_HALO)(
+                P(x), P(y), P(z), P(fx), P(fy), P(fz),
+                nx, spec.nyb, nz, spec.fold, spec.cap, Lx, Ly, Lz, rc2,
+                float(np.float32(self.clamp_lo)), g.c1, g.c2, g.rc2, g.lo, int(g.approx),
+                *launch,
+            )
+            return fx, fy, fz
         if not self.observables:
             (PAIR_FORCE if self.periodic_z else PAIR_FORCE_HALO)(
                 P(x), P(y), P(z), P(fx), P(fy), P(fz),
@@ -576,6 +621,42 @@ class ChannelFunctor:
         raise NotImplementedError
 
 
+class RadialForce(ChannelFunctor):
+    """The radial pair force g(r2) d of ``parallel/pse_dd2.py:115-127`` as a
+    functor of #2: no channels, 3 sums, both directions over the straggler
+    rows (``strag``), with ``g`` the fused LJ radial ``md.lj_g_fused``
+    (``md.LJFused``: t = 1 / max(r2, lo), g = r2 < rc2 ? t^4 (c1 t^3 + c2)
+    : 0) applied to r2 as it is, without the pair kernel's own cutoff and
+    clamp. Calling it is the plain version (JAX's ``pair_force_fn``); the
+    CUDA functor ``chan::RadialForceFn`` evaluates the same expression, with
+    ``rcp.approx.ftz.f32`` when the radial's ``approx`` is set."""
+
+    n_chan = 0
+    n_out = 3
+    strag = True
+    disp = 1
+    kernel = PAIR_CHANNEL_RADIAL
+    kernel_halo = PAIR_CHANNEL_RADIAL_HALO
+
+    def __init__(self, g):
+        from .md import LJFused
+
+        if not isinstance(g, LJFused):
+            raise TypeError("RadialForce takes the fused LJ radial (md.lj_g_fused)")
+        self.g = g
+
+    def params(self) -> RadialParams:
+        g = self.g
+        return RadialParams(g.c1, g.c2, g.rc2, g.lo, int(g.approx))
+
+    def reach(self, hs: float = 0.0) -> float:
+        return float(np.sqrt(np.float32(self.g.rc2)))
+
+    def __call__(self, r2, dxv, dyv, dzv, ch_i, ch_j):
+        g = self.g(r2)
+        return g * dxv, g * dyv, g * dzv
+
+
 def displacement_sums(fn, nvec: int = 1) -> tuple:
     """For each sum of the functor ``fn`` (``PSENear`` at ``nvec`` vectors,
     or a ``ChannelFunctor``), the displacement components it carries: a
@@ -619,35 +700,43 @@ def channel_plain(spec: GridSpec, pair_fn, n_out: int, x, y, z, channels,
 
 
 def pair_channel_plain(spec: GridSpec, fn: PSENear, nvec: int, x, y, z, channels,
-                       strag=None):
+                       strag=None, periodic_z: bool = True):
     """Plain PyTorch version of the 27-stencil channel kernel (#2) with the
     PSE near-field functor ``fn``: ``channel_plain`` over its forward
     contributions, plus the straggler rows. Returns ``(out (3 nvec grids),
-    spart [3 nvec, S] or None)``: the straggler rows' reverse sums, which
-    the JAX kernel returns as per-program partial grids."""
-    out = channel_plain(spec, fn.pair_fn(nvec), 3 * nvec, x, y, z, channels)
+    spart or None)``: the straggler rows' reverse sums [3 nvec, S], which
+    the JAX kernel returns as per-program partial grids; in the halo mode
+    (``periodic_z=False``) over the slab's interior rows only, as the JAX
+    callers sum them (``pse_near.strag_row_totals``)."""
+    out = channel_plain(spec, fn.pair_fn(nvec), 3 * nvec, x, y, z, channels, periodic_z)
     spart = None
     if spec.n_strag:
         xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
         ch_i = [c[:, :, :, None, :] for c in channels]
         fwd, spart = strag_channel_block(spec, fn.pair_fn(nvec), 3 * nvec, xi, yi, zi,
-                                         ch_i, strag[:, :, 0])
+                                         ch_i, strag[:, :, 0], per_row=not periodic_z)
         out = [o + t for o, t in zip(out, fwd)]
+        if not periodic_z:
+            spart = strag_row_totals(spart, False)
     return tuple(out), spart
 
 
-def functor_plain(spec: GridSpec, fn: ChannelFunctor, x, y, z, channels, strag_rows=None):
+def functor_plain(spec: GridSpec, fn: ChannelFunctor, x, y, z, channels, strag_rows=None,
+                  periodic_z: bool = True):
     """Plain PyTorch version of #2 with a ``ChannelFunctor``: ``channel_plain``
     and, with the straggler rows [3 + n_chan + 1, S], their forward terms
-    and reverse totals (``pse_near.strag_channel_block``). Returns (n_out
-    grids) [+ (n_out straggler totals [S])], as the kernel's wrapper
-    does."""
-    out = channel_plain(spec, fn, fn.n_out, x, y, z, channels)
+    and reverse totals (``pse_near.strag_channel_block``; in the halo mode
+    over the slab's interior rows). Returns (n_out grids) [+ (n_out
+    straggler totals [S])], as the kernel's wrapper does."""
+    out = channel_plain(spec, fn, fn.n_out, x, y, z, channels, periodic_z)
     if strag_rows is None:
         return out
     xi, yi, zi = (a[:, :, :, None, :] for a in (x, y, z))
     ch_i = [c[:, :, :, None, :] for c in channels]
-    fwd, spart = strag_channel_block(spec, fn, fn.n_chan, xi, yi, zi, ch_i, strag_rows)
+    fwd, spart = strag_channel_block(spec, fn, fn.n_chan, xi, yi, zi, ch_i, strag_rows,
+                                     per_row=not periodic_z)
+    if not periodic_z:
+        spart = strag_row_totals(spart, False)
     return tuple(o + t for o, t in zip(out, fwd)) + tuple(spart)
 
 
@@ -688,7 +777,11 @@ class PairChannelKernel:
     (counted in ``fn.kernel.launches``) or raise. ``periodic_z=False`` is
     the halo mode of a straggler-free functor (``fn.kernel_halo``): the
     caller passes a z-slab extended by image-shifted ghost rows and drops
-    their outputs.
+    their outputs. The PSE functor and the straggler-serving functors take
+    the halo mode too, at any ``n_strag`` (``PAIR_CHANNEL_HALO``,
+    ``fn.kernel_halo``): their straggler totals then sum the reverse terms
+    of the slab's interior rows only, as the JAX callers sum the kernel's
+    partials (uammd_tpu/parallel/pse_dd2.py:322, :344-347).
 
     Every launch takes ``channel_launch_plan(spec, fn, nvec)`` (a spec the
     plan cannot fit raises ``ValueError`` before any launch). ``occ_trim``
@@ -698,8 +791,10 @@ class PairChannelKernel:
     occ_trim = 0
 
     def __init__(self, spec: GridSpec, fn, nvec: int = 1, periodic_z: bool = True):
-        if not periodic_z and (not isinstance(fn, ChannelFunctor) or fn.kernel_halo is None):
-            raise ValueError("the halo mode takes a straggler-free ChannelFunctor")
+        if not periodic_z and not (isinstance(fn, PSENear) or (
+                isinstance(fn, ChannelFunctor) and fn.kernel_halo is not None)):
+            raise ValueError("the halo mode takes the PSE functor or a ChannelFunctor with a "
+                             "halo entry (kernel_halo)")
         if isinstance(fn, ChannelFunctor):
             if spec.n_strag and not fn.strag:
                 raise ValueError(f"{type(fn).__name__} runs on straggler-free specs "
@@ -734,10 +829,12 @@ class PairChannelKernel:
         if x.device.type == "cpu":
             if pse:
                 check_cpu_inputs(spec, nvec, x, y, z, channels, "the channel kernel")
-                out, spart = pair_channel_plain(spec, fn, nvec, x, y, z, channels, strag)
+                out, spart = pair_channel_plain(spec, fn, nvec, x, y, z, channels, strag,
+                                                self.periodic_z)
                 return tuple(out) + (tuple(spart) if S else ())
             _check_functor_inputs(spec, fn, x, y, z, channels, False)
-            return functor_plain(spec, fn, x, y, z, channels, strag[:, :, 0] if S else None)
+            return functor_plain(spec, fn, x, y, z, channels, strag[:, :, 0] if S else None,
+                                 self.periodic_z)
         # PSE, or a straggler-serving functor: one entry signature
         ch, srows = channel_launch_args(spec, n_chan, x, y, z, channels, strag,
                                         "the channel kernel")
@@ -749,8 +846,12 @@ class PairChannelKernel:
         spart = buf[n_out * T:].view(n_out, S)
         nx, _, nz = spec.shape
         P = _build.ptr
-        kernel, lead, params = ((PAIR_CHANNEL, (nvec,), fn.struct()) if pse
-                                else (fn.kernel, (), fn.params()))
+        if pse:
+            kernel, lead, params = (PAIR_CHANNEL if self.periodic_z else PAIR_CHANNEL_HALO,
+                                    (nvec,), fn.struct())
+        else:
+            kernel = fn.kernel if self.periodic_z else fn.kernel_halo
+            lead, params = (), fn.params()
         kernel(P(x), P(y), P(z), P(ch), P(srows) if S else _P(0), P(out), P(spart), *lead,
                nx, spec.nyb, nz, spec.fold, spec.cap, S, plan.cc, plan.fc, int(self.occ_trim),
                *spec.box_size, *_strag_inv(spec), params)

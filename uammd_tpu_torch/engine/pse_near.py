@@ -152,9 +152,13 @@ def _strag_inv(spec: GridSpec):
     return tuple(float(np.float32(1.0 / L)) for L in spec.box_size)
 
 
-def strag_channel_block(spec: GridSpec, pair_fn, n_chan: int, xi, yi, zi, ch_i, rows):
+def strag_channel_block(spec: GridSpec, pair_fn, n_chan: int, xi, yi, zi, ch_i, rows,
+                        per_row: bool = False):
     """Home slots against the straggler rows, both directions: returns
-    (forward, a list of [nz, nyb, CAP, NLANE] grids; reverse [n_out, S]).
+    (forward, a list of [nz, nyb, CAP, NLANE] grids; reverse [n_out, S], or
+    with ``per_row`` the reverse sums of each z row of home slots,
+    [n_out, nz, S], as the JAX kernel's per-program partials summed over yb
+    and lanes).
     ``pair_fn(r2, dx, dy, dz, ch_i, ch_j)`` gives the functor's terms onto
     i (the JAX signature); ``xi``.. are [nz, nyb, CAP, 1, NLANE] and
     ``rows`` the [3 + n_chan + 1, S] rows (x, y, z, channels, valid).
@@ -182,8 +186,17 @@ def strag_channel_block(spec: GridSpec, pair_fn, n_chan: int, xi, yi, zi, ch_i, 
     ch_s = [rows[3 + k][None, None, None, :, None] for k in range(n_chan)]
     fwd = pair_fn(r2, d[0], d[1], d[2], ch_i, ch_s)
     bwd = pair_fn(r2e, e[0], e[1], e[2], ch_s, ch_i)
+    dims = (1, 2, 4) if per_row else (0, 1, 2, 4)
     return ([t.sum(dim=3) for t in fwd],
-            torch.stack([t.expand(r2.shape).sum(dim=(0, 1, 2, 4)) for t in bwd]))
+            torch.stack([t.expand(r2.shape).sum(dim=dims) for t in bwd]))
+
+
+def strag_row_totals(part_rows, periodic_z: bool = True):
+    """Per-row straggler partials [n_out, nz, S] -> the totals [n_out, S]:
+    over every row, or in the halo mode over the slab's interior rows only,
+    as the JAX callers sum the kernel's partials (``outs[3 + c][1:-1]``,
+    uammd_tpu/parallel/pse_dd2.py:322, :344-347)."""
+    return part_rows.sum(dim=1) if periodic_z else part_rows[:, 1:-1].sum(dim=1)
 
 
 # threads per block of the Newton channel kernel #10 (rows x NLANE) and its
@@ -221,7 +234,8 @@ def channel_launch_args(spec: GridSpec, n_chan: int, x, y, z, channels, strag, w
         _build.check_cuda_tensor(t, name, shape)
     for k, t in enumerate(channels):
         _build.check_cuda_tensor(t, f"channel {k}", shape)
-    ch = torch.stack(channels)
+    # a functor without channels reads none: any pointer will do
+    ch = torch.stack(channels) if channels else x
     rows_s = None
     if spec.n_strag:
         rows_s = strag[:, :, 0].to(torch.float32).contiguous()

@@ -164,14 +164,16 @@ class PSEGrid:
                tolerance: float = 1e-4, points_per_width: float = 1.1, support: int | None = 8,
                deg: int = 12, noise_deg: int = 10, lanczos_iterations: int = 12,
                cap: int | None = None, prefer_pow2: bool = False, pos=None,
-               far_grid: int | None = None, n_strag: int = 0, near_skin: float = 1.0):
-        """The JAX package's ``PSEGrid.create`` (without ``nz_multiple``,
-        which belongs to the multi-device slice): the same split, cutoff,
-        grid spec, far FCM, Chebyshev -> power fits and self term for the
-        same arguments. ``far_grid`` pins the far FFT size per axis and
-        derives xi from it; ``pos`` sizes the near CAP from the measured
-        occupancy; ``n_strag`` with ``pos`` moves the occupancy tail into a
-        straggler list."""
+               far_grid: int | None = None, n_strag: int = 0, nz_multiple: int = 1,
+               near_skin: float = 1.0):
+        """The JAX package's ``PSEGrid.create`` (pse_engine.py:128-250): the
+        same split, cutoff, grid spec, far FCM, Chebyshev -> power fits and
+        self term for the same arguments. ``far_grid`` pins the far FFT size
+        per axis and derives xi from it; ``pos`` sizes the near CAP from the
+        measured occupancy; ``n_strag`` with ``pos`` moves the occupancy tail
+        into a straggler list; ``nz_multiple`` floors the near grid's nz to a
+        multiple of it, so that a z-slab mesh of that many shards divides
+        it (``parallel/pse_dd.py``, ``pse_dd2.py``)."""
         if support is None:
             support = 2 * math.ceil(points_per_width * math.sqrt(2.0 * math.log(1.0 / tolerance)))
             support = int(min(16, max(6, support)))
@@ -196,7 +198,7 @@ class PSEGrid:
             pos = pos.detach().cpu().numpy()
         spec = choose_spec(Ls, n, rcut, skin=float(near_skin), cap=cap, pos=pos,
                            n_strag=n_strag, strag_cell_excess=1 << 30, strag_headroom=1.5,
-                           ocap=None)
+                           ocap=None, nz_multiple=nz_multiple)
 
         qb = min(2.0 * radius / rcut, 1.0)
         m0 = 1.0 / (6.0 * math.pi * viscosity * radius)

@@ -2,7 +2,8 @@
 
 The counterpart of ``jax.sharding.Mesh`` with the collectives that
 ``shard_map`` bodies call (``ppermute``, ``psum``, ``pmax``,
-``axis_index``) and of ``uammd_tpu/parallel/atom.py:make_mesh``.
+``all_to_all``, ``axis_index``) and of
+``uammd_tpu/parallel/atom.py:make_mesh``.
 
 The JAX package runs a domain-decomposed step as one program per device
 under ``shard_map``. Here the mesh stays inside one process: a mesh is a
@@ -95,6 +96,23 @@ def pmax(shards) -> list:
     """``jax.lax.pmax``: the largest value over the shards, one copy per
     shard."""
     return _reduce(shards, lambda s: s.max(dim=0).values)
+
+
+def all_to_all(shards, split_dim: int, concat_dim: int) -> list:
+    """``jax.lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``
+    over a list of per-shard tensors: each shard cuts its tensor into as
+    many equal chunks along ``split_dim`` as there are shards and sends
+    chunk j to shard j; shard j joins what it receives, in the senders'
+    order, along ``concat_dim``. Each result is a fresh copy on the
+    receiving shard's device."""
+    n = len(shards)
+    for i, t in enumerate(shards):
+        if t.shape[split_dim] % n:
+            raise ValueError(f"shard {i}: dim {split_dim} of size {t.shape[split_dim]} does "
+                             f"not split into {n} chunks")
+    chunks = [torch.chunk(t, n, dim=split_dim) for t in shards]
+    return [torch.cat([chunks[src][dst].to(shards[dst].device) for src in range(n)],
+                      dim=concat_dim) for dst in range(n)]
 
 
 def axis_index(mesh: Mesh) -> range:
