@@ -43,7 +43,14 @@ Imports nothing of JAX or of the JAX package. Phases:
      shifted by one node. ``FCM.grid_velocity`` and ``interpolate_auto``
      must go through the same kernels (one launch each) and agree with
      the plain versions at n 4200, 48^3. The fcc start on the 384^3 grid
-     must overflow the pencil cap and NaN-poison the mobility.
+     must overflow the pencil cap and NaN-poison the mobility. Then
+     (``pencil_tile_checks``) the same bound on grids two pencils wide
+     (16 x 16 x 32), a 24 x 16 grid, nz = support (8 and 4) and C = 1, 4,
+     5 and 8; in each case and on the FCM path's first state the spread
+     launched into a NaN-filled field must leave no NaN and two spreads
+     must be bit-equal; ptxas must report no spill in any instance, and the
+     spread's SASS must hold no global atomic (the interpolation's count
+     is the control that the search finds them).
    - the channel kernels of the PSE near field (``pse_kernels_vs_plain``):
      the 27-stencil channel kernel #2, the Newton channel kernel #10 (with
      the n-channel fold #9) and #9 alone against their plain versions at 1
@@ -246,8 +253,9 @@ Imports nothing of JAX or of the JAX package. Phases:
    print the v2, FCM, PSE, DPD, SPH, unfused v2 and Poisson steps'
    breakdowns and the kernels' JSON line (thirteen kernels, the six new
    functors of #2, #1's observable mode, the Lanczos sqrt kernel, slice
-   G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows, and slice G2a's #2 PSE
-   halo, #2 radial halo and #1 fused halo rows).
+   G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows, slice G2a's #2 PSE
+   halo, #2 radial halo and #1 fused halo rows, and #13 and #14 at the PSE
+   and Poisson far fields besides FCM's, each with its launch plan).
 
 ``--only-pse`` runs the build and the PSE phases alone, ``--only-slice-d``
 the build and slice D's phases (the observables on the v2 engine's
@@ -255,8 +263,10 @@ jittered fcc start), ``--only-unfused`` the build, slice A3's checks, the
 v1 melt and the unfused v2 path, ``--only-poisson`` the build and slice
 E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases,
 ``--only-ragged`` the build and the ragged-occupancy checks of #1, #6 and #2,
-``--only-g2`` the build and slice G2a's checks and paths; none prints a
-result line (for work on those paths).
+``--only-g2`` the build and slice G2a's checks and paths, ``--only-pencil``
+the build, the pencil kernels' checks, the FCM path and the #13/#14 rows
+at the Poisson and PSE far fields' first states; none prints a result
+line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -319,10 +329,10 @@ FCM_WARM, FCM_TIMED = 20, 100
 FDT_PAIRS = 4
 # Pencil kernels against their plain versions: max|d| <= PENCIL_TOL x
 # max|ref|. Both sum float32 products in another order (atomics in the
-# spread), and the largest difference over the 1.7e8 outputs of the 384^3
-# field is an extreme of many: 5.7e-6 for the spread and 2.7e-6 for the
-# interpolation on the path's first state, 6.2e-7 at 32^3 (a first chip
-# run; the phase also prints both against float64 plain versions).
+# interpolation), and the largest difference over the 1.7e8 outputs of the
+# 384^3 field is an extreme of many: 5.7e-6 for the spread and 2.7e-6 for
+# the interpolation on the path's first state, 6.2e-7 at 32^3 (a first
+# chip run; the phase also prints both against float64 plain versions).
 PENCIL_TOL = 2e-5
 
 
@@ -714,6 +724,212 @@ def check_auto_dispatch(dev):
     return errs
 
 
+def pencil_smem_of(plan, C: int, interp: bool) -> int:
+    """The kernel's own count of a pencil plan's shared memory
+    (``uammd_pencil_spread_smem`` / ``uammd_pencil_interp_smem``), which
+    must equal the plan's."""
+    from uammd_tpu_torch.engine import _build
+
+    name = "pencil_interp" if interp else "pencil_spread"
+    got = getattr(_build.load(name), f"uammd_{name}_smem")(C, plan.tz)
+    check(got == plan.smem, f"{name} plan {plan.as_dict()}: the kernel counts {got} bytes "
+                            f"of shared memory, the plan {plan.smem}")
+    return got
+
+
+def pencil_plans(what, kern, shape, slack, cap, c_spread, c_interp) -> dict:
+    """The launch plans of #13 and #14 on a path's grid, each with the
+    kernel's own count of its shared memory (printed as launch_plans)."""
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    out = {}
+    for name, C, interp in (("pencil_spread", c_spread, False), ("pencil_interp", c_interp, True)):
+        plan = tp.pencil_launch_plan(shape, kern.support, slack, C, cap, interp=interp)
+        out[name] = {"C": C, **plan.as_dict(), "smem_kernel": pencil_smem_of(plan, C, interp)}
+    print(json.dumps({"phase": "launch_plans", "what": what, **out}), flush=True)
+    return out
+
+
+def pencil_rows(suffix, what, kern, pos, vals, field, shape, b, bins, slack, launches,
+                ms=None):
+    """The kernels-line rows of #13 and #14 at one path's state (``what``):
+    the spread of ``vals`` [N(, C)] and the interpolation of ``field``
+    [nx, ny, nz(, C)], each held to its plain version within PENCIL_TOL x
+    max|ref| and timed with CUDA events (``ms``: the two times where the
+    caller took them), beside the plain versions' times and the bound: the
+    larger of the bytes (u, pids, the values or the slots written, the field
+    written or read once) and 2 C float32 operations per node pair the state
+    needs (per particle, the nodes within support/2 of u on each axis,
+    multiplied)."""
+    import torch
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    shape = tuple(shape)
+    c_s = 1 if vals.ndim == 1 else vals.shape[1]
+    c_i = 1 if field.ndim == 3 else field.shape[3]
+    f_k, _ = tp.spread_pencil_fused(kern, pos, vals, shape, b, bins, slack=slack)
+    f_p, _ = tp.spread_pencil_fused_plain(kern, pos, vals, shape, b, bins, slack=slack)
+    v_k, _ = tp.interpolate_pencil_fused(kern, pos, field, b, bins, slack=slack)
+    v_p, _ = tp.interpolate_pencil_fused_plain(kern, pos, field, b, bins, slack=slack)
+    err = {"pencil_spread": float((f_k - f_p).abs().max()),
+           "pencil_interp": float((v_k - v_p).abs().max())}
+    rel = {"pencil_spread": err["pencil_spread"] / float(f_p.abs().max()),
+           "pencil_interp": err["pencil_interp"] / float(v_p.abs().max())}
+    check(all(math.isfinite(e) and e <= PENCIL_TOL for e in rel.values()),
+          f"{what}: pencil spread / interp vs plain, max|d|/max|ref| = {rel} <= {PENCIL_TOL}")
+    del f_k, f_p, v_k, v_p
+    if ms is None:
+        ms = (cuda_ms(lambda: tp.spread_pencil_fused(kern, pos, vals, shape, b, bins,
+                                                     slack=slack), reps=10),
+              cuda_ms(lambda: tp.interpolate_pencil_fused(kern, pos, field, b, bins,
+                                                          slack=slack), reps=10))
+    plain_ms = (cuda_ms(lambda: tp.spread_pencil_fused_plain(kern, pos, vals, shape, b, bins,
+                                                             slack=slack), reps=3, warmup=1),
+                cuda_ms(lambda: tp.interpolate_pencil_fused_plain(kern, pos, field, b, bins,
+                                                                  slack=slack), reps=3, warmup=1))
+    uu = tp._node_coords(pos, shape, b).double()
+    half = kern.support / 2.0
+    pairs = float((torch.ceil(uu + half) - torch.floor(uu - half) - 1).prod(1).sum())
+    n, nodes, cap = pos.shape[0], math.prod(shape), bins.pids.shape[1]
+    part_bytes = 4 * (n * 3 + bins.pids.numel())
+    plans = pencil_plans(what, kern, shape, slack, cap, c_s, c_i)
+    rows = []
+    for i, (name, src, rep, C, out_bytes) in enumerate((
+            ("pencil_spread", "pencil_spread.cu", "uammd_tpu/solvers/pencil_ibm.py:450", c_s,
+             4 * n * c_s),
+            ("pencil_interp", "pencil_interp.cu", "uammd_tpu/solvers/pencil_ibm.py:572", c_i,
+             4 * bins.pids.numel() * c_i))):
+        ops_ms = 1e3 * 2.0 * C * pairs / PEAK_FP32_FLOPS
+        bytes_ms = 1e3 * (4 * C * nodes + part_bytes + out_bytes) / PEAK_HBM_BYTES
+        rows.append({"name": name + suffix, "route": "cuda",
+                     "source": f"uammd_tpu_torch/engine/csrc/{src}", "replaces": rep,
+                     "launches": launches.get(name, 0), "max_abs_err": err[name],
+                     "ms": ms[i], "plain_ms": plain_ms[i], "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                     "library_ms": None, "shape": list(shape), "C": C,
+                     "support": kern.support, "slack": slack, "node_pairs": pairs,
+                     "rel_err": rel[name], "launch_plan": plans[name]})
+    return rows
+
+
+# (shape, box, n, window, slack, C): grids two pencils wide, a 24 x 16 grid,
+# nz = support (8 and 4), and C = 1, 4, 5 and 8
+PENCIL_TILE_CASES = (
+    ((16, 16, 32), (12.0, 12.0, 24.0), 2000, "gaussian", 0, 3),
+    ((16, 16, 32), (12.0, 12.0, 24.0), 2000, "bm", 1, 3),
+    ((24, 16, 20), (18.0, 12.0, 15.0), 2000, "peskin4", 1, 3),
+    ((24, 16, 20), (18.0, 12.0, 15.0), 2000, "peskin3", 0, 5),
+    ((32, 32, 8), (24.0, 24.0, 6.0), 3000, "gaussian", 0, 1),
+    ((32, 32, 8), (24.0, 24.0, 6.0), 3000, "gaussian", 0, 8),
+    ((32, 32, 4), (24.0, 24.0, 3.0), 3000, "peskin4", 0, 4),
+)
+
+
+def pencil_build_report() -> dict:
+    """ptxas's registers and spills of every #13/#14 instance (C, tile
+    height), from the build's -Xptxas -v; each must spill nothing. And the
+    global atomics in each library's SASS (cuobjdump): the spread must have
+    none; the interpolation's one atomicAdd per channel is the control that
+    the count finds them."""
+    import os
+    import re
+    from uammd_tpu_torch.engine import _build
+
+    out = {}
+    for name in ("pencil_spread", "pencil_interp"):
+        log = _build.build_log(name)
+        inst, cur, spill = {}, None, None
+        for ln in log.splitlines():
+            m = re.search(r"_kernelILi(\d+)ELi(\d+)E", ln)
+            if m and "Compiling entry" in ln:
+                cur = f"C{m.group(1)}_tz{m.group(2)}"
+            elif cur and "spill stores" in ln:
+                spill = int(re.search(r"(\d+) bytes spill stores", ln).group(1))
+            elif cur and "registers" in ln:
+                inst[cur] = {"registers": int(re.search(r"Used (\d+) registers", ln).group(1)),
+                             "spill_bytes": spill}
+                cur = None
+        check(len(inst) == 16, f"{name}: ptxas reported {len(inst)} of 16 instances")
+        check(all(v["spill_bytes"] == 0 for v in inst.values()),
+              f"{name}: an instance spills: {inst}")
+        sass = subprocess.run([os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump"), "-sass",
+                               str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        atomics = len(re.findall(r"\b(?:REDG?|ATOMG?)\.", sass))
+        out[name] = {"instances": inst, "global_atomics_in_sass": atomics}
+    check(out["pencil_spread"]["global_atomics_in_sass"] == 0,
+          "the spread #13 has no global atomic")
+    check(out["pencil_interp"]["global_atomics_in_sass"] > 0,
+          "control: the count finds the interpolation's atomics")
+    return out
+
+
+def pencil_tile_checks(dev) -> dict:
+    """#13 and #14 on the cases of PENCIL_TILE_CASES against their plain
+    versions within PENCIL_TOL x max|ref|; in each, and on the FCM path's
+    first state, the spread launched into a NaN-filled field must leave no
+    NaN (every node written) and two spreads must be bit-equal (no atomics,
+    a fixed order); ptxas's report and the spread's SASS
+    (``pencil_build_report``)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.engine import _build
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    windows = pencil_kernels()
+    rng = np.random.default_rng(13)
+
+    def coverage_and_repeat(kern, pos, vals, shape, b, bins, slack, what):
+        u = tp._node_coords(pos, shape, b).contiguous()
+        v2 = (vals if vals.ndim == 2 else vals[:, None]).contiguous()
+        C = v2.shape[1]
+        nan = torch.full((C,) + tuple(shape), float("nan"), device=dev)
+        plan = tp.pencil_launch_plan(shape, kern.support, slack, C, bins.pids.shape[1])
+        ints, ab = tp._kernel_args(kern, shape, bins, slack, C, plan)
+        P = _build.ptr
+        tp.SPREAD(P(u), P(v2), P(bins.pids), P(tp.pencil_neighbours(tuple(shape[:2]), dev)),
+                  P(nan), *ints, *ab, 1.0)
+        left = int(nan.isnan().sum())
+        check(left == 0, f"{what}: the spread leaves {left} nodes of a NaN-filled field unwritten")
+        a, _ = tp.spread_pencil_fused(kern, pos, vals, shape, b, bins, slack=slack)
+        c, _ = tp.spread_pencil_fused(kern, pos, vals, shape, b, bins, slack=slack)
+        check(bool(torch.equal(a, c)), f"{what}: two spreads are bit-equal")
+
+    cases = {}
+    for shape, L, n, window, slack, C in PENCIL_TILE_CASES:
+        what = f"{shape} {window} slack {slack} C {C}"
+        kern = windows[window]
+        b = box(list(L), device=dev)
+        pos = torch.tensor((rng.random((n, 3)) - 0.5) * np.asarray(L), dtype=torch.float32,
+                           device=dev)
+        vals = torch.tensor(rng.normal(size=(n, C)), dtype=torch.float32, device=dev)
+        bins = tp.bin_pencils(pos, shape, b)
+        h = min(L[0] / shape[0], L[1] / shape[1])
+        pos = pos + slack * torch.tensor(rng.uniform(-0.99, 0.99, (n, 3)) * h,
+                                         dtype=torch.float32, device=dev)
+        es, ei, _, _ = check_pencil(kern, pos, vals, shape, b, bins, slack, what)
+        coverage_and_repeat(kern, pos, vals, shape, b, bins, slack, what)
+        cases[what] = [es, ei]
+
+    # the FCM path's first state: every node written, two spreads bit-equal
+    bf, fcm, pos = fcm_setup(dev, seed=0)
+    kern = fcm._kernel()
+    bins = fcm.pencil_bins(pos, slack=1)
+    f = torch.tensor(rng.normal(size=(FCM_N, 3)), dtype=torch.float32, device=dev)
+    coverage_and_repeat(kern, pos, f, fcm.shape, bf, bins, 1, "FCM first state")
+    del f, pos, bins
+    torch.cuda.empty_cache()
+
+    report = pencil_build_report()
+    out = {"phase": "pencil_tile_checks", "ok": True, "tol": PENCIL_TOL,
+           "spread_interp_rel_err": cases,
+           "nan_field_fully_written": True, "two_spreads_bit_equal": True,
+           "build": report}
+    print(json.dumps(out), flush=True)
+    return out
+
+
 def fcm_setup(dev, seed: int):
     """The path's box, FCM and uniform random start (numpy, from ``seed``)."""
     import numpy as np
@@ -779,8 +995,6 @@ def fcm_kernel_checks(dev):
                                           "FCM first state")
     f_k, _ = tp.spread_pencil_fused(kern, pos, f, fcm.shape, bf, bins, slack=1)
     v_k, _ = tp.interpolate_pencil_fused(kern, pos, f_p, bf, bins, slack=1)
-    spread_abs = float((f_k - f_p).abs().max())
-    interp_abs = float((v_k - v_p).abs().max())
     b64 = box(FCM_L, dtype=torch.float64, device=dev)
     p64 = pos.double()
     f_64, _ = tp.spread_pencil_fused_plain(kern, p64, f.double(), fcm.shape, b64, bins, slack=1)
@@ -810,7 +1024,53 @@ def fcm_kernel_checks(dev):
            "fcc_control": {"overflow": True, "max_pencil_load": occ_fcc,
                            "cap": bins_fcc.pids.shape[1], "mobility_all_nan": True}}
     print(json.dumps(out), flush=True)
-    return {"pencil_spread": spread_abs, "pencil_interp": interp_abs}
+
+
+def pencil_first_state_rows(dev) -> list:
+    """The #13/#14 rows at the Poisson and PSE far fields' first states (the
+    electrolyte's and the fcc suspension's positions, without their paths;
+    launches 0): the spread of the charges (forces) and the interpolation
+    of a 4-channel field (a random 3-channel one)."""
+    import torch
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    pos, q, pos_np = electrolyte(dev)
+    far = poisson_split(dev, pos_np).far
+    kern = far._kernel()
+    bins = tp.bin_pencils(pos, far.shape, far.box)
+    rho, _ = tp.spread_pencil_fused(kern, pos, q, far.shape, far.box, bins)
+    f4 = torch.fft.irfftn(torch.stack([torch.fft.rfftn(rho)] * 4), s=far.shape, dim=(1, 2, 3))
+    rows = pencil_rows("_poisson", "Poisson far field, first state", kern, pos, q,
+                       f4.permute(1, 2, 3, 0), far.shape, far.box, bins, 0, {})
+    b, pos = pse_box_and_fcc(dev)
+    be = pse_backend(b, pos)
+    bins = be.far.pencil_bins(pos, slack=be.far_slack, cap_extra=be.far_cap_extra)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f = torch.randn(pos.shape, generator=gen, device=dev)
+    u = torch.randn((3,) + tuple(be.far.shape), generator=gen, device=dev).permute(1, 2, 3, 0)
+    rows += pencil_rows("_pse", "PSE far field, first state", be.far._kernel(), pos, f, u,
+                        be.far.shape, b, bins, be.far_slack, {})
+    return rows
+
+
+def pencil_only(dev, card) -> int:
+    """``--only-pencil``: the checks of #13/#14, the FCM path and its
+    breakdown, and the #13/#14 rows at the Poisson and PSE far fields'
+    first states, for working on the pencil kernels; prints no result
+    line."""
+    import torch
+    from uammd_tpu_torch.solvers import pencil_ibm
+
+    fcm_kernel_checks(dev)
+    pencil_tile_checks(dev)
+    path = fcm_main_path(dev, {"pencil_spread": pencil_ibm.SPREAD,
+                               "pencil_interp": pencil_ibm.INTERP})
+    rows = fcm_breakdown(path, card)
+    del path
+    torch.cuda.empty_cache()
+    rows += pencil_first_state_rows(dev)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
 
 
 def fcm_main_path(dev, counted):
@@ -904,10 +1164,10 @@ def fcm_main_path(dev, counted):
             "rebins_per_step": rebins / FCM_TIMED, "launches": launches}
 
 
-def fcm_breakdown(path, card, errs):
+def fcm_breakdown(path, card):
     """Phase 4b: each part of the FCM step timed alone at the path's final
     state (CUDA events), times its calls per step; and the pencil kernels'
-    rows of the kernels line."""
+    rows of the kernels line (``pencil_rows``)."""
     import torch
     from uammd_tpu_torch.integrators.bdhi.fcm import _sample_white_rfft
     from uammd_tpu_torch.solvers import pencil_ibm as tp
@@ -931,11 +1191,11 @@ def fcm_breakdown(path, card, errs):
              for dd, L in ((pos[:, k] - ref[:, k], Ls[k]) for k in range(2))]
         return float(torch.maximum(*w))
 
+    rows = pencil_rows("", "FCM path's final state", kern, pos, f, u, shape, b, bins, 1,
+                       path["launches"])
     t = {
-        "pencil_spread": cuda_ms(lambda: tp.spread_pencil_fused(kern, pos, f, shape, b, bins,
-                                                                slack=1), reps=10),
-        "pencil_interp": cuda_ms(lambda: tp.interpolate_pencil_fused(kern, pos, u, b, bins,
-                                                                     slack=1), reps=10),
+        "pencil_spread": rows[0]["ms"],
+        "pencil_interp": rows[1]["ms"],
         "rfftn": cuda_ms(lambda: torch.fft.rfftn(field, dim=(0, 1, 2)), reps=10),
         "irfftn": cuda_ms(lambda: torch.fft.irfftn(uk, s=shape, dim=(0, 1, 2)), reps=10),
         "poison_field": cuda_ms(lambda: _poison(field, bins.overflow), reps=10),
@@ -964,39 +1224,6 @@ def fcm_breakdown(path, card, errs):
                 "gravity, the position update, the interpolation's poison, the launch gaps "
                 "while the host waits for the drift read"}), flush=True)
 
-    plain_ms = {
-        "pencil_spread": cuda_ms(lambda: tp.spread_pencil_fused_plain(
-            kern, pos, f, shape, b, bins, slack=1), reps=3, warmup=1),
-        "pencil_interp": cuda_ms(lambda: tp.interpolate_pencil_fused_plain(
-            kern, pos, u, b, bins, slack=1), reps=3, warmup=1),
-    }
-    # the work this state needs: per particle, the nodes of each axis where
-    # phi is nonzero (integers within support/2 of u), their product, times
-    # C multiply-adds; the bytes: u, the values or outputs, pids, and the
-    # field written (spread) or read (interpolation) once
-    uu = tp._node_coords(pos, shape, b).double()
-    half = kern.support / 2.0
-    per_axis = torch.ceil(uu + half) - torch.floor(uu - half) - 1
-    pairs = float(per_axis.prod(1).sum())
-    C = 3
-    ops_ms = 1e3 * 2.0 * C * pairs / PEAK_FP32_FLOPS
-    field_bytes = 4 * C * math.prod(shape)
-    part_bytes = 4 * (FCM_N * 3 + bins.pids.numel())
-    bytes_ms = {"pencil_spread": 1e3 * (field_bytes + part_bytes + 4 * FCM_N * C) / PEAK_HBM_BYTES,
-                "pencil_interp": 1e3 * (field_bytes + part_bytes + 4 * bins.pids.numel() * C)
-                / PEAK_HBM_BYTES}
-    rows = []
-    for name, src, rep in (("pencil_spread", "pencil_spread.cu",
-                            "uammd_tpu/solvers/pencil_ibm.py:450"),
-                           ("pencil_interp", "pencil_interp.cu",
-                            "uammd_tpu/solvers/pencil_ibm.py:572")):
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"uammd_tpu_torch/engine/csrc/{src}", "replaces": rep,
-                     "launches": path["launches"][name], "max_abs_err": errs[name],
-                     "ms": t[name], "plain_ms": plain_ms[name],
-                     "bound_ms": max(bytes_ms[name], ops_ms),
-                     "bound_by": "operations" if ops_ms > bytes_ms[name] else "bytes",
-                     "library_ms": None, "node_pairs": pairs})
     return rows
 
 
@@ -1576,10 +1803,13 @@ def pse_breakdown(run, card, errs):
     uk = far._kspace_combine(fk.clone(), _sample_white_rfft(gen, far.shape, far.dV,
                                                             torch.float32, dev), amp, p)
     u = torch.fft.irfftn(uk, s=far.shape, dim=(0, 1, 2))
-    t["far_spread"] = cuda_ms(lambda: tp.spread_pencil_fused(kern, p, f, far.shape, be.box, bins,
-                                                             slack=be.far_slack), reps=10)
-    t["far_interp"] = cuda_ms(lambda: tp.interpolate_pencil_fused(kern, p, u, be.box, bins,
-                                                                  slack=be.far_slack), reps=10)
+    # the path's forces are 0 (no pair of the suspension is inside the WCA
+    # cutoff): the rows spread seeded values of the same shape
+    f_rand = torch.randn(f.shape, generator=torch.Generator(device=dev).manual_seed(17),
+                         device=dev)
+    far_rows = pencil_rows("_pse", "PSE path's final state (far field)", kern, p, f_rand, u,
+                           far.shape, be.box, bins, be.far_slack, run["launches"])
+    t["far_spread"], t["far_interp"] = far_rows[0]["ms"], far_rows[1]["ms"]
     t["far_ffts"] = (cuda_ms(lambda: torch.fft.rfftn(field, dim=(0, 1, 2)), reps=10)
                      + cuda_ms(lambda: torch.fft.irfftn(uk, s=far.shape, dim=(0, 1, 2)),
                                reps=10))
@@ -1653,7 +1883,7 @@ def pse_breakdown(run, card, errs):
             plain_fold, 0.0, fold_bytes, fold_err,
             {"shape": "n = 6 at the PSE grid", "ms_3ch": t["fold_n_3ch"]}),
     ]
-    return rows
+    return rows + far_rows
 
 
 def pse_counters() -> dict:
@@ -3119,12 +3349,12 @@ def poisson_main_path(dev, card, checks):
     f4 = torch.fft.irfftn(torch.stack([torch.fft.rfftn(rho)] * 4), s=far.shape, dim=(1, 2, 3))
     f4v = f4.permute(1, 2, 3, 0)
     fev = ps.sum(p, q, fe)
+    far_rows = pencil_rows("_poisson", "Poisson path's final state (far field)", kern_g, p, q,
+                           f4v, far.shape, far.box, bins, 0, launches)
     t = {
         "near_pair_channel_poisson": cuda_ms(lambda: kern(*args, strag=blk), reps=10),
-        "spread": cuda_ms(lambda: pencil_ibm.spread_pencil_fused(
-            kern_g, p, q, far.shape, far.box, bins), reps=10),
-        "interpolate": cuda_ms(lambda: pencil_ibm.interpolate_pencil_fused(
-            kern_g, p, f4v, far.box, bins), reps=10),
+        "spread": far_rows[0]["ms"],
+        "interpolate": far_rows[1]["ms"],
         "ffts": cuda_ms(lambda: torch.fft.irfftn(
             torch.stack([torch.fft.rfftn(rho)] * 4), s=far.shape, dim=(1, 2, 3)), reps=10),
         "pencil_bins": cuda_ms(lambda: pencil_ibm.bin_pencils(p, far.shape, far.box), reps=10),
@@ -3162,16 +3392,17 @@ def poisson_main_path(dev, card, checks):
                       extra={"checks": checks["functor"],
                              "launches_per_timed_step": timed["pair_channel_poisson"] / E_TIMED},
                       fn=fn)
-    return row, {"ms": ms, "launches": launches, "spread_ms": t["spread"],
-                 "interp_ms": t["interpolate"]}
+    return [row] + far_rows, {"ms": ms, "launches": launches, "spread_ms": t["spread"],
+                              "interp_ms": t["interpolate"], "pos": p, "q": q, "far": far,
+                              "bins": bins, "field": f4v}
 
 
 def poisson_only(dev, card) -> int:
     """``--only-poisson``: slice E1's checks and path alone, for working on
     them; prints no result line."""
     checks = poisson_checks(dev)
-    row, _ = poisson_main_path(dev, card, checks)
-    print(json.dumps({"kernels": [row]}), flush=True)
+    rows, _ = poisson_main_path(dev, card, checks)
+    print(json.dumps({"kernels": rows}), flush=True)
     return 0
 
 
@@ -5325,6 +5556,7 @@ def main() -> int:
     only_dd = "--only-dd" in sys.argv[1:]
     only_ragged = "--only-ragged" in sys.argv[1:]
     only_g2 = "--only-g2" in sys.argv[1:]
+    only_pencil = "--only-pencil" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5356,7 +5588,7 @@ def main() -> int:
     for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt", "gj_update",
                  "rebin2", "newton_pair", "fold"):
         print(json.dumps({"ptxas": name, "lines": [
-            ln.strip() for ln in _build.BUILD_LOGS.get(name, "").splitlines()
+            ln.strip() for ln in _build.build_log(name).splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
     if only_pse:
         return pse_only(dev, card)
@@ -5373,6 +5605,8 @@ def main() -> int:
         return 0
     if only_g2:
         return g2_only(dev, card)
+    if only_pencil:
+        return pencil_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -5463,7 +5697,8 @@ def main() -> int:
                       "fcc_v2_spec": list(spec_fcc2.array_shape),
                       "fcc_v2_mini_stragglers": sep_fcc[2]}), flush=True)
 
-    fcm_errs = fcm_kernel_checks(dev)
+    fcm_kernel_checks(dev)
+    pencil_tile_checks(dev)
     pse_errs = pse_kernel_checks(dev)
     d_errs = slice_d_kernel_checks(dev)
     a3_errs = unfused_kernel_checks(dev)
@@ -5686,9 +5921,9 @@ def main() -> int:
             "uammd_tpu/engine/rebin_kernel.py:904,920,934",
             launches_v2["separable_rebin"], sep_abs_err, sep_ms, sep_plain_ms, sep_bytes_ms),
     ]
-    rows += fcm_breakdown(fcm_path, card, fcm_errs)
+    rows += fcm_breakdown(fcm_path, card)
     rows += pse_breakdown(pse_path, card, pse_errs)
-    for r in rows[:8]:  # the earlier kernels that the PSE path also runs
+    for r in rows[:6]:  # the LJ kernels that the PSE path also runs
         if r["name"] in pse_path["launches"]:
             r["launches_pse_path"] = pse_path["launches"][r["name"]]
     rows.append(lanczos_row(pse_path, d_errs["lanczos_sqrt"]))
@@ -5704,8 +5939,8 @@ def main() -> int:
         if r["name"] in unfused_launches:
             r["launches_v2_unfused_path"] = unfused_launches[r["name"]]
     rows += a3_rows
-    e1_row, _ = poisson_main_path(dev, card, e1_checks)
-    rows.append(e1_row)
+    e1_rows, _ = poisson_main_path(dev, card, e1_checks)
+    rows += e1_rows
     # slice G1: the grid engines on a z-slab mesh, each path with its own
     # zeroed launch counts
     rows += dd_phases(dev, card, melted, a3["ms"])

@@ -96,15 +96,16 @@ def test_poison():
 
 
 def test_cuda_sources_share_phi():
-    """pencil_spread.cu and pencil_interp.cu take phi, the per-particle
-    weights and the walk over the nonzero nodes from one shared header, so
-    the spread and the interpolation cannot drift apart."""
+    """pencil_spread.cu and pencil_interp.cu take phi, the tile's candidates
+    and their weights from one shared header (the tile loop), so the spread
+    and the interpolation cannot drift apart."""
     csrc = REPO / "uammd_tpu_torch" / "engine" / "csrc"
     common = (csrc / "pencil_common.cuh").read_text()
-    for name in ("float phi(", "Win weights(", "void walk("):
+    for name in ("float phi(", "void tile_loop("):
         assert name in common
     for src in ("pencil_spread.cu", "pencil_interp.cu"):
         text = (csrc / src).read_text()
         assert '#include "pencil_common.cuh"' in text
-        assert "float phi(" not in text and "Win weights(" not in text
-        assert "walk(g, w, wx, wy, wz, lane," in text
+        assert "float phi(" not in text and "void tile_loop(" not in text
+        assert "phi(k," not in text  # no weight of its own
+        assert "tile_loop<TZ>(" in text

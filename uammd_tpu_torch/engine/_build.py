@@ -7,9 +7,11 @@ nvcc takes seconds) and is compiled on first use for Hopper::
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 into ``uammd_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-source, the shared ``csrc/*.cuh`` headers and the flags, then loaded with
-``ctypes``. No fast-math: the rebin kernel must round every division,
-multiply and add as IEEE float32 does.
+source, the shared ``csrc/*.cuh`` headers and the flags, with nvcc's output
+beside it (``<name>-<hash>.log``: ptxas's registers, shared memory and
+spills per kernel, from -Xptxas -v), then loaded with ``ctypes``. No
+fast-math: the rebin kernel must round every division, multiply and add
+as IEEE float32 does.
 
 Each C entry point takes tensor pointers and the stream as ``void*``,
 launches on PyTorch's current stream, does not synchronise, and returns
@@ -37,9 +39,6 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# nvcc's output of each source built in this process (ptxas's registers,
-# shared memory and spills per kernel, from -Xptxas -v)
-BUILD_LOGS: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -73,13 +72,14 @@ def _start(name: str):
 
 
 def _finish(name: str, started) -> str | None:
-    """Wait for nvcc; install the library, or return nvcc's log on failure."""
+    """Wait for nvcc; install the library and its log, or return nvcc's log
+    on failure."""
     proc, tmp, out = started
-    log, _ = proc.communicate()
-    BUILD_LOGS[name] = log.decode(errors="replace")
+    log = proc.communicate()[0].decode(errors="replace")
     if proc.returncode != 0:
         os.unlink(tmp)
-        return f"nvcc failed for {name}.cu:\n{BUILD_LOGS[name]}"
+        return f"nvcc failed for {name}.cu:\n{log}"
+    out.with_suffix(".log").write_text(log)  # first: a library never lacks its log
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return None
 
@@ -97,6 +97,13 @@ def build(names=None) -> float:
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output of the build of ``csrc/<name>.cu``, built first if
+    needed."""
+    build([name])
+    return library_path(name).with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

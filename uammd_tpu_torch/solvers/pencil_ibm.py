@@ -22,9 +22,34 @@ Two implementations of each direction:
   tensors they launch ``engine/csrc/pencil_spread.cu`` /
   ``pencil_interp.cu`` (counted in ``SPREAD.launches`` /
   ``INTERP.launches``) or raise; on CPU tensors they run the plain
-  versions. The CUDA kernels visit only the nonzero z window of each
-  particle, not all nz nodes: the same function, since phi vanishes
-  outside |r| < support/2.
+  versions. The CUDA kernels take only each particle's support window in
+  z, not all nz nodes: the same function, since phi vanishes outside
+  |r| < support/2.
+
+The CUDA kernels are owner-computed: a block owns a tile, one pencil's
+8 x 8 columns times tz z nodes (``pencil_launch_plan``: 32 where that
+gives enough blocks and the block fits in 48 KB of shared memory, else
+16), and gathers the particles of the pencils whose patch covers those
+columns (``pencil_neighbours``, the 3 x 3 pencils around it, each listed
+once) whose z window meets the tile, with the weights each one's own
+pencil gives those nodes. The spread sums them in registers and writes
+each node once (no atomics, no zeroed field, the same bits on every
+call); the interpolation reads its tile once and adds each particle's
+sums to its slot with one atomic per channel.
+
+Where a NaN lands. The kernels' tile products are dense, so a weight of 0
+times a NaN is NaN, as in the plain versions' dense contractions (which
+spread a particle's NaN over its whole patch and every z node), but over
+other nodes than those. A thread owns one x row of the tile at one z node
+and a warp one x row (tz 32) or two (tz 16) at every z node of the tile.
+A particle whose value in channel c is NaN (at a finite position) puts NaN
+into channel c of every node of each warp's rows of each tile in which it
+has a nonzero x weight on one of that warp's rows and a nonzero y weight
+on some column, the nodes of zero weight in those rows included. A NaN
+node of a field, in channel c, puts NaN into channel c of every particle
+that the node's warp takes with such weights, whether or not its own
+weight at that node is 0. Non-finite positions give no defined result:
+the callers NaN-poison on a bins overflow instead (``ibm._poison``).
 
 Fields are [nx, ny, nz, C] at every function, as in the JAX package. The
 CUDA kernels store them channel first ([C, nx, ny, nz] in memory, a
@@ -55,13 +80,20 @@ MAX_CHANNELS = 8  # the CUDA kernels keep C sums in registers
 _I = ctypes.c_int
 _F = ctypes.c_float
 _P = ctypes.c_void_p
-# uammd_pencil_spread(u, vals, pids, field, nx, ny, nz, npy, halo, support,
-#                     cap, npen, C, kind, a, b, scale, stream)
-SPREAD = _build.Kernel("pencil_spread", "uammd_pencil_spread", [_P] * 4 + [_I] * 10 + [_F] * 3)
-# uammd_pencil_interp(u, field, pids, out, nx, ny, nz, npy, halo, support,
-#                     cap, npen, C, kind, a, b, stream)
-INTERP = _build.Kernel("pencil_interp", "uammd_pencil_interp", [_P] * 4 + [_I] * 10 + [_F] * 2)
+# uammd_pencil_spread(u, vals, pids, nbr, field, nx, ny, nz, npy, halo,
+#                     support, cap, npen, C, kind, tz, a, b, scale, stream)
+SPREAD = _build.Kernel("pencil_spread", "uammd_pencil_spread", [_P] * 5 + [_I] * 11 + [_F] * 3)
+# uammd_pencil_interp(u, field, pids, nbr, out, nx, ny, nz, npy, halo,
+#                     support, cap, npen, C, kind, tz, a, b, stream)
+INTERP = _build.Kernel("pencil_interp", "uammd_pencil_interp", [_P] * 5 + [_I] * 11 + [_F] * 2)
 
+# The launch of the two kernels (csrc/pencil_common.cuh): a block owns one
+# pencil's 8 x 8 columns times tz z nodes, with 8 tz threads, and reads its
+# candidate slots SCAN a thread at a time.
+SCAN = 2
+NBR = 9  # the neighbour pencils of a tile, -1 padded
+TILE_MIN_BLOCKS = 16 * 132  # 16 blocks an SM on an H100 SXM's 132 SMs
+MAX_SMEM = 48 * 1024  # bytes of shared memory a block takes without an opt-in
 
 def _halo(support: int) -> int:
     return (support + 1) // 2
@@ -297,13 +329,96 @@ def interpolate_pencil_fused_plain(kernel, pos, field, box: Box, bins: PencilBin
     return interpolate_pencil(kernel, pos, field, box, bins, slack=slack)
 
 
-def _kernel_args(kernel, shape, bins: PencilBins, slack, C):
+@dataclasses.dataclass(frozen=True)
+class PencilPlan:
+    """One launch of kernel #13 or #14: ``tz`` z nodes a tile, ``chunk``
+    candidates a block takes at a time, the grid (z tiles, pencils), the
+    threads of a block (8 tz: one a z node and x row of the tile) and its
+    dynamic shared memory in bytes."""
+
+    tz: int
+    chunk: int
+    grid: tuple
+    threads: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def as_dict(self) -> dict:
+        return {"tz": self.tz, "chunk": self.chunk, "grid": list(self.grid),
+                "blocks": self.blocks, "threads": self.threads, "smem_bytes": self.smem}
+
+
+def pencil_smem_bytes(C: int, tz: int, chunk: int, interp: bool) -> int:
+    """A block's dynamic shared memory (``smem_bytes`` in
+    csrc/pencil_common.cuh): 32 header ints, a ring of chunk + SCAN x 8 tz
+    candidates (16 bytes each), 8 + 8 + tz weights, the 64 products of the
+    x- and y-weights and a flag a chunk entry, and C floats an entry (the
+    spread's values) or an entry and warp (the interpolation's partial
+    sums)."""
+    threads = 8 * tz
+    return (4 * 32 + 16 * (chunk + SCAN * threads) + 4 * chunk * (16 + 64 + tz + 1)
+            + 4 * chunk * C * (threads // 32 if interp else 1))
+
+
+def chunk_of(tz: int) -> int:
+    """The candidates a block takes at a time (``chunk_of`` in
+    csrc/pencil_common.cuh): 64 with 32-node tiles, 32 with 16-node ones,
+    whose smaller blocks need the smaller shared memory to fill an SM."""
+    return 64 if tz == 32 else 32
+
+
+def pencil_launch_plan(shape, support, slack, C, cap, *, interp=False) -> PencilPlan:
+    """The launch of kernel #13 (or #14 with ``interp``) on grid ``shape``
+    with ``C`` channels and bins of ``cap`` slots a pencil: tiles of 32 z
+    nodes when that gives at least ``TILE_MIN_BLOCKS`` blocks (each tile
+    then scans the 9 x cap slots of its neighbour pencils for fewer
+    outputs) and the block fits in ``MAX_SMEM`` (not the interpolation's
+    at C above 5), else of 16; ``chunk_of(tz)`` candidates at a time.
+    Raises ``ValueError`` for a grid off the pencil path or C above 8."""
+    shape = tuple(shape)
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"the CUDA pencil kernels take 1 to {MAX_CHANNELS} channels, got {C}")
+    if not pencil_ok(shape, support, slack):
+        raise ValueError(f"shape {shape} unsuitable for the pencil path with support "
+                         f"{support} + slack {slack}")
+    if not 0 < cap * NBR < 2 ** 30:
+        raise ValueError(f"pencil capacity {cap} out of range")
+    npen = (shape[0] // PENCIL) * (shape[1] // PENCIL)
+    nz = shape[2]
+    tz = 32 if (npen * -(-nz // 32) >= TILE_MIN_BLOCKS
+                and pencil_smem_bytes(C, 32, chunk_of(32), interp) <= MAX_SMEM) else 16
+    chunk = chunk_of(tz)
+    return PencilPlan(tz, chunk, (-(-nz // tz), npen), 8 * tz,
+                      pencil_smem_bytes(C, tz, chunk, interp))
+
+
+def pencil_neighbours_table(npx: int, npy: int) -> np.ndarray:
+    """[npx * npy, 9] int32: for each pencil, the pencils whose patch (8 +
+    2 halo nodes a side, 1 <= halo <= 8) covers one of its columns, each
+    once (on a grid 2 pencils wide p - 1 and p + 1 are one pencil), in
+    ascending order and padded with -1."""
+    out = np.full((npx * npy, NBR), -1, np.int32)
+    for px in range(npx):
+        for py in range(npy):
+            q = sorted({((px + dx) % npx) * npy + (py + dy) % npy
+                        for dx in (-1, 0, 1) for dy in (-1, 0, 1)})
+            out[px * npy + py, :len(q)] = q
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def pencil_neighbours(shape_xy, device) -> torch.Tensor:
+    """``pencil_neighbours_table`` for the grid's x and y sizes, on
+    ``device``, made once per shape."""
+    npx, npy = shape_xy[0] // PENCIL, shape_xy[1] // PENCIL
+    return torch.as_tensor(pencil_neighbours_table(npx, npy), device=device)
+
+
+def _kernel_args(kernel, shape, bins: PencilBins, slack, C, plan: PencilPlan):
     """The integer and phi arguments shared by both CUDA kernels."""
-    if C > MAX_CHANNELS:
-        raise ValueError(f"the CUDA pencil kernels take at most {MAX_CHANNELS} channels, got {C}")
-    if not pencil_ok(shape, kernel.support, slack):
-        raise ValueError(f"shape {tuple(shape)} unsuitable for the pencil path with "
-                         f"support {kernel.support} + slack {slack}")
     _build.check_cuda_tensor(bins.pids, "bins.pids", dtype=torch.int32)
     npen, cap = bins.pids.shape
     npy = shape[1] // PENCIL
@@ -312,8 +427,37 @@ def _kernel_args(kernel, shape, bins: PencilBins, slack, C):
                          f"{(shape[0] // PENCIL) * npy}")
     kind, a, b = kernel.device_phi
     ints = (shape[0], shape[1], shape[2], npy, _halo(kernel.support) + slack,
-            kernel.support, cap, npen, C, kind)
+            kernel.support, cap, npen, C, kind, plan.tz)
     return ints, (a, b)
+
+
+def spread_launch(kernel, u, vals, shape, bins: PencilBins, slack, scale):
+    """Launch kernel #13 on node coordinates ``u`` [N, 3] and values
+    [N, C] (CUDA, float32, contiguous); returns the field [C, nx, ny, nz]
+    (made with ``torch.empty``: the kernel writes every node)."""
+    C = vals.shape[1]
+    plan = pencil_launch_plan(shape, kernel.support, slack, C, bins.pids.shape[1])
+    field = torch.empty((C,) + tuple(shape), dtype=torch.float32, device=u.device)
+    ints, ab = _kernel_args(kernel, shape, bins, slack, C, plan)
+    P = _build.ptr
+    SPREAD(P(u), P(vals), P(bins.pids), P(pencil_neighbours(tuple(shape[:2]), u.device)),
+           P(field), *ints, *ab, scale)
+    return field
+
+
+def interp_launch(kernel, u, f, bins: PencilBins, slack):
+    """Launch kernel #14 on node coordinates ``u`` [N, 3] and a channel-first
+    field ``f`` [C, nx, ny, nz] (CUDA, float32, contiguous); returns the
+    slots' values [npen * cap, C] (0 in empty slots)."""
+    C, shape = f.shape[0], tuple(f.shape[1:])
+    npen, cap = bins.pids.shape
+    plan = pencil_launch_plan(shape, kernel.support, slack, C, cap, interp=True)
+    ints, ab = _kernel_args(kernel, shape, bins, slack, C, plan)
+    slots = torch.zeros((npen * cap, C), dtype=torch.float32, device=u.device)
+    P = _build.ptr
+    INTERP(P(u), P(f), P(bins.pids), P(pencil_neighbours(shape[:2], u.device)), P(slots),
+           *ints, *ab)
+    return slots
 
 
 def spread_pencil_fused(kernel, pos, values, shape, box: Box, bins: PencilBins, *,
@@ -331,12 +475,8 @@ def spread_pencil_fused(kernel, pos, values, shape, box: Box, bins: PencilBins, 
     n, C = vals.shape
     _build.check_cuda_tensor(vals, "values", (pos.shape[0], C))
     _build.check_cuda_tensor(pos, "pos", (n, 3))
-    ints, ab = _kernel_args(kernel, shape, bins, slack, C)
     u = _node_coords(pos, shape, box).contiguous()
-    field = torch.zeros((C,) + shape, dtype=torch.float32, device=pos.device)
-    P = _build.ptr
-    SPREAD(P(u), P(vals), P(bins.pids), P(field), *ints, *ab,
-           _inv_dv(box, shape, density_scale))
+    field = spread_launch(kernel, u, vals, shape, bins, slack, _inv_dv(box, shape, density_scale))
     return (field[0] if squeeze else field.permute(1, 2, 3, 0)), bins.overflow
 
 
@@ -353,11 +493,6 @@ def interpolate_pencil_fused(kernel, pos, field, box: Box, bins: PencilBins, *, 
     f = f.permute(3, 0, 1, 2).contiguous()  # no copy for a channel-first field
     _build.check_cuda_tensor(f, "field", (C,) + shape)
     _build.check_cuda_tensor(pos, "pos", (pos.shape[0], 3))
-    ints, ab = _kernel_args(kernel, shape, bins, slack, C)
     u = _node_coords(pos, shape, box).contiguous()
-    npen, cap = bins.pids.shape
-    slots = torch.zeros((npen * cap, C), dtype=torch.float32, device=pos.device)
-    P = _build.ptr
-    INTERP(P(u), P(f), P(bins.pids), P(slots), *ints, *ab)
-    out = slots[bins.slot_of_pid.long()]
+    out = interp_launch(kernel, u, f, bins, slack)[bins.slot_of_pid.long()]
     return (out[:, 0] if squeeze else out), bins.overflow
