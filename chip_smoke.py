@@ -16,7 +16,19 @@ Imports nothing of JAX or of the JAX package. Phases:
      benchmark spec and on the final liquid;
    - v1 rebin, Q = 7 and Q = 10, after random displacements below the
      drift threshold: ``out``, ``count`` and ``overflow`` exactly equal; a
-     crammed configuration must latch overflow;
+     crammed configuration must latch overflow; with a NaN and an infinite
+     coordinate the same (out, count, overflow) as plain;
+   - the rebins on the faces of the box (``rebin_face_checks``): at each
+     path's own box and grid (v1, the v2 spec with stragglers, DPD, SPH,
+     the PSE near grid), a packed, sub-drift displaced state with
+     particles moved onto every float32 value within 8 ulps of -L/2 and
+     +L/2 where the TPU kernels' rule (the image-shifted coordinate tested
+     before it wraps) loses a particle, claims it twice or stores another
+     representative (``face_values``, a float32 replica): #3 (Q 7, 10),
+     or #4 and #5, exactly equal to their plain versions, every particle
+     kept, and each rebin's positions equal by pid to the sort rebin's;
+     the control, that rule's plain replica on the same state, must lose
+     or move a particle;
    - Newton pair force, exact reciprocal: every output (home, 4 reaction
      groups, straggler forces) and the folded total within 1e-5 of the
      largest folded force, and every slot within ``SLOT_TOL`` of its own
@@ -57,9 +69,12 @@ Imports nothing of JAX or of the JAX package. Phases:
      and 2 stacked 3-vectors, within ``CHANNEL_TOL`` x max|ref|, on
      tests/test_pse_engine.py:536's n 512 clump system (17 stragglers) and
      on the PSE path's first packed state; #10 against #2 on the card, #7
-     against #9 at n = 3, and two controls that must fail the bound (the
-     stragglers dropped, a reaction group rolled the wrong way); #5 (n_q 4,
-     ocap 16), #6 and #7 at the PSE grid's shape (NLANE 114, S 192).
+     against #9 at n = 3, and three controls that must fail the bound (the
+     stragglers dropped, a reaction group rolled the wrong way, #10's
+     candidate loops one row short); #10 with one x = NaN: NaN in exactly
+     the plain version's entries; whether two #10 calls give the same bits
+     (printed); #5 (n_q 4, ocap 16), #6 and #7 at the PSE grid's shape
+     (NLANE 114, S 192).
    - slice D (``slice_d_kernels_vs_plain``): #2 with each of its five new
      functors (DPD at the step counter 7, SPH density, SPH force, LJ
      mixture, masked LJ mixture) and #1 with energy, virial and stress on,
@@ -254,8 +269,9 @@ Imports nothing of JAX or of the JAX package. Phases:
    breakdowns and the kernels' JSON line (thirteen kernels, the six new
    functors of #2, #1's observable mode, the Lanczos sqrt kernel, slice
    G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows, slice G2a's #2 PSE
-   halo, #2 radial halo and #1 fused halo rows, and #13 and #14 at the PSE
-   and Poisson far fields besides FCM's, each with its launch plan).
+   halo, #2 radial halo and #1 fused halo rows, #13 and #14 at the PSE
+   and Poisson far fields besides FCM's, and #3 at the DPD and SPH paths'
+   final states besides v1's, each with its launch plan).
 
 ``--only-pse`` runs the build and the PSE phases alone, ``--only-slice-d``
 the build and slice D's phases (the observables on the v2 engine's
@@ -265,8 +281,10 @@ E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases,
 ``--only-ragged`` the build and the ragged-occupancy checks of #1, #6 and #2,
 ``--only-g2`` the build and slice G2a's checks and paths, ``--only-pencil``
 the build, the pencil kernels' checks, the FCM path and the #13/#14 rows
-at the Poisson and PSE far fields' first states; none prints a result
-line (for work on those paths).
+at the Poisson and PSE far fields' first states, ``--only-rebin`` the
+build, the face checks, #3's checks and its rows at the v1, DPD and SPH
+grids (their packed starts, displaced); none prints a result line (for
+work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -276,6 +294,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -1348,7 +1367,16 @@ def check_channel_kernels(be, cg, what: str, controls: bool):
         errs[f"nvec{nvec}"] = e
         chans = list(cg.channels[: 3 * nvec])
         blk = (kernel2_strag_block(be, cg, nvec) if spec.n_strag else None)
-        home, groups, _ = be._kernel(nvec, newton=True).raw(cg.x, cg.y, cg.z, *chans, strag=blk)
+        home, groups, sp = be._kernel(nvec, newton=True).raw(cg.x, cg.y, cg.z, *chans, strag=blk)
+        # the reverse sums go through shared and global float atomics: print
+        # whether two calls give the same bits
+        home2, groups2, sp2 = be._kernel(nvec, newton=True).raw(cg.x, cg.y, cg.z, *chans,
+                                                                strag=blk)
+        e["newton_bit_equal_calls"] = (
+            all(torch.equal(a, b) for a, b in zip(home, home2))
+            and all(torch.equal(a, b) for g1, g2 in zip(groups, groups2) for a, b in zip(g1, g2))
+            and (sp is None or torch.equal(sp, sp2)))
+        del home2, groups2, sp2
         f_k = kernel2.make_fold_kernel_n(spec, 3 * nvec)(home, groups)
         f_p = kernel2.fold_reactions_n_plain(home, groups)
         check(all(torch.equal(a, b) for a, b in zip(f_k, f_p)),
@@ -1371,8 +1399,43 @@ def check_channel_kernels(be, cg, what: str, controls: bool):
                 c_drop = channel_err(pnt, dropped, nvec)
                 check(c_drop > CHANNEL_TOL,
                       f"{what}: control, the stragglers dropped, fails the bound ({c_drop:.3g})")
-            errs["controls"] = {"stragglers_dropped": c_drop, "group_rolled_wrong_way": c_roll}
+            # #10 with its candidate loops one row short of the occupancy
+            trim = kernel2.make_newton_channel_kernel(spec, be.near_fn(), nvec)
+            trim.occ_trim = 1
+            c_trim = channel_err(pnt, list(trim(cg.x, cg.y, cg.z, *chans, strag=blk)), nvec)
+            check(c_trim > CHANNEL_TOL,
+                  f"{what}: control, #10 one row short, fails the bound ({c_trim:.3g})")
+            errs["controls"] = {"stragglers_dropped": c_drop, "group_rolled_wrong_way": c_roll,
+                                "newton_one_row_short": c_trim}
     return errs
+
+
+def check_newton_channel_nan(be, cg, what: str) -> dict:
+    """#10 (+ #9) on ``cg`` with one occupied slot's x set to NaN, at nvec
+    1 and 2: NaN in exactly the plain version's entries (folded grids and
+    straggler totals), the rest within ``CHANNEL_TOL`` x max|ref|."""
+    import torch
+
+    occ = cg.mask.nonzero()
+    x = cg.x.clone()
+    x[tuple(occ[len(occ) // 2])] = float("nan")
+    cgn = cg.replace(x=x)
+    out = {}
+    for nvec in (1, 2):
+        ref = channel_outputs(be, cgn, nvec, "newton_plain")
+        got = channel_outputs(be, cgn, nvec, "newton")
+        n_ref = sum(int(a.isnan().sum()) for a in ref)
+        same = all(torch.equal(a.isnan(), b.isnan()) for a, b in zip(ref, got))
+        check(n_ref > 0 and same,
+              f"{what}: #10 nvec {nvec} with a NaN: NaN in exactly the plain version's "
+              f"{n_ref} entries")
+        scale = max(float(torch.nan_to_num(a, nan=0.0).abs().max()) for a in ref[: 3 * nvec])
+        err = max(float((torch.nan_to_num(a, nan=0.0) - torch.nan_to_num(b, nan=0.0))
+                        .abs().max()) for a, b in zip(ref, got)) / scale
+        check(err < CHANNEL_TOL, f"{what}: #10 nvec {nvec} with a NaN, finite entries "
+                                 f"{err:.3g} < {CHANNEL_TOL}")
+        out[f"nvec{nvec}"] = {"nan_entries": n_ref, "rel_err": err}
+    return out
 
 
 def kernel2_strag_block(be, cg, nvec):
@@ -1421,6 +1484,7 @@ def pse_kernel_checks(dev):
     n_strag_s = int(cg_s.smask.sum())
     check(n_strag_s > 0, "n 512 clump: the straggler list is used")
     small = check_channel_kernels(be_s, cg_s, "n 512 clump", controls=True)
+    small_nan = check_newton_channel_nan(be_s, cg_s, "n 512 clump")
 
     b, pos_fcc = pse_box_and_fcc(dev)
     be = pse_backend(b, pos_fcc)
@@ -1428,6 +1492,7 @@ def pse_kernel_checks(dev):
     cg, _, _ = be._refresh(st, pos_fcc)
     cg = with_channels(be, cg, dev, 17)
     full = check_channel_kernels(be, cg, "PSE first state", controls=True)
+    full_nan = check_newton_channel_nan(be, cg, "PSE first state")
 
     # #6 + #7 at the PSE grid's shape, on the fcc start jittered by 1.2 per
     # axis (the fcc start itself has no pair inside the WCA cutoff)
@@ -1474,14 +1539,34 @@ def pse_kernel_checks(dev):
     check(int(ck) == PSE_N and int(vk) == 0, "PSE grid: separable rebin keeps every particle")
     out = {"phase": "pse_kernels_vs_plain", "ok": True, "tol": CHANNEL_TOL,
            "n512_clump": {"spec": list(be_s.spec.array_shape), "stragglers": n_strag_s,
-                          "rel_err": small},
+                          "rel_err": small, "newton_nan": small_nan},
            "first_state": {"spec": list(be.spec.array_shape), "n_strag": be.spec.n_strag,
-                           "stragglers": int(cg.smask.sum()), "rel_err": full},
+                           "stragglers": int(cg.smask.sum()), "rel_err": full,
+                           "newton_nan": full_nan},
            "pse_grid_newton_pair_rel_err": newton_err, "pse_grid_fold": "bit-equal",
            "pse_grid_separable_rebin": "exact (out, mini, count, overflow)",
            "separable_rebin_mini_stragglers": int((mk[3] > 0.5).sum())}
     print(json.dumps(out), flush=True)
-    return {"err_27": full["nvec2"]["27_vs_plain"], "err_newton": full["nvec2"]["newton_vs_plain"]}
+    return {"err_27": full["nvec2"]["27_vs_plain"], "err_newton": full["nvec2"]["newton_vs_plain"],
+            "newton_bit_equal_calls": {k: full[k]["newton_bit_equal_calls"]
+                                       for k in ("nvec1", "nvec2")}}
+
+
+def newton_channel_plan_of(spec, nvec) -> dict:
+    """#10's launch plan with the library's own shared memory and threads,
+    which must equal the plan's."""
+    from uammd_tpu_torch.engine import _build, kernel2
+
+    plan = kernel2.newton_channel_plan(spec, nvec)
+    lib = _build.load("newton_channel")
+    lib.uammd_newton_channel_smem.restype = ctypes.c_longlong
+    smem = int(lib.uammd_newton_channel_smem(spec.cap, plan.cc, plan.fc, 3 * nvec,
+                                             spec.n_strag))
+    threads = int(lib.uammd_newton_channel_threads(spec.cap, plan.cc, plan.fc))
+    check(smem == plan.smem and threads == plan.threads,
+          f"#10 plan (nvec {nvec}): the library's {smem} bytes / {threads} threads == the "
+          f"plan's {plan.smem} / {plan.threads}")
+    return plan.as_dict()
 
 
 def pse_run(dev, counted, n_strag, far_cap_extra):
@@ -1878,7 +1963,10 @@ def pse_breakdown(run, card, errs):
         row("newton_channel", "newton_channel.cu", "uammd_tpu/engine/kernel2.py:992",
             t["newton_channel_6ch"], plain_nt, ops2, ch_bytes, errs["err_newton"],
             {"shape": "6 channels at the PSE path's final state", "pairs": pairs,
-             "ms_3ch": t["newton_channel_3ch"], "bound_ms_3ch": channel_ops_ms(pairs, 1)}),
+             "ms_3ch": t["newton_channel_3ch"], "bound_ms_3ch": channel_ops_ms(pairs, 1),
+             "bit_equal_calls": errs.get("newton_bit_equal_calls"),
+             "launch_plan": newton_channel_plan_of(spec, 2),
+             "launch_plan_3ch": newton_channel_plan_of(spec, 1)}),
         row("fold_n", "fold.cu", "uammd_tpu/engine/kernel2.py:702", t["fold_n_6ch"],
             plain_fold, 0.0, fold_bytes, fold_err,
             {"shape": "n = 6 at the PSE grid", "ms_3ch": t["fold_n_3ch"]}),
@@ -2460,6 +2548,7 @@ def slice_d_paths(dev, card, gs2, engine2):
     plain_ms = cuda_ms(lambda: pair_kernel.channel_plain(md.spec, fn, 3, *args[:3], args[3:]),
                        reps=1, warmup=1)
     engine_breakdown("dpd", dpd, card, {"pair_channel_dpd": pair_ms})
+    rows.append(rebin_row("_dpd", gs, dpd["launches"]["rebin"], "DPD path final state", 44))
     pairs = functor_pairs(md.spec, gs.x, gs.y, gs.z, gs.pid, fn.rc2)
     rows.append(functor_row("pair_channel_dpd",
                             "uammd_tpu/engine/pair_kernel.py:538 (dpd_pair_fn, "
@@ -2488,6 +2577,7 @@ def slice_d_paths(dev, card, gs2, engine2):
                                                         a_f[3:]), reps=1, warmup=1)
     engine_breakdown("sph", sph, card, {"pair_channel_sph_density": rho_ms,
                                         "pair_channel_sph_force": f_ms})
+    rows.append(rebin_row("_sph", gs, sph["launches"]["rebin"], "SPH path final state", 45))
     pairs = functor_pairs(ms.spec, gs.x, gs.y, gs.z, gs.pid, ms.f_kern.fn.cut2)
     rep = "uammd_tpu/engine/pair_kernel.py:538 ({}, uammd_tpu/engine/sph.py:{})"
     rows.append(functor_row("pair_channel_sph_density", rep.format("sph_density_pair_fn", 42),
@@ -5546,6 +5636,299 @@ def dd_only(dev, card) -> int:
     return 0
 
 
+# ------------------------------------------------ the rebins on a face of the box
+# Every rebin of the port (#3, #4, #5 and the sort rebin) puts a particle in
+# the cell of its wrapped coordinate and stores that wrapped value. The TPU
+# kernels (and #3 and #4 until they wrapped first) add a destination's image
+# shift and test the shifted value before wrapping it; within ulps of
+# +-L/2 that loses a particle, claims it twice or stores another
+# representative. The face checks seed each path's state at its own L with
+# particles on those values and hold the rebins to each other there.
+FACE_ULPS = 8
+
+
+def _cell32(p, iL, n):
+    import numpy as np
+
+    fr = p * iL + np.float32(0.5)
+    return np.floor((fr - np.floor(fr)) * np.float32(n))
+
+
+def _wrap32(p, L, iL):
+    import numpy as np
+
+    return (p - L * np.rint(p * iL)) + np.float32(0.0)
+
+
+def face_values(L: float, n: int, ulps: int = FACE_ULPS) -> list:
+    """(source cell, x) for the float32 values within ``ulps`` spacings of
+    -L/2 and +L/2 and the source cells 0 and n - 1 where the shifted rule
+    (a float32 replica: destination d tests floor(frac(p / L + 1/2) n) on
+    p plus its stencil's image shift) does not store the particle exactly
+    once, in the cell and at the wrapped value the sort rebin gives it."""
+    import numpy as np
+
+    f32 = np.float32
+    Lf = f32(L)
+    iL = f32(1.0) / Lf
+    out = []
+    for edge in (-L / 2, L / 2):
+        xs = [f32(edge)]
+        lo = hi = f32(edge)
+        for _ in range(ulps):
+            lo, hi = np.nextafter(lo, f32(-np.inf)), np.nextafter(hi, f32(np.inf))
+            xs += [lo, hi]
+        for s in (0, n - 1):
+            for v in sorted(xs):
+                w = _wrap32(v, Lf, iL)
+                fr = w * iL + f32(0.5)
+                want = (min(int((fr - np.floor(fr)) * f32(n)), n - 1), w)
+                got = []
+                for d in sorted({(s - 1) % n, s, (s + 1) % n}):
+                    k = next(k for k in (-1, 0, 1) if (d + k) % n == s)
+                    sh = -Lf if d + k < 0 else (Lf if d + k >= n else f32(0.0))
+                    q = v + sh
+                    if _cell32(q, iL, n) == d:
+                        got.append((d, _wrap32(q, Lf, iL)))
+                if len(got) != 1 or got[0][0] != want[0] or got[0][1] != want[1]:
+                    out.append((s, float(v)))
+    return out
+
+
+def seed_faces(gs):
+    """``gs`` with particles moved onto every face value of each axis at
+    its spec's L and cell count: each value to its own occupied slot of the
+    value's source cell on that axis. Returns (state, values per axis)."""
+    import numpy as np
+    import torch
+
+    spec = gs.spec
+    nz, nyb, cap, nlane = spec.array_shape
+    F = spec.fold
+    lane = np.arange(nlane)
+    shape = (nz, nyb, cap, nlane)
+    cells = (np.broadcast_to((lane // F)[None, None, None, :], shape),
+             np.broadcast_to((np.arange(nyb)[:, None] * F + lane % F)[None, :, None, :], shape),
+             np.broadcast_to(np.arange(nz)[:, None, None, None], shape))
+    pid = gs.pid.cpu().numpy()
+    used = np.zeros(shape, bool)
+    cols = {k: getattr(gs, k).clone() for k in ("x", "y", "z")}
+    values = []
+    for a, key in enumerate(("x", "y", "z")):
+        vals = face_values(spec.box_size[a], spec.shape[a])
+        values.append(vals)
+        for s, v in vals:
+            free = np.argwhere((pid >= 0) & (cells[a] == s) & ~used)
+            i = tuple(int(t) for t in free[len(free) // 2])
+            used[i] = True
+            cols[key][i] = v
+    return gs.replace(**cols), values
+
+
+def shifted_rule_rebin_plain(spec, stacked):
+    """The control's rebin: ``rebin_kernel.rebin_plain`` with the shifted
+    rule (each destination tests the image-shifted coordinate, then stores
+    it wrapped), as the TPU kernel computes it."""
+    import torch
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+    from uammd_tpu_torch.engine.layout import EMPTY_POS, stencil_sources
+
+    n_q = stacked.shape[0]
+    nx, ny, nz = spec.shape
+    F, cap, nlane, nyb = spec.fold, spec.cap, spec.nlane, spec.nyb
+    Ls = spec.box_size
+    dev = stacked.device
+    lane = torch.arange(nlane, device=dev)
+    my = ((lane // F).to(torch.float32)[None, None, None, :],
+          (torch.arange(nyb, device=dev)[:, None] * F + lane[None, :] % F)
+          .to(torch.float32)[None, :, None, :],
+          torch.arange(nz, device=dev).to(torch.float32)[:, None, None, None])
+    rows = torch.arange(cap, device=dev)[None, None, :, None]
+    out = torch.zeros_like(stacked)
+    base = torch.zeros((nz, nyb, 1, nlane), dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                zs, ybs, ls, shifts = stencil_sources(spec, dz, dy, dx, dev)
+                cand = stacked[:, zs, ybs, rows, ls]
+                p = [cand[d] + shifts[d] for d in range(3)]
+                valid = cand[n_q - 1] > 0.5
+                for d, n_ in enumerate((nx, ny, nz)):
+                    valid = valid & (rk._dest_cell(p[d], Ls[d], n_) == my[d])
+                vals = torch.stack([rk._wrap_pos(p[d], Ls[d]) for d in range(3)]
+                                   + [cand[q] + 0.0 for q in range(3, n_q)])
+                base, c, _ = rk._rank_into(out, base, vals, valid)
+                count = count + c
+    unfilled = rows >= base
+    out[:3] = torch.where(unfilled, torch.full_like(out[:3], EMPTY_POS), out[:3])
+    return out, count
+
+
+def face_check(gs, what: str) -> dict:
+    """Phase 2r on one state: sub-drift displacement, particles seeded on
+    the face values of each axis, then every rebin that runs on such a
+    spec held to its plain version bit for bit, every particle kept, and
+    the rebins held to the sort rebin by pid; the control (the shifted
+    rule's plain replica on the same state) must lose a particle or store
+    another value."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    seeded, values = seed_faces(displaced(gs, 41))
+    stacked = stacked_of(seeded, 7)
+    n_grid = int((seeded.pid >= 0).sum())
+    out = {"spec": list(seeded.spec.array_shape), "box": list(seeded.spec.box_size),
+           "values_per_axis": [len(v) for v in values],
+           "values_x": [[s, v] for s, v in values[0]]}
+    p_sort = layout.unpack(layout.rebin(seeded))[0]
+    if seeded.spec.n_strag == 0:
+        for q in (7, 10):
+            check_rebin(seeded, q, f"{what} face values")
+        p3 = layout.unpack(rk.rebin_fast(seeded))[0]
+        check(torch.equal(p3, p_sort), f"{what} face values: #3 stores every particle as "
+                                       f"the sort rebin does, by pid")
+        out["checked"] = "#3 (Q 7, 10) and the sort rebin"
+    else:
+        out["mini_stragglers"], out["rebin2_err"] = check_rebin2(seeded, f"{what} face values")
+        check_sep_rebin(seeded, f"{what} face values")
+        out["checked"] = "#4, #5 and the sort rebin"
+    old, count_old = shifted_rule_rebin_plain(seeded.spec, stacked)
+    new, count_new = rk.rebin_plain(seeded.spec, stacked)[:2]
+    claims = int(count_old) - n_grid  # < 0: particles lost, > 0: claimed twice
+    moved = int(((old != new) & (old == old)).any(dim=0).sum())
+    check(claims != 0 or moved > 0, f"{what} face values: control, the shifted rule loses or "
+                                    f"doubles ({claims}) or moves ({moved}) a particle")
+    out["control_shifted_rule"] = {"claims_minus_particles": claims, "slots_differing": moved,
+                                   "new_rule_count": int(count_new)}
+    return out
+
+
+def face_states(dev) -> list:
+    """(name, state) at each path's own box and grid whose rebins are
+    kernels: v1 (#3), DPD (#3), SPH (#3), the v2 spec with stragglers (#4
+    on the unfused path, #5) and the PSE near grid (#5), each packed from
+    its path's start. (The n 600 check system, CAP 8 in 4^3 cells, is too
+    crowded for 51 particles moved into its face cells: a rank passes CAP +
+    OCAP there.)"""
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.engine.dpd import GridDPD
+    from uammd_tpu_torch.engine.sph import GridSPH
+    from uammd_tpu_torch.interactors.sph import SPHParams
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    pos = lattice(N, BOX, "fcc")
+    states = [("v1 (L 128)", layout.pack(layout.choose_spec(BOX, N, 2.5, pos=pos), pos,
+                                          device=dev)),
+              ("v2 with stragglers (L 128)", layout.pack(
+                  layout.choose_spec(BOX, N, 2.5, pos=pos, n_strag=N_STRAG), pos, device=dev))]
+    p = fcc_start(N, DPD_L, 0.13, 11)
+    spec = GridDPD.create(DPD_L, N, pos=p, device=dev, **DPD_KW).spec
+    states.append((f"DPD (L {DPD_L:.2f})", layout.pack(spec, p, device=dev)))
+    p = fcc_start(N, SPH_L, 0.05, 13)
+    spec = GridSPH.create(SPH_L, N, SPHParams(**SPH_KW), dt=SPH_DT, pos=p, device=dev).spec
+    states.append((f"SPH (L {SPH_L:.2f})", layout.pack(spec, p, device=dev)))
+    b, pos_pse = pse_box_and_fcc(dev)
+    be = pse_backend(b, pos_pse)
+    states.append((f"PSE near grid (L {PSE_L:.2f})", layout.pack(be.spec, pos_pse, device=dev)))
+    return states
+
+
+def rebin_face_checks(states) -> dict:
+    """Phase 2r: ``face_check`` on each of ``face_states``."""
+    out = {name: face_check(gs, name) for name, gs in states}
+    print(json.dumps({"phase": "rebin_faces", "ok": True, "ulps": FACE_ULPS, **out}),
+          flush=True)
+    return out
+
+
+def check_rebin_nan(gs, what: str) -> dict:
+    """#3 on ``gs`` with one particle's x set to NaN and another's y to
+    +inf: out, count and overflow equal the plain version's (both particles
+    belong to no cell)."""
+    import torch
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    stacked = stacked_of(gs, 7).clone()
+    occ = (stacked[6] > 0.5).nonzero()
+    stacked[0][tuple(occ[len(occ) // 3])] = float("nan")
+    stacked[1][tuple(occ[2 * len(occ) // 3])] = float("inf")
+    out_k, count_k, over_k = rk.make_rebin_kernel(gs.spec)(stacked)
+    out_p, count_p, over_p = rk.rebin_plain(gs.spec, stacked)
+    check(torch.equal(out_k, out_p), f"{what}: #3 with a NaN and an inf equals plain")
+    check((int(count_k), int(over_k)) == (int(count_p), int(over_p)) == (gs.n - 2, 0),
+          f"{what}: #3 with a NaN and an inf: count/overflow {int(count_k)}/{int(over_k)} == "
+          f"plain {int(count_p)}/{int(over_p)}, the two particles in no cell")
+    return {"count": int(count_k), "overflow": int(over_k)}
+
+
+def rebin_plan_of(spec) -> dict:
+    """#3's launch plan with the library's own shared memory and threads,
+    which must equal the plan's."""
+    from uammd_tpu_torch.engine import _build
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    plan = rk.rebin_launch_plan(spec)
+    lib = _build.load("rebin")
+    lib.uammd_rebin_smem.restype = ctypes.c_longlong
+    smem = int(lib.uammd_rebin_smem(spec.cap, spec.nlane))
+    threads = int(lib.uammd_rebin_threads(spec.nlane))
+    check(smem == plan["pull_smem_bytes"] and threads == plan["pull_threads"],
+          f"#3 plan: the library's {smem} bytes / {threads} threads == the plan's")
+    return plan
+
+
+def rebin_row(suffix: str, gs, launches: int, what: str, seed: int) -> dict:
+    """#3's kernels-line row at ``gs`` (after a sub-drift displacement,
+    Q = 7 as every path carries): checked against plain, timed (CUDA events)
+    with its plain version, and its byte bound (7 planes in, 7 out)."""
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    moved = displaced(gs, seed)
+    check_rebin(moved, 7, what)
+    stacked = stacked_of(moved, 7)
+    kern = rk.make_rebin_kernel(gs.spec)
+    err = float((kern(stacked)[0] - rk.rebin_plain(gs.spec, stacked)[0]).abs().max())
+    ms = cuda_ms(lambda: kern(stacked), reps=20)
+    plain_ms = cuda_ms(lambda: rk.rebin_plain(gs.spec, stacked), reps=3, warmup=1)
+    bytes_ms = 1e3 * (2 * 7 * 4 * gs.spec.n_slots + 8) / PEAK_HBM_BYTES
+    return {"name": "rebin" + suffix, "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/rebin.cu",
+            "replaces": "uammd_tpu/engine/rebin_kernel.py:223", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bytes_ms,
+            "bound_by": "bytes", "library_ms": None, "shape": list(gs.spec.array_shape),
+            "launch_plan": rebin_plan_of(gs.spec)}
+
+
+def rebin_only(dev, card) -> int:
+    """``--only-rebin``: the build, the face checks, #3 against its plain
+    version (N 32768 displaced, crammed, NaN) and its rows at the v1, DPD and
+    SPH grids (displaced fcc starts: the paths' own specs, not their final
+    states); prints no result line."""
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    states = face_states(dev)
+    faces = rebin_face_checks(states)
+    n_small = 32768
+    L_small = (n_small / 0.5) ** (1.0 / 3.0)
+    pos = lattice(n_small, L_small, "sc")
+    gs = layout.pack(layout.choose_spec(L_small, n_small, 2.5, pos=pos), pos, device=dev)
+    for q in (7, 10):
+        check_rebin(displaced(gs, 11), q, "N=32768 displaced")
+    crammed = gs.replace(**{k: torch.where(gs.mask, getattr(gs, k) * (0.1 / L_small),
+                                           getattr(gs, k)) for k in ("x", "y", "z")})
+    count_c, over_c = check_rebin(crammed, 7, "crammed", expect_clean=False)
+    check(over_c > 0 or count_c != n_small, "crammed: rebin latches overflow")
+    nan = check_rebin_nan(gs, "N=32768")
+    rows = [rebin_row("_" + name.split()[0].lower(), st, 0, f"{name} displaced", 43)
+            for name, st in states if st.spec.n_strag == 0]
+    print(json.dumps({"phase": "rebin_only", "card": card, "nan": nan,
+                      "faces": list(faces), "rows": rows}), flush=True)
+    return 0
+
 def main() -> int:
     import torch
 
@@ -5557,6 +5940,7 @@ def main() -> int:
     only_ragged = "--only-ragged" in sys.argv[1:]
     only_g2 = "--only-g2" in sys.argv[1:]
     only_pencil = "--only-pencil" in sys.argv[1:]
+    only_rebin = "--only-rebin" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5586,7 +5970,7 @@ def main() -> int:
                       "sources": sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))}),
           flush=True)
     for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt", "gj_update",
-                 "rebin2", "newton_pair", "fold"):
+                 "rebin", "rebin2", "sep_rebin", "newton_pair", "fold"):
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.build_log(name).splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
@@ -5607,6 +5991,8 @@ def main() -> int:
         return g2_only(dev, card)
     if only_pencil:
         return pencil_only(dev, card)
+    if only_rebin:
+        return rebin_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -5632,6 +6018,7 @@ def main() -> int:
     count_c, over_c = check_rebin(crammed, 7, "crammed", expect_clean=False)
     check(over_c > 0 or count_c != n_small, "crammed: rebin latches overflow")
     check(bool(rebin_kernel.rebin_fast_noforce(crammed).overflow), "crammed: overflow flag")
+    rebin_nan = check_rebin_nan(gs_small, "N=32768")
 
     pos_fcc = lattice(N, BOX, "fcc")
     spec_fcc = layout.choose_spec(BOX, N, 2.5, pos=pos_fcc)
@@ -5686,7 +6073,8 @@ def main() -> int:
     del gs_fcc2, home, groups, gs_s, moved_s, crammed, r3
     print(json.dumps({"phase": "kernels_vs_plain", "ok": True,
                       "pair_rel_err": {"n32768_jittered_sc": err_small, "n2^20_fcc": err_fcc},
-                      "rebin": "exact at Q=7 and Q=10", "fcc_spec": list(spec_fcc.array_shape),
+                      "rebin": "exact at Q=7 and Q=10", "rebin_nan": rebin_nan,
+                      "fcc_spec": list(spec_fcc.array_shape),
                       "newton_err": v2_err, "newton_fast_recip_err": fast_err,
                       "newton_controls_slot_err": controls, "slot_tol": SLOT_TOL,
                       "fast_recip_tol": FAST_RECIP_TOL,
@@ -5697,6 +6085,7 @@ def main() -> int:
                       "fcc_v2_spec": list(spec_fcc2.array_shape),
                       "fcc_v2_mini_stragglers": sep_fcc[2]}), flush=True)
 
+    rebin_face_checks(face_states(dev))
     fcm_kernel_checks(dev)
     pencil_tile_checks(dev)
     pse_errs = pse_kernel_checks(dev)
@@ -5798,28 +6187,19 @@ def main() -> int:
     g = md.lj_g()
     force = pair_kernel.make_pair_force_kernel(spec, g)
     err_liquid = check_pair(gs, "2^20 liquid")
-    moved = displaced(gs, 13)
-    check_rebin(moved, 7, "2^20 liquid displaced")
-    stacked = stacked_of(moved, 7)
-    rebin = rebin_kernel.make_rebin_kernel(spec)
+    row_rebin = rebin_row("", gs, launches_v1["rebin"], "2^20 liquid displaced", 13)
     m = gs.mask
     pair_abs_err = max(
         float((a[m] - b[m]).abs().max())
         for a, b in zip(force(gs.x, gs.y, gs.z),
                         pair_kernel.pair_force_plain(spec, g, gs.x, gs.y, gs.z)))
-    rebin_abs_err = float((rebin(stacked)[0] - rebin_kernel.rebin_plain(spec, stacked)[0])
-                          .abs().max())
     pair_ms = cuda_ms(lambda: force(gs.x, gs.y, gs.z), reps=20)
     pair_plain_ms = cuda_ms(
         lambda: pair_kernel.pair_force_plain(spec, g, gs.x, gs.y, gs.z), reps=3, warmup=1)
-    rebin_ms = cuda_ms(lambda: rebin(stacked), reps=20)
-    rebin_plain_ms = cuda_ms(lambda: rebin_kernel.rebin_plain(spec, stacked), reps=3, warmup=1)
     pairs, pairs_in_cutoff = stencil_pairs(gs)
     pair_bytes_ms = 1e3 * 6 * slot_bytes / PEAK_HBM_BYTES
     pair_ops_ms = (1e3 * (OPS_PAIR_TEST * pairs + OPS_PAIR_FORCE * pairs_in_cutoff)
                    / PEAK_FP32_FLOPS)
-    rebin_bytes_ms = 1e3 * (2 * 7 * slot_bytes + 8) / PEAK_HBM_BYTES
-    del moved, stacked
 
     # the v2 kernels at the v2 path's final state, with its engine's options
     spec2 = engine2.spec
@@ -5887,7 +6267,7 @@ def main() -> int:
         "newton_err_liquid": err_v2, "stencil_pairs": pairs2,
         "stencil_pairs_in_cutoff": cut2, "stragglers": n_strag_now,
         "separable_rebin_mini_stragglers": sep_liquid[2],
-        "v1": {"ms_per_step": ms_v1, "pair_force_ms": pair_ms, "rebin_ms": rebin_ms,
+        "v1": {"ms_per_step": ms_v1, "pair_force_ms": pair_ms, "rebin_ms": row_rebin["ms"],
                "launches_per_timed_step": {k: timed_v1[k] / TIMED_STEPS
                                            for k in ("pair_force", "rebin")},
                "pair_rel_err_liquid": err_liquid, "stencil_pairs": pairs,
@@ -5908,8 +6288,7 @@ def main() -> int:
         row("pair_force", "pair_force.cu", "uammd_tpu/engine/pair_kernel.py:272",
             launches_v1["pair_force"], pair_abs_err, pair_ms, pair_plain_ms,
             pair_bytes_ms, pair_ops_ms),
-        row("rebin", "rebin.cu", "uammd_tpu/engine/rebin_kernel.py:223",
-            launches_v1["rebin"], rebin_abs_err, rebin_ms, rebin_plain_ms, rebin_bytes_ms),
+        row_rebin,
         row("newton_pair", "newton_pair.cu", "uammd_tpu/engine/kernel2.py:447",
             launches_v2["newton_pair"], newton_abs_err, newton_ms, newton_plain_ms,
             newton_bytes_ms, newton_ops_ms),

@@ -1,6 +1,7 @@
 """Launch plans of the cell-warp kernels #1 (``csrc/pair_force.cu``) and #6
-(``csrc/newton_pair.cu``) and of the channel kernel #2
-(``csrc/pair_channel.cu``), on the CPU: no JAX, no card.
+(``csrc/newton_pair.cu``), of the channel kernels #2
+(``csrc/pair_channel.cu``) and #10 (``csrc/newton_channel.cu``) and of the
+rebin #3 (``csrc/rebin.cu``), on the CPU: no JAX, no card.
 
 For every spec the port launches them on (the LJ paths, the PSE near grid,
 the domain-decomposed shards, the small straggler and clump systems; for
@@ -275,3 +276,96 @@ def test_channel_wrappers_pass_the_plan(no_device_checks, monkeypatch):
         pair_kernel.make_pair_channel_kernel(spec, DPDPair(1.0, 25.0, 4.5, 30.0))(
             *meta, torch.zeros((), device="meta"))
     assert len(args) == n
+
+
+# #10: the Newton channel kernel's plan at the PSE near grid and smaller
+# straggler-capable grids, 3 and 6 channels
+NEWTON_CHANNEL_CASES = ("pse_near", "clump_shard", "cap8_nlane16", "cap8_nlane48")
+
+
+def _newton_channel_smem(cap, cc, fc, nc, S):
+    """float4 positions, 2 layers x CAP rows of W | 1 columns, and a float4
+    shift a column; per warp (one a cell, at most 10) a ring of 128 int2
+    pairs, 8 box floats and [32][nc] home channels; the
+    reverse table [nc][2][CAP][W]; 3 ints a column; a count and CAP list
+    entries a home cell; chunk starts + 1 and 16 scalars; the straggler
+    rows' kept list."""
+    w = (cc + 2) * (fc + 2)
+    cells = cc * fc
+    return (2 * cap * (w | 1) * 16 + 2 * w * 16
+            + (8 * 128 + 32 + 128 * nc) * min(10, cc * fc) + 4 * nc * 2 * cap * w
+            + 2 * w * 12 + 4 * cells * (1 + cap) + 4 * (cells * -(-cap // 32) + 1 + 16)
+            + 4 * S)
+
+
+@pytest.mark.parametrize("nvec", [1, 2])
+@pytest.mark.parametrize("name", NEWTON_CHANNEL_CASES)
+def test_newton_channel_plan_fits_and_fills_the_card(name, nvec):
+    spec = SPECS[name]
+    plan = kernel2.newton_channel_plan(spec, nvec)
+    nx, _, nz = spec.shape
+    assert 1 <= plan.cc <= nx and 1 <= plan.fc <= spec.fold and plan.cc * plan.fc <= 64
+    assert plan.threads == 32 * min(10, plan.cc * plan.fc) <= 320
+    assert plan.smem == _newton_channel_smem(spec.cap, plan.cc, plan.fc, 3 * nvec,
+                                             spec.n_strag)
+    # two blocks an SM (233472 bytes, 1024 of them reserved a block)
+    assert 2 * (plan.smem + 1024) <= 233472
+    # staged indices fit the ring's 16 bits
+    assert 2 * spec.cap * ((plan.cc + 2) * (plan.fc + 2) | 1) <= 65535
+    assert plan.grid == (-(-nx // plan.cc) * -(-spec.fold // plan.fc), spec.nyb, nz)
+    assert plan.blocks >= min(264, spec.n_cells)
+
+
+def test_newton_channel_wrapper_passes_the_plan(no_device_checks, monkeypatch):
+    """#10's launch gets the plan's (cc, fc) and occ_trim, then the box and
+    the functor; the fold #9 follows it."""
+    args = []
+    monkeypatch.setattr(_build.Kernel, "__call__",
+                        lambda self, *a: args.append((self.symbol, a)))
+    monkeypatch.setattr(_build, "ptr", lambda t: 0)
+    spec = SPECS["pse_near"]
+    for nvec in (1, 2):
+        kern = kernel2.make_newton_channel_kernel(spec, _PSE, nvec)
+        kern.occ_trim = nvec - 1
+        meta = [torch.empty(spec.array_shape, device="meta") for _ in range(3 + 3 * nvec)]
+        strag = torch.zeros((4 + 3 * nvec, spec.n_strag, spec.nlane), device="meta")
+        kern(*meta, strag=strag)
+        plan = kernel2.newton_channel_plan(spec, nvec)
+        (sym, a), (fold_sym, _) = args[-2], args[-1]
+        assert (sym, fold_sym) == ("uammd_newton_channel", "uammd_fold_n")
+        assert a[7] == nvec and a[13] == spec.n_strag
+        assert a[14:17] == (plan.cc, plan.fc, nvec - 1)
+    assert kernel2.NewtonChannelKernel.occ_trim == 0
+
+
+REBIN_SPECS = {
+    "lj_v1": (SPECS["lj_v1"], 2580480),
+    "dpd": (_spec((64, 64, 64), 16, 2, box=70.4), 4194304),
+    "sph": (_spec((32, 36, 36), 48, 4, box=81.3), 1990656),
+    "cap8_nlane16": (SPECS["cap8_nlane16"], 2048),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REBIN_SPECS))
+def test_rebin_plan_and_scratch(name, no_device_checks, monkeypatch):
+    """#3's two kernels fit their launch limits; the wrapper hands the
+    launch a uint8 code scratch of [nz, nyb, NLANE, CAP rounded up to 16]."""
+    from uammd_tpu_torch.engine import rebin_kernel
+
+    spec, code_bytes = REBIN_SPECS[name]
+    plan = rebin_kernel.rebin_launch_plan(spec)
+    cpad = -(-spec.cap // 16) * 16
+    nz, nyb, cap, nlane = spec.array_shape
+    assert plan["classify_threads"] == nlane * cpad // 16 <= 1024
+    assert plan["pull_threads"] % 32 == 0 and 4 * nlane <= plan["pull_threads"] <= 512
+    assert plan["pull_smem_bytes"] == 4 * (cap + 1) * nlane <= 48 * 1024
+    assert plan["classify_blocks"] == plan["pull_blocks"] == nz * nyb
+    assert plan["code_bytes"] == nz * nyb * nlane * cpad == code_bytes
+    args = []
+    monkeypatch.setattr(_build.Kernel, "__call__", lambda self, *a: args.append(a))
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    stacked = torch.empty((7,) + spec.array_shape, device="meta")
+    rebin_kernel.make_rebin_kernel(spec)(stacked)
+    codes = args[-1][1]
+    assert codes.dtype == torch.uint8 and codes.numel() == code_bytes
+    assert args[-1][4:10] == (7, spec.shape[0], nyb, nz, spec.fold, cap)

@@ -7,41 +7,88 @@
 // trigger guarantees it), so each destination cell pulls its particles from
 // its 27-cell neighborhood.
 //
-// Design: one thread per destination cell. It visits the 27 source cells in
-// the TPU kernel's order (dz, then dy, then dx, each in -1, 0, 1) and each
-// cell's slots in ascending order, so candidates land at the same ranks as
-// the TPU kernel's prefix-count compaction and the output equals it slot
-// for slot and bit for bit. The image shift is added only on an axis whose
-// index wrapped. p/L is p * (1/L) with the float32 reciprocal passed in,
-// because XLA folds the TPU kernel's division by a constant into exactly
-// that multiply. Every float operation that decides a destination cell or
-// a wrapped position is an explicit round-to-nearest intrinsic (__fmul_rn,
-// __fadd_rn, ...) so nvcc cannot contract it into an FMA. Unfilled slots
+// Contract (rebin_kernel.rebin_plain): a particle belongs to the cell of its
+// wrapped coordinate p - L rint(p (1/L)) (the sort rebin's rule; no image
+// shift, so a particle within ulps of +-L/2 is kept, where the TPU kernel,
+// which tests p +- L before it wraps, can lose it) and is stored at that
+// wrapped coordinate. Each destination cell ranks its candidates in the
+// order of the 27 source cells (dz, then dy, then dx, each in -1, 0, 1) and
+// each source's slots ascending, so the output equals the plain version
+// slot for slot and bit for bit. p/L is p * (1/L) with the float32
+// reciprocal (XLA's rewrite of the TPU kernel's division by a constant),
+// and every float operation that decides a cell or a wrapped position is an
+// explicit round-to-nearest intrinsic (no FMA contraction). Unfilled slots
 // get EMPTY_POS on x/y/z and 0 elsewhere; values pass as 0 + v, as the TPU
-// kernel's one-hot sums do (so -0 becomes +0). Valid candidates and ranks
-// >= CAP are counted with integer atomics (exact) into counts[0], counts[1].
+// kernel's one-hot sums do (-0 becomes +0). counts[0] gets the claimed
+// candidates and counts[1] those ranked past CAP (integer atomics after a
+// warp sum). A NaN or infinite coordinate belongs to no cell.
 //
-// What bounds it: memory. The work is O(slots) and the kernel moves each of
-// the Q input and Q output planes once (2 x 7 x 8.6 MB at the 2^20 spec);
-// the 27-fold candidate reads hit L1/L2.
+// What bounded the thread-per-cell design this replaces: each destination
+// thread walked all 27 x CAP source slots in turn (432 at DPD's CAP 16,
+// 1080 at v1's CAP 40), reading a pid and then three positions and running
+// three cell tests for each, so every particle's destination was computed
+// 27 times, one dependent load chain was in flight a thread, and every
+// source plane passed through L1/L2 27 times; the output rows were written
+// one rank at a time, 4 bytes to a sector.
+//
+// Design, two kernels:
+// 1. classify: one thread per (source column, 16 rows). It reads the 16
+//    slots' pid, x, y, z (64 independent loads, coalesced across the
+//    lanes), computes each particle's destination once, and writes one byte
+//    a slot: 9 (oz + 1) + 3 (oy + 1) + (ox + 1) for the offset o of the
+//    destination from the source cell (0..26), 27 when it is farther (or
+//    not finite), 0xff for an empty slot. The codes are stored column by
+//    column, [nz, nyb, NLANE, CPAD] with CPAD = CAP rounded up to 16, so
+//    that a column's codes are one to three 16-byte words.
+// 2. pull: one block per (z, yb) row of destination cells, four threads a
+//    cell. Each thread takes a quarter of the 27 sources in order, loads
+//    their code columns (16-byte loads, independent of each other),
+//    matches the wanted code four bytes at a time (__vcmpeq4) and counts
+//    with popc; the four counts' exclusive prefix (two shuffles) gives each
+//    quarter its first rank, and a second pass over the same codes (L1)
+//    writes each match's source slot at its rank into a shared-memory table
+//    [CAP][NLANE]. Then the whole block writes the output row by row: for
+//    (rank, lane) in memory order it gathers the source slot's Q values (or
+//    the fill), so each warp's stores are 128 contiguous bytes.
+// Launch plan (rebin_kernel.rebin_launch_plan): classify (nyb, nz) blocks of
+// NLANE x CPAD/16 threads, no shared memory; pull (nyb, nz) blocks of
+// 4 NLANE threads rounded up to a warp, 4 (CAP + 1) NLANE bytes of shared
+// memory (20.5 KB at v1's CAP 40, NLANE 128; 8.7 KB at DPD's CAP 16).
+// Registers and spills: ptxas -v, printed by chip_smoke.py.
+//
+// What bounds it: memory. The function reads and writes each of the Q
+// planes once (2 x Q x 4 bytes a slot); classify reads 4 of the planes a
+// second time and both kernels move one code byte a slot, about 1.3x the
+// bound's bytes at Q = 7.
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
 constexpr float kEmptyPos = 1.0e9f;
+constexpr unsigned kEmptyCode = 0xffu;
+constexpr unsigned kFarCode = 27u;
+constexpr int kParts = 4;  // threads of a destination cell in the pull
+constexpr int kSourcesPerPart = 7;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the opt-in limit of sm_90
 
 struct Geom {
   int nx, nyb, nz, F, cap, nlane;
+  int cpad;  // CAP rounded up to 16: the bytes of a code column
   float Lx, Ly, Lz;
   float iLx, iLy, iLz;  // float32 reciprocals of the box lengths
 };
 
-__device__ __forceinline__ int wrap_index(int s, int n, float L, float* shift) {
-  if (s < 0) { *shift = -L; return s + n; }
-  if (s >= n) { *shift = L; return s - n; }
-  *shift = 0.0f;
-  return s;
+__host__ __device__ inline int cpad_of(int cap) { return (cap + 15) / 16 * 16; }
+
+__host__ __device__ inline int pull_threads(int nlane) {
+  return (kParts * nlane + 31) / 32 * 32;
+}
+
+size_t pull_smem(int cap, int nlane) {
+  return sizeof(int) * (static_cast<size_t>(cap) + 1) * nlane;
 }
 
 // floor((p/L + 0.5 - floor(p/L + 0.5)) * n), as the TPU kernel computes it.
@@ -50,89 +97,198 @@ __device__ __forceinline__ float dest_cell(float p, float iL, float n) {
   return floorf(__fmul_rn(__fsub_rn(fr, floorf(fr)), n));
 }
 
-// p - L*round(p/L) with round-half-to-even (jnp.round).
+// 0 + (p - L*round(p/L)) with round-half-to-even (jnp.round).
 __device__ __forceinline__ float wrap_pos(float p, float L, float iL) {
   return __fadd_rn(0.0f, __fsub_rn(p, __fmul_rn(L, rintf(__fmul_rn(p, iL)))));
 }
 
-__global__ void rebin_kernel(const float* __restrict__ in,
-                             float* __restrict__ out, int* __restrict__ counts,
-                             int Q, Geom g) {
-  const int ncell = g.nz * g.nyb * g.nlane;
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  int n_valid = 0;
-  int n_over = 0;
-  if (cell < ncell) {
-    const int lane = cell % g.nlane;
-    const int zyb = cell / g.nlane;
-    const int yb = zyb % g.nyb;
-    const int zc = zyb / g.nyb;
-    const int cx = lane / g.F;
-    const int f = lane - cx * g.F;
-    const int ny = g.nyb * g.F;
-    const int cy = yb * g.F + f;
-    const float my_cx = static_cast<float>(cx);
-    const float my_cy = static_cast<float>(cy);
-    const float my_cz = static_cast<float>(zc);
-    const float fnx = static_cast<float>(g.nx);
-    const float fny = static_cast<float>(ny);
-    const float fnz = static_cast<float>(g.nz);
-    const size_t plane = static_cast<size_t>(g.cap) * g.nlane;
-    const size_t qstride = static_cast<size_t>(g.nz) * g.nyb * plane;
-    const size_t dst0 = static_cast<size_t>(zyb) * plane + lane;
-    const float* pid_in = in + static_cast<size_t>(Q - 1) * qstride;
+// 1 + the offset (-1, 0 or 1, periodic over n >= 3 cells) of cell c from
+// cell s, or -1 when c is farther or not a number.
+__device__ __forceinline__ int offset1(float c, int s, int n) {
+  const float d = c - static_cast<float>(s);  // small integers: exact
+  if (d == 0.0f) return 1;
+  if (d == 1.0f || d == static_cast<float>(1 - n)) return 2;
+  if (d == -1.0f || d == static_cast<float>(n - 1)) return 0;
+  return -1;
+}
 
-    for (int dz = -1; dz <= 1; ++dz) {
-      float shz;
-      const int sz = wrap_index(zc + dz, g.nz, g.Lz, &shz);
-      for (int dy = -1; dy <= 1; ++dy) {
-        float shy;
-        const int sy = wrap_index(cy + dy, ny, g.Ly, &shy);
-        const int syb = sy / g.F;
-        const int sf = sy - syb * g.F;
-        for (int dx = -1; dx <= 1; ++dx) {
-          float shx;
-          const int sx = wrap_index(cx + dx, g.nx, g.Lx, &shx);
-          const size_t src0 = (static_cast<size_t>(sz) * g.nyb + syb) * plane + sx * g.F + sf;
-          for (int j = 0; j < g.cap; ++j) {
-            const size_t s = src0 + static_cast<size_t>(j) * g.nlane;
-            if (!(pid_in[s] > 0.5f)) continue;  // pid travels as pid+1
-            float px = in[s];
-            float py = in[qstride + s];
-            float pz = in[2 * qstride + s];
-            if (shx != 0.0f) px = __fadd_rn(px, shx);
-            if (shy != 0.0f) py = __fadd_rn(py, shy);
-            if (shz != 0.0f) pz = __fadd_rn(pz, shz);
-            if (dest_cell(px, g.iLx, fnx) != my_cx || dest_cell(py, g.iLy, fny) != my_cy ||
-                dest_cell(pz, g.iLz, fnz) != my_cz)
-              continue;
-            const int rank = n_valid++;
-            if (rank >= g.cap) {
-              ++n_over;
-              continue;
-            }
-            const size_t d = dst0 + static_cast<size_t>(rank) * g.nlane;
-            out[d] = wrap_pos(px, g.Lx, g.iLx);
-            out[qstride + d] = wrap_pos(py, g.Ly, g.iLy);
-            out[2 * qstride + d] = wrap_pos(pz, g.Lz, g.iLz);
-            for (int q = 3; q < Q; ++q)
-              out[q * qstride + d] = __fadd_rn(0.0f, in[q * qstride + s]);
-          }
+__global__ void __launch_bounds__(1024) rebin_classify(const float* __restrict__ in,
+                                                       unsigned char* __restrict__ codes,
+                                                       int Q, Geom g) {
+  const int lane = threadIdx.x;
+  const int grp = threadIdx.y;  // rows 16 grp .. 16 grp + 15
+  const int yb = blockIdx.x;
+  const int zc = blockIdx.y;
+  const int cx = lane / g.F;
+  const int cy = yb * g.F + (lane - cx * g.F);
+  const int ny = g.nyb * g.F;
+  const float fnx = static_cast<float>(g.nx);
+  const float fny = static_cast<float>(ny);
+  const float fnz = static_cast<float>(g.nz);
+  const size_t plane = static_cast<size_t>(g.cap) * g.nlane;
+  const size_t qstride = static_cast<size_t>(g.nz) * g.nyb * plane;
+  const size_t zyb = static_cast<size_t>(zc) * g.nyb + yb;
+  const float* col = in + zyb * plane + lane;
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    unsigned word = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r = grp * 16 + i * 4 + b;
+      unsigned code = kEmptyCode;
+      if (r < g.cap) {
+        const float* s = col + static_cast<size_t>(r) * g.nlane;
+        const float pid = s[(Q - 1) * qstride];  // pid travels as pid+1
+        const float px = s[0];
+        const float py = s[qstride];
+        const float pz = s[2 * qstride];
+        if (pid > 0.5f) {
+          const int ox = offset1(dest_cell(wrap_pos(px, g.Lx, g.iLx), g.iLx, fnx), cx, g.nx);
+          const int oy = offset1(dest_cell(wrap_pos(py, g.Ly, g.iLy), g.iLy, fny), cy, ny);
+          const int oz = offset1(dest_cell(wrap_pos(pz, g.Lz, g.iLz), g.iLz, fnz), zc, g.nz);
+          code = (ox < 0 || oy < 0 || oz < 0) ? kFarCode
+                                               : static_cast<unsigned>(9 * oz + 3 * oy + ox);
+        }
+      }
+      word |= code << (8 * b);
+    }
+    w[i] = word;
+  }
+  reinterpret_cast<uint4*>(codes + (zyb * g.nlane + lane) * g.cpad)[grp] =
+      make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ int wrap_index(int s, int n) {
+  return s < 0 ? s + n : (s >= n ? s - n : s);
+}
+
+// The source column of offset k (0..26 in (dz, dy, dx) order) of the
+// destination cell (cx, cy, zc): its slot 0 in the planes and its codes.
+struct Source {
+  int slot0;
+  const unsigned char* codes;
+};
+
+__device__ __forceinline__ Source source_of(int k, int cx, int cy, int zc,
+                                            const unsigned char* codes, const Geom& g) {
+  const int dz = k / 9 - 1;
+  const int dy = (k / 3) % 3 - 1;
+  const int dx = k % 3 - 1;
+  const int ny = g.nyb * g.F;
+  const int sz = wrap_index(zc + dz, g.nz);
+  const int sy = wrap_index(cy + dy, ny);
+  const int sx = wrap_index(cx + dx, g.nx);
+  const int syb = sy / g.F;
+  const int sl = sx * g.F + (sy - syb * g.F);
+  const int szyb = sz * g.nyb + syb;
+  return Source{szyb * g.cap * g.nlane + sl,
+                codes + (static_cast<size_t>(szyb) * g.nlane + sl) * g.cpad};
+}
+
+// 0x01 in each byte of w equal to the byte of want4 (want4 = code x 0x01010101)
+__device__ __forceinline__ unsigned byte_hits(unsigned w, unsigned want4) {
+  return __vcmpeq4(w, want4) & 0x01010101u;
+}
+
+// Q: the quantities carried, 7 or 10 (the engines' two rebins)
+template <int Q>
+__global__ void __launch_bounds__(512) rebin_pull(const float* __restrict__ in,
+                                                  const unsigned char* __restrict__ codes,
+                                                  float* __restrict__ out,
+                                                  int* __restrict__ counts, Geom g) {
+  extern __shared__ int smem[];
+  int* sidx = smem;                     // [cap][nlane]: the source slot of each rank
+  int* nfill = smem + g.cap * g.nlane;  // [nlane]: the filled ranks of each cell
+  const int tid = threadIdx.x;
+  const int yb = blockIdx.x;
+  const int zc = blockIdx.y;
+  const int c = tid / kParts;  // destination lane
+  const int part = tid - c * kParts;
+  const bool cell_ok = c < g.nlane;
+  const int plane = g.cap * g.nlane;
+  const size_t qstride = static_cast<size_t>(g.nz) * g.nyb * plane;
+  const int words = g.cpad / 4;
+
+  // 1. this quarter's matches: count, then the quarters' prefix
+  const int k0 = part * kSourcesPerPart;
+  const int k1 = min(27, k0 + kSourcesPerPart);
+  const int cx = c / g.F;
+  const int cy = yb * g.F + (c - cx * g.F);
+  int n = 0;
+  if (cell_ok) {
+    for (int k = k0; k < k1; ++k) {
+      const Source src = source_of(k, cx, cy, zc, codes, g);
+      const unsigned want4 = static_cast<unsigned>(26 - k) * 0x01010101u;
+      const uint4* p = reinterpret_cast<const uint4*>(src.codes);
+      for (int i = 0; i < words / 4; ++i) {
+        const uint4 v = p[i];
+        n += __popc(byte_hits(v.x, want4)) + __popc(byte_hits(v.y, want4)) +
+             __popc(byte_hits(v.z, want4)) + __popc(byte_hits(v.w, want4));
+      }
+    }
+  }
+  // inclusive prefix over the 4 threads of the cell (consecutive lanes)
+  int incl = n;
+#pragma unroll
+  for (int d = 1; d < kParts; d <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, incl, d, kParts);
+    if (part >= d) incl += t;
+  }
+  const int total = __shfl_sync(0xffffffffu, incl, kParts - 1, kParts);
+  int rank = incl - n;
+
+  // 2. each match's source slot at its rank (ranks past CAP are dropped)
+  if (cell_ok && n > 0 && rank < g.cap) {
+    for (int k = k0; k < k1 && rank < g.cap; ++k) {
+      const Source src = source_of(k, cx, cy, zc, codes, g);
+      const unsigned want4 = static_cast<unsigned>(26 - k) * 0x01010101u;
+      const unsigned* p = reinterpret_cast<const unsigned*>(src.codes);
+      for (int i = 0; i < words && rank < g.cap; ++i) {
+        unsigned hit = byte_hits(p[i], want4);
+        while (hit && rank < g.cap) {
+          const int row = 4 * i + (__ffs(hit) - 1) / 8;
+          hit &= hit - 1;
+          sidx[rank * g.nlane + c] = src.slot0 + row * g.nlane;
+          ++rank;
         }
       }
     }
-    for (int r = min(n_valid, g.cap); r < g.cap; ++r) {
-      const size_t d = dst0 + static_cast<size_t>(r) * g.nlane;
-      out[d] = kEmptyPos;
-      out[qstride + d] = kEmptyPos;
-      out[2 * qstride + d] = kEmptyPos;
-      for (int q = 3; q < Q; ++q) out[q * qstride + d] = 0.0f;
+  }
+  if (cell_ok && part == 0) nfill[c] = min(total, g.cap);
+  __syncthreads();
+
+  // 3. the output rows of the block, in memory order: (rank, lane)
+  const size_t dst0 = (static_cast<size_t>(zc) * g.nyb + yb) * plane;
+  for (int e = tid; e < plane; e += blockDim.x) {
+    const int r = e / g.nlane;
+    const int l = e - r * g.nlane;
+    float* o = out + dst0 + e;
+    if (r < nfill[l]) {
+      const float* s = in + sidx[e];
+      float v[Q];  // all Q loads in flight before the first store
+#pragma unroll
+      for (int q = 0; q < Q; ++q) v[q] = s[q * qstride];
+      o[0] = wrap_pos(v[0], g.Lx, g.iLx);
+      o[qstride] = wrap_pos(v[1], g.Ly, g.iLy);
+      o[2 * qstride] = wrap_pos(v[2], g.Lz, g.iLz);
+#pragma unroll
+      for (int q = 3; q < Q; ++q) o[q * qstride] = __fadd_rn(0.0f, v[q]);
+    } else {
+      o[0] = kEmptyPos;
+      o[qstride] = kEmptyPos;
+      o[2 * qstride] = kEmptyPos;
+#pragma unroll
+      for (int q = 3; q < Q; ++q) o[q * qstride] = 0.0f;
     }
   }
-  // every lane of the warp reaches here (no early return)
+
+  // 4. the counts: one cell's total from its first thread
+  int n_valid = cell_ok && part == 0 ? total : 0;
+  int n_over = cell_ok && part == 0 ? max(total - g.cap, 0) : 0;
   n_valid = __reduce_add_sync(0xffffffffu, n_valid);
   n_over = __reduce_add_sync(0xffffffffu, n_over);
-  if ((threadIdx.x & 31) == 0) {
+  if ((tid & 31) == 0) {
     atomicAdd(&counts[0], n_valid);
     atomicAdd(&counts[1], n_over);
   }
@@ -140,17 +296,42 @@ __global__ void rebin_kernel(const float* __restrict__ in,
 
 }  // namespace
 
-// counts: int32[2], zeroed by the caller -> (valid candidates, overflowed).
-extern "C" int uammd_rebin(void* in, void* out, void* counts, int Q, int nx,
-                           int nyb, int nz, int F, int cap, float Lx,
-                           float Ly, float Lz, float iLx, float iLy,
-                           float iLz, void* stream) {
-  const Geom g{nx, nyb, nz, F, cap, nx * F, Lx, Ly, Lz, iLx, iLy, iLz};
-  const int ncell = nz * nyb * g.nlane;
-  const int threads = 128;
-  const int blocks = (ncell + threads - 1) / threads;
-  rebin_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(out),
-      static_cast<int*>(counts), Q, g);
+// in: [Q, nz, nyb, cap, nlane], Q = 7 or 10; codes: uint8 scratch [nz, nyb, nlane,
+// cpad_of(cap)]; out: like in; counts: int32[2], zeroed by the caller ->
+// (claimed candidates, ranked past cap).
+extern "C" int uammd_rebin(void* in, void* codes, void* out, void* counts, int Q, int nx,
+                           int nyb, int nz, int F, int cap, float Lx, float Ly, float Lz,
+                           float iLx, float iLy, float iLz, void* stream) {
+  const Geom g{nx, nyb, nz, F, cap, nx * F, cpad_of(cap), Lx, Ly, Lz, iLx, iLy, iLz};
+  const size_t slots = static_cast<size_t>(nz) * nyb * cap * g.nlane;
+  const size_t smem = pull_smem(cap, g.nlane);
+  if ((Q != 7 && Q != 10) || nx < 3 || nz < 3 || nyb * F < 3 || cap < 1 ||
+      g.nlane * (g.cpad / 16) > 1024 || pull_threads(g.nlane) > 512 || smem > kMaxSmem ||
+      slots >= (static_cast<size_t>(1) << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto pull = Q == 7 ? rebin_pull<7> : rebin_pull<10>;
+  static size_t enabled[2] = {48 * 1024, 48 * 1024};  // dynamic shared memory allowed so far
+  if (smem > enabled[Q == 10]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pull, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    enabled[Q == 10] = smem;
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(nyb, nz);
+  rebin_classify<<<grid, dim3(g.nlane, g.cpad / 16), 0, st>>>(
+      static_cast<const float*>(in), static_cast<unsigned char*>(codes), Q, g);
+  pull<<<grid, pull_threads(g.nlane), smem, st>>>(
+      static_cast<const float*>(in), static_cast<const unsigned char*>(codes),
+      static_cast<float*>(out), static_cast<int*>(counts), g);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The pull kernel's dynamic shared memory and threads, for the wrapper's
+// plan to check.
+extern "C" long long uammd_rebin_smem(int cap, int nlane) {
+  return static_cast<long long>(pull_smem(cap, nlane));
+}
+
+extern "C" int uammd_rebin_threads(int nlane) { return pull_threads(nlane); }

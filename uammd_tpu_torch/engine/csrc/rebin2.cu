@@ -21,14 +21,17 @@
 //
 // Design: one block per (z, yb) column, one thread per destination cell
 // (lane); the straggler rows are staged in shared memory. Each thread visits
-// its candidates in the order above and keeps a running rank (the prefix
-// count over candidates of rebin.cu, #3). The kernel moves values and never
-// does arithmetic on them: positions are wrapped into the primary box with
-// p - L rint(p (1/L)) and the rest pass as 0 + v (as the TPU kernel's
-// one-hot sums give them, so -0 becomes +0), so the output equals its plain
-// version bit for bit. Destination cells use the float32 reciprocal of L
-// (layout.recip32), as XLA computes the TPU kernel's division by a
-// constant, with every operation an explicit round-to-nearest intrinsic.
+// its candidates in the order above and keeps a running rank. The kernel
+// moves values and never does arithmetic on them: positions are wrapped
+// into the primary box with p - L rint(p (1/L)) and the rest pass as 0 + v
+// (as the TPU kernel's one-hot sums give them, so -0 becomes +0), so the
+// output equals its plain version bit for bit. A candidate belongs to the
+// cell of its wrapped coordinate (no image shift: the sort rebin's rule,
+// layout.rebin; the TPU kernel tests the shifted coordinate before it
+// wraps, which near +-L/2 can lose a particle). Cells use the float32
+// reciprocal of L (layout.recip32), as XLA computes the TPU kernel's
+// division by a constant, with every operation an explicit
+// round-to-nearest intrinsic.
 // Unfilled slots of `out` and `mini` get EMPTY_POS on x, y, z and 0
 // elsewhere. The counts go into counts[0] (valid candidates) and counts[1]
 // (ranks past CAP + OCAP) with integer atomics.
@@ -49,11 +52,8 @@ struct Geom {
   float iLx, iLy, iLz;  // float32 reciprocals of the box lengths
 };
 
-__device__ __forceinline__ int wrap_index(int s, int n, float L, float* shift) {
-  if (s < 0) { *shift = -L; return s + n; }
-  if (s >= n) { *shift = L; return s - n; }
-  *shift = 0.0f;
-  return s;
+__device__ __forceinline__ int wrap_index(int s, int n) {
+  return s < 0 ? s + n : (s >= n ? s - n : s);
 }
 
 // floor((p/L + 0.5 - floor(p/L + 0.5)) * n), as the TPU kernel computes it.
@@ -74,7 +74,8 @@ struct Dest {
   size_t dout, dmini;  // this cell's row-0 offsets
 };
 
-// Writes candidate values at `rank`: to out, to mini, or nowhere (overflow).
+// Writes candidate values at `rank` (px, py, pz already wrapped): to out,
+// to mini, or nowhere (overflow).
 __device__ __forceinline__ void put(const Dest& d, const Geom& g, int Q, int rank,
                                     float px, float py, float pz, const float* rest,
                                     size_t rest_stride) {
@@ -87,9 +88,9 @@ __device__ __forceinline__ void put(const Dest& d, const Geom& g, int Q, int ran
     base = d.mini + d.dmini + static_cast<size_t>(rank - g.cap) * g.nlane;
     qs = d.qmini;
   }
-  base[0] = wrap_pos(px, g.Lx, g.iLx);
-  base[qs] = wrap_pos(py, g.Ly, g.iLy);
-  base[2 * qs] = wrap_pos(pz, g.Lz, g.iLz);
+  base[0] = px;
+  base[qs] = py;
+  base[2 * qs] = pz;
   for (int q = 3; q < Q; ++q) base[q * qs] = __fadd_rn(0.0f, rest[(q - 3) * rest_stride]);
 }
 
@@ -125,26 +126,20 @@ __global__ void rebin2_kernel(const float* __restrict__ in, const float* __restr
     const float* pid_in = in + static_cast<size_t>(Q - 1) * qstride;
 
     for (int dz = -1; dz <= 1; ++dz) {
-      float shz;
-      const int sz = wrap_index(zc + dz, g.nz, g.Lz, &shz);
+      const int sz = wrap_index(zc + dz, g.nz);
       for (int dy = -1; dy <= 1; ++dy) {
-        float shy;
-        const int sy = wrap_index(cy + dy, ny, g.Ly, &shy);
+        const int sy = wrap_index(cy + dy, ny);
         const int syb = sy / g.F;
         const int sf = sy - syb * g.F;
         for (int dx = -1; dx <= 1; ++dx) {
-          float shx;
-          const int sx = wrap_index(cx + dx, g.nx, g.Lx, &shx);
+          const int sx = wrap_index(cx + dx, g.nx);
           const size_t src0 = (static_cast<size_t>(sz) * g.nyb + syb) * plane + sx * g.F + sf;
           for (int j = 0; j < g.cap; ++j) {
             const size_t s = src0 + static_cast<size_t>(j) * g.nlane;
             if (!(pid_in[s] > 0.5f)) continue;  // pid travels as pid+1
-            float px = in[s];
-            float py = in[qstride + s];
-            float pz = in[2 * qstride + s];
-            if (shx != 0.0f) px = __fadd_rn(px, shx);
-            if (shy != 0.0f) py = __fadd_rn(py, shy);
-            if (shz != 0.0f) pz = __fadd_rn(pz, shz);
+            const float px = wrap_pos(in[s], g.Lx, g.iLx);
+            const float py = wrap_pos(in[qstride + s], g.Ly, g.iLy);
+            const float pz = wrap_pos(in[2 * qstride + s], g.Lz, g.iLz);
             if (dest_cell(px, g.iLx, fnx) != my_cx || dest_cell(py, g.iLy, fny) != my_cy ||
                 dest_cell(pz, g.iLz, fnz) != my_cz)
               continue;
@@ -158,12 +153,12 @@ __global__ void rebin2_kernel(const float* __restrict__ in, const float* __restr
         }
       }
     }
-    // the straggler rows: global candidates, at their own (unshifted) positions
+    // the straggler rows: global candidates, wrapped as the grid's
     for (int s = 0; s < S; ++s) {
       if (!(srows[(Q - 1) * S + s] > 0.5f)) continue;
-      const float px = srows[s];
-      const float py = srows[S + s];
-      const float pz = srows[2 * S + s];
+      const float px = wrap_pos(srows[s], g.Lx, g.iLx);
+      const float py = wrap_pos(srows[S + s], g.Ly, g.iLy);
+      const float pz = wrap_pos(srows[2 * S + s], g.Lz, g.iLz);
       if (dest_cell(px, g.iLx, fnx) != my_cx || dest_cell(py, g.iLy, fny) != my_cy ||
           dest_cell(pz, g.iLz, fnz) != my_cz)
         continue;

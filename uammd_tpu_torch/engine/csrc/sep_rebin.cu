@@ -6,7 +6,11 @@
 // [Q, nz, nyb, rows, NLANE] float32 with x, y, z first and pid+1 last.
 // Each pass fixes one cell axis, z then y then x, pulling into every
 // destination cell the particles of its 3 neighbours along that axis whose
-// wrapped coordinate falls in it. The intermediates have the wide capacity
+// wrapped coordinate falls in it (the coordinate as stored, wrapped with no
+// image shift: the sort rebin's rule, layout.rebin; the TPU kernel wraps
+// the image-shifted coordinate, which near +-L/2 stores another
+// representative or, one ulp below +L/2 in cell 0, loses the particle).
+// The intermediates have the wide capacity
 // CAP + OCAP, so a particle in the right z but the wrong x, y cannot
 // overflow early. The z pass reads the CAP-row input directly (the JAX
 // kernel's empty pad rows can never be claimed) and, last, absorbs the
@@ -17,7 +21,7 @@
 // Design: one thread per destination cell and pass. It walks the candidate
 // cells in the order -1, 0, +1 along the pass's axis and each one's rows
 // ascending (then the stragglers), so ranks follow _sep_place's prefix
-// counts and the output equals the TPU kernel slot for slot. As in
+// counts and the output equals the TPU kernel slot for slot off the faces. As in
 // rebin.cu: p/L is p * (1/L) with the float32 reciprocal (XLA's rewrite
 // of the TPU kernel's division by a constant), every float operation that
 // decides a cell or a wrapped coordinate is an explicit round-to-nearest
@@ -96,9 +100,8 @@ __global__ void sep_pass(const float* __restrict__ in, int in_rows,
 
     for (int k = -1; k <= 1; ++k) {
       int sc = my[AXIS] + k;
-      float shift = 0.0f;
-      if (sc < 0) { sc += nc[AXIS]; shift = -L; }
-      if (sc >= nc[AXIS]) { sc -= nc[AXIS]; shift = L; }
+      if (sc < 0) sc += nc[AXIS];
+      if (sc >= nc[AXIS]) sc -= nc[AXIS];
       int sz = zc, syb = yb, sl = lane;
       if (AXIS == 2) sz = sc;
       if (AXIS == 1) { syb = sc / g.F; sl = cx * g.F + (sc - syb * g.F); }
@@ -107,9 +110,7 @@ __global__ void sep_pass(const float* __restrict__ in, int in_rows,
       for (int j = 0; j < in_rows; ++j) {
         const size_t s = src0 + static_cast<size_t>(j) * g.nlane;
         if (!(in[(Q - 1) * in_q + s] > 0.5f)) continue;  // pid travels as pid+1
-        float p = in[AXIS * in_q + s];
-        if (shift != 0.0f) p = __fadd_rn(p, shift);
-        p = wrap_pos(p, L, iL);
+        const float p = wrap_pos(in[AXIS * in_q + s], L, iL);
         if (dest_cell(p, iL, fn) != my_c) continue;
         const int rank = n_valid++;
         if (rank >= depth) {

@@ -55,13 +55,12 @@ import torch
 from . import _build
 from .layout import GridSpec, recip32, stencil_sources
 from .md import LJFused
-from .pair_kernel import LaunchPlan, cell_block_plan
+from .pair_kernel import MAX_CHANNEL_CELLS, SM_BLOCKS, SM_SMEM, LaunchPlan, cell_block_plan
 from .pse_near import (
     PSENear,
     _strag_inv,
     _Struct,
     channel_launch_args,
-    channel_launch_shape,
     check_cpu_inputs,
     strag_channel_block,
 )
@@ -98,9 +97,76 @@ FOLD_N = _build.Kernel("fold", "uammd_fold_n", [_PP, _PP, _I, _I, _I, _I])
 # uammd_fold_halo(ins[15], out[3], recvs[9], nz, nyb, plane, stream)
 FOLD_HALO = _build.Kernel("fold", "uammd_fold_halo", [_PP, _PP, _PP, _I, _I, _I])
 # uammd_newton_channel(x, y, z, ch, strag, raw, spart, nv, nx, nyb, nz, F,
-#                      cap, S, rows, kJ, Lx, Ly, Lz, iLx, iLy, iLz, near, stream)
+#                      cap, S, cc, fc, occ_trim, Lx, Ly, Lz, iLx, iLy, iLz,
+#                      near, stream)
 NEWTON_CHANNEL = _build.Kernel("newton_channel", "uammd_newton_channel",
-                               [_P] * 7 + [_I] * 9 + [_F] * 6 + [_Struct])
+                               [_P] * 7 + [_I] * 10 + [_F] * 6 + [_Struct])
+NEWTON_CHANNEL_RING = 128  # a warp's pairs waiting for a round (kRing)
+NEWTON_CHANNEL_WARPS = 10  # a block's warps at most (kMaxWarps)
+NEWTON_CHANNEL_SM_WARPS = 21  # warps an SM holds at the kernel's 96 registers
+NEWTON_CHANNEL_HDR = 16  # a block's scalars (kHdr)
+
+
+def newton_channel_warps(cap: int, cc: int, fc: int) -> int:
+    """The warps of a #10 block (``warps_of`` in the .cu): one a cell, at
+    most 10, so that two blocks an SM keep 96 registers a thread
+    (``__launch_bounds__(320, 2)``), at which ptxas spills nothing.
+    ``cap`` is unused: chunks come about a cell each at the PSE grid's
+    occupancy (~20 of CAP 32)."""
+    return min(NEWTON_CHANNEL_WARPS, cc * fc)
+
+
+def newton_channel_smem_bytes(cap: int, cc: int, fc: int, nc: int, n_strag: int) -> int:
+    """The dynamic shared memory of a #10 block (``smem_bytes`` in
+    csrc/newton_channel.cu): 2 z layers of W = (cc + 2) x (fc + 2) staged
+    columns of CAP float4 positions in rows W | 1 apart and a float4 shift
+    a column; per warp a ring of 128 pairs (int2), its chunk's box (8
+    floats) and home channels [32][nc]; the reverse table [nc][2][CAP][W];
+    3 ints a column; per home cell a count and CAP list entries; the chunk
+    starts and 16 scalars; the straggler rows' kept list [S] (the rows stay
+    in device memory)."""
+    w = (cc + 2) * (fc + 2)
+    cells = cc * fc
+    npc = -(-cap // 32)
+    per_warp = 8 * NEWTON_CHANNEL_RING + 32 + 128 * nc
+    return (2 * cap * (w | 1) * 16 + 2 * w * 16 + per_warp * newton_channel_warps(cap, cc, fc)
+            + 4 * nc * 2 * cap * w + 2 * w * 12 + 4 * cells * (1 + cap)
+            + 4 * (cells * npc + 1 + NEWTON_CHANNEL_HDR) + 4 * n_strag)
+
+
+def newton_channel_plan(spec: GridSpec, nvec: int) -> LaunchPlan:
+    """The launch of ``csrc/newton_channel.cu`` (#10) for ``spec`` at
+    ``nvec`` stacked 3-vectors: the block shape from ``cell_block_plan``
+    over ``newton_channel_smem_bytes``, up to 64 cells and 10 warps a
+    block (``newton_channel_warps``), preferring blocks of which two fit an
+    SM, a warp for every cell, the fewest staged columns, then the most
+    warps resident on an SM. Raises ``ValueError`` when no block fits or
+    the outputs pass the kernel's 32-bit indices."""
+    nc = 3 * nvec
+    cap = spec.cap
+    if spec.n_slots * 5 * nc >= 2 ** 31:
+        raise ValueError(f"{spec.n_slots} slots x 5 x {nc} outputs exceed the Newton channel "
+                         f"kernel's 32-bit indices")
+
+    def key(cc, fc, smem, blocks):
+        if 2 * cap * ((cc + 2) * (fc + 2) | 1) > 65535:  # 16-bit staged indices
+            return (1,)
+        warps = newton_channel_warps(cap, cc, fc)
+        resident = min(SM_BLOCKS, NEWTON_CHANNEL_SM_WARPS // warps, SM_SMEM // (smem + 1024))
+        # two blocks an SM at least, so that one's staging and flush overlap
+        # the other's walk; a warp for every cell; the fewest staged columns
+        # (chip runs of the shapes on the PSE grid, PERF.md section 6)
+        return (int(resident < 2), int(cc * fc > warps), blocks * (cc + 2) * (fc + 2),
+                -resident * warps, -cc)
+
+    plan = cell_block_plan(
+        spec, lambda cc, fc: newton_channel_smem_bytes(cap, cc, fc, nc, spec.n_strag),
+        max_cells=MAX_CHANNEL_CELLS,
+        threads_of=lambda cc, fc: 32 * newton_channel_warps(cap, cc, fc),
+        key_of=key)
+    if 2 * cap * ((plan.cc + 2) * (plan.fc + 2) | 1) > 65535:
+        raise ValueError(f"CAP {cap} is too deep for the Newton channel kernel's staging")
+    return plan
 
 
 def newton_launch_plan(spec: GridSpec) -> LaunchPlan:
@@ -590,6 +656,10 @@ class NewtonChannelKernel:
     (counted in ``NEWTON_CHANNEL.launches``) and ``uammd_fold_n`` or
     raise."""
 
+    # 0; a check's control sets 1 on an instance to stop every candidate
+    # loop one row short (the CPU path ignores it)
+    occ_trim = 0
+
     def __init__(self, spec: GridSpec, fn: PSENear, nvec: int = 1):
         if not isinstance(fn, PSENear):
             raise TypeError("the channel kernels take the PSE near-field functor "
@@ -600,6 +670,7 @@ class NewtonChannelKernel:
         self.fn = fn
         self.nvec = nvec
         self.fold = FoldNKernel(spec, 3 * nvec)
+        self.plan = None  # newton_channel_plan, at the first launch
 
     def raw(self, x, y, z, *channels, strag=None):
         spec, nvec = self.spec, self.nvec
@@ -611,7 +682,9 @@ class NewtonChannelKernel:
             return newton_channel_plain(spec, self.fn, nvec, x, y, z, channels, strag)
         ch, srows = channel_launch_args(spec, 3 * nvec, x, y, z, channels, strag,
                                         "the Newton channel kernel")
-        rows, kj = channel_launch_shape(spec, 3 * nvec)
+        if self.plan is None:
+            self.plan = newton_channel_plan(spec, nvec)
+        plan = self.plan
         nc = 3 * nvec
         T = spec.n_slots
         buf = torch.zeros(5 * nc * T + nc * S, dtype=torch.float32, device=x.device)
@@ -621,7 +694,7 @@ class NewtonChannelKernel:
         P = _build.ptr
         NEWTON_CHANNEL(
             P(x), P(y), P(z), P(ch), P(srows) if S else _P(0), P(raw), P(spart),
-            nvec, nx, spec.nyb, nz, spec.fold, spec.cap, S, rows, kj,
+            nvec, nx, spec.nyb, nz, spec.fold, spec.cap, S, plan.cc, plan.fc, self.occ_trim,
             *spec.box_size, *_strag_inv(spec), self.fn.struct(),
         )
         home = tuple(raw[0])

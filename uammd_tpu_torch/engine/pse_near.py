@@ -20,8 +20,7 @@ zeros, which leaves every Horner step bit-identical.
 
 Also what the two channel kernels share (#2 in ``pair_kernel.py``, #10 in
 ``kernel2.py``): the straggler block of their plain versions and their
-input checks; and #10's launch shape (#2 takes its own plan,
-``pair_kernel.channel_launch_plan``).
+input checks.
 """
 
 from __future__ import annotations
@@ -197,31 +196,6 @@ def strag_row_totals(part_rows, periodic_z: bool = True):
     as the JAX callers sum the kernel's partials (``outs[3 + c][1:-1]``,
     uammd_tpu/parallel/pse_dd2.py:322, :344-347)."""
     return part_rows.sum(dim=1) if periodic_z else part_rows[:, 1:-1].sum(dim=1)
-
-
-# threads per block of the Newton channel kernel #10 (rows x NLANE) and its
-# shared-memory budget: 3 staged y-blocks of (3 + n_chan) arrays x kJ rows x
-# NLANE floats, plus the [3 + n_chan + 1, S] straggler rows
-CHANNEL_THREADS = 512
-CHANNEL_SMEM = 48 * 1024
-
-
-def channel_launch_shape(spec: GridSpec, n_chan: int):
-    """(rows, kJ) of a launch of the Newton channel kernel #10
-    (csrc/newton_channel.cu) staging ``n_chan`` channels (3 nvec); raises
-    ValueError when not even one staged row fits the shared-memory
-    budget. The 27-stencil channel kernel #2 launches by
-    ``pair_kernel.channel_launch_plan`` instead."""
-    na = 3 + n_chan
-    strag_bytes = 4 * (na + 1) * spec.n_strag
-    per_row = 4 * 3 * na * spec.nlane
-    kj = min(8, spec.cap, (CHANNEL_SMEM - strag_bytes) // per_row)
-    if kj < 1:
-        raise ValueError(
-            f"the {n_chan}-channel kernel needs {per_row + strag_bytes} bytes of shared "
-            f"memory at NLANE {spec.nlane} and S {spec.n_strag}, over its {CHANNEL_SMEM}")
-    rows = max(1, min(spec.cap, CHANNEL_THREADS // spec.nlane))
-    return rows, kj
 
 
 def channel_launch_args(spec: GridSpec, n_chan: int, x, y, z, channels, strag, what: str):

@@ -12,6 +12,18 @@ slot for slot.
 Quantities travel stacked as [Q, nz, nyb, CAP, NLANE] float32 with x, y, z
 first and pid+1 last (exact to 2^24 particles); positions are wrapped into
 the primary box on the way and empty slots get EMPTY_POS (x, y, z) and 0.
+
+The wrap comes before the cell test, in every rebin of this module (#3, #4
+and #5): a candidate's destination is the cell of its wrapped coordinate
+wrap(p) = p - L round(p / L), with no image shift, and that wrapped value is
+what is stored. It is the sort rebin's rule (``layout.rebin``), so every
+rebin keeps a particle that moved at most one cell and stores it bit for
+bit as the sort rebin does. The JAX package's kernels test the
+image-shifted coordinate p +- L before it is wrapped; on a few float32
+values within ulps of a face of the box (and for a particle stored in x
+cell 0 at +L/2 that then moves) that loses the particle or stores another
+representative, and there the port differs from them by design.
+
 The call returns ``(out, count, overflow)``: the number of particles found
 and the number ranked past CAP. The caller latches overflow when
 ``overflow > 0`` or ``count != n`` (a particle moved more than one cell).
@@ -47,9 +59,23 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 
-# uammd_rebin(in, out, counts, Q, nx, nyb, nz, F, cap, Lx, Ly, Lz,
+# uammd_rebin(in, codes, out, counts, Q, nx, nyb, nz, F, cap, Lx, Ly, Lz,
 #             1/Lx, 1/Ly, 1/Lz, stream)
-REBIN = _build.Kernel("rebin", "uammd_rebin", [_P] * 3 + [_I] * 6 + [_F] * 6)
+REBIN = _build.Kernel("rebin", "uammd_rebin", [_P] * 4 + [_I] * 6 + [_F] * 6)
+
+
+def rebin_launch_plan(spec: GridSpec) -> dict:
+    """The launch of ``csrc/rebin.cu`` for ``spec``: the classify kernel's
+    blocks and threads, and the pull kernel's blocks, threads and dynamic
+    shared memory (a rank table [CAP][NLANE] of int32 and a fill count a
+    cell), as the C entry computes them; the code scratch's bytes."""
+    nx, _, nz = spec.shape
+    cpad = (spec.cap + 15) // 16 * 16
+    blocks = spec.nyb * nz
+    return {"classify_blocks": blocks, "classify_threads": spec.nlane * (cpad // 16),
+            "pull_blocks": blocks, "pull_threads": (4 * spec.nlane + 31) // 32 * 32,
+            "pull_smem_bytes": 4 * (spec.cap + 1) * spec.nlane,
+            "code_bytes": nz * spec.nyb * spec.nlane * cpad}
 
 
 def _dest_cell(p, L, n):
@@ -63,10 +89,18 @@ def _wrap_pos(p, L):
     return (p - L * torch.round(p * recip32(L))) + 0.0
 
 
+def _wrapped_cell(p, L, n):
+    """(the wrapped coordinate, its cell as a float): the rule of every
+    rebin here, the sort rebin's."""
+    w = _wrap_pos(p, L)
+    return w, _dest_cell(w, L, n)
+
+
 def rebin_plain(spec: GridSpec, stacked: torch.Tensor):
     """Plain PyTorch version of the kernel: the 27 candidate cells are
     visited in the kernel's order and each candidate's rank is the running
-    count of valid candidates before it (an exclusive cumsum per cell)."""
+    count of valid candidates before it (an exclusive cumsum per cell). A
+    candidate belongs to the cell of its wrapped coordinate."""
     n_q = stacked.shape[0]
     nx, ny, nz = spec.shape
     F, cap, nlane, nyb = spec.fold, spec.cap, spec.nlane, spec.nyb
@@ -90,25 +124,19 @@ def rebin_plain(spec: GridSpec, stacked: torch.Tensor):
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                zs, ybs, ls, (shx, shy, shz) = stencil_sources(spec, dz, dy, dx, dev)
+                zs, ybs, ls, _ = stencil_sources(spec, dz, dy, dx, dev)
                 cand = stacked[:, zs, ybs, rows, ls]  # [Q, nz, nyb, cap, nlane]
-                px, py, pz = cand[0] + shx, cand[1] + shy, cand[2] + shz
-                valid = (
-                    (cand[n_q - 1] > 0.5)
-                    & (_dest_cell(px, Lx, nx) == my_cx)
-                    & (_dest_cell(py, Ly, ny) == my_cy)
-                    & (_dest_cell(pz, Lz, nz) == my_cz)
-                )
+                (wx, cx), (wy, cy), (wz, cz) = (
+                    _wrapped_cell(cand[d], L_, n_) for d, (L_, n_) in
+                    enumerate(zip((Lx, Ly, Lz), (nx, ny, nz))))
+                valid = (cand[n_q - 1] > 0.5) & (cx == my_cx) & (cy == my_cy) & (cz == my_cz)
                 v = valid.to(torch.int64)
                 rank = base + torch.cumsum(v, dim=2) - v
                 base = base + v.sum(dim=2, keepdim=True)
                 count = count + v.sum()
                 over = over + (valid & (rank >= cap)).sum()
                 place = valid & (rank < cap)
-                vals = torch.stack(
-                    [_wrap_pos(px, Lx), _wrap_pos(py, Ly), _wrap_pos(pz, Lz)]
-                    + [cand[q] + 0.0 for q in range(3, n_q)]
-                )
+                vals = torch.stack([wx, wy, wz] + [cand[q] + 0.0 for q in range(3, n_q)])
                 out[:, zd[place], yd[place], rank[place], ld[place]] = vals[:, place]
     unfilled = rows >= base  # [nz, nyb, cap, nlane]
     out[:3] = torch.where(unfilled, torch.full_like(out[:3], EMPTY_POS), out[:3])
@@ -120,7 +148,7 @@ class RebinKernel:
     overflow)`` for one ``GridSpec``; Q is read from the input.
 
     CPU tensors go to ``rebin_plain``; CUDA tensors launch ``csrc/rebin.cu``
-    (counted in ``REBIN.launches``) or raise."""
+    (its two kernels, one count in ``REBIN.launches``) or raise."""
 
     def __init__(self, spec: GridSpec):
         self.spec = spec
@@ -134,14 +162,18 @@ class RebinKernel:
             if stacked.dtype != torch.float32 or tuple(stacked.shape) != shape:
                 raise ValueError(f"stacked must be a float32 tensor of shape {shape}")
             return rebin_plain(spec, stacked)
+        if shape[0] not in (7, 10):
+            raise ValueError(f"the rebin kernel carries Q = 7 or 10 quantities, not {shape[0]}")
         _build.check_cuda_tensor(stacked, "stacked", shape)
         nx, _, nz = spec.shape
         Lx, Ly, Lz = spec.box_size
         out = torch.empty_like(stacked)
         counts = torch.zeros(2, dtype=torch.int32, device=stacked.device)
+        codes = torch.empty(rebin_launch_plan(spec)["code_bytes"], dtype=torch.uint8,
+                            device=stacked.device)
         P = _build.ptr
         REBIN(
-            P(stacked), P(out), P(counts), shape[0],
+            P(stacked), P(codes), P(out), P(counts), shape[0],
             nx, spec.nyb, nz, spec.fold, spec.cap,
             Lx, Ly, Lz, recip32(Lx), recip32(Ly), recip32(Lz),
         )
@@ -237,19 +269,17 @@ def _sep_pass(spec: GridSpec, w: torch.Tensor, axis: int, depth: int, strag=None
     for k in (-1, 0, 1):
         off = [0, 0, 0]
         off[axis] = k  # (dx, dy, dz)
-        zs, ybs, ls, shifts = stencil_sources(spec, off[2], off[1], off[0], dev)
+        zs, ybs, ls, _ = stencil_sources(spec, off[2], off[1], off[0], dev)
         cand = list(w[:, zs, ybs, rows, ls])
-        p = _wrap_pos(cand[axis] + shifts[axis], Ls[axis])
-        cand[axis] = p
-        valid = (cand[n_q - 1] > 0.5) & (_dest_cell(p, Ls[axis], ncell[axis]) == my_c[axis])
+        cand[axis], c = _wrapped_cell(cand[axis], Ls[axis], ncell[axis])
+        valid = (cand[n_q - 1] > 0.5) & (c == my_c[axis])
         place(cand, valid)
     if strag is not None:
         sc = [strag[q][None, None, :, None] for q in range(n_q)]
-        for d in range(3):
-            sc[d] = _wrap_pos(sc[d], Ls[d])
         valid = sc[n_q - 1] > 0.5
         for d in range(3):
-            valid = valid & (_dest_cell(sc[d], Ls[d], ncell[d]) == my_c[d])
+            sc[d], c = _wrapped_cell(sc[d], Ls[d], ncell[d])
+            valid = valid & (c == my_c[d])
         place(sc, valid)
     unfilled = torch.arange(depth, device=dev)[None, None, :, None] >= base
     out[:3] = torch.where(unfilled, torch.full_like(out[:3], EMPTY_POS), out[:3])
@@ -366,10 +396,13 @@ def rebin2_plain(spec: GridSpec, stacked: torch.Tensor, strag: torch.Tensor,
     def place(pos, rest):
         nonlocal base, count, over
         valid = rest[-1] > 0.5
+        wrapped = []
         for d in range(3):
-            valid = valid & (_dest_cell(pos[d], Ls[d], ncell[d]) == my_c[d])
+            w, c = _wrapped_cell(pos[d], Ls[d], ncell[d])
+            wrapped.append(w)
+            valid = valid & (c == my_c[d])
         shape = valid.shape
-        vals = torch.stack([_wrap_pos(p, L).expand(shape) for p, L in zip(pos, Ls)]
+        vals = torch.stack([w.expand(shape) for w in wrapped]
                            + [c.expand(shape) + 0.0 for c in rest])
         base, n, o = _rank_into(out, base, vals, valid)
         count, over = count + n, over + o
@@ -377,9 +410,9 @@ def rebin2_plain(spec: GridSpec, stacked: torch.Tensor, strag: torch.Tensor,
     for dz in (-1, 0, 1):
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
-                zs, ybs, ls, shifts = stencil_sources(spec, dz, dy, dx, dev)
+                zs, ybs, ls, _ = stencil_sources(spec, dz, dy, dx, dev)
                 cand = stacked[:, zs, ybs, rows, ls]  # [Q, nz, nyb, cap, nlane]
-                place([cand[d] + shifts[d] for d in range(3)], list(cand[3:]))
+                place(list(cand[:3]), list(cand[3:]))
     sc = [strag[q][None, None, :, None] for q in range(n_q)]
     place(sc[:3], sc[3:])
     unfilled = torch.arange(wide, device=dev)[None, None, :, None] >= base
