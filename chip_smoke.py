@@ -43,9 +43,20 @@ Imports nothing of JAX or of the JAX package. Phases:
    - fused fold + G-J update at T = 1.5 on identical counter noise: "clt"
      bit-equal with an equal drift, "bm" within ``BM_TOL`` (the card's
      logf/sinf/cosf against PyTorch's);
-   - separable rebin after a displacement with stragglers present:
-     ``out``, ``mini``, count and overflow exactly equal; a crammed state
-     latches overflow through ``rebin_fast3``;
+   - separable rebin #5 (one classify-and-pull launch pair) after a
+     displacement with stragglers present: ``out``, ``mini``, count and
+     overflow exactly equal; a crammed state latches overflow through
+     ``rebin_fast3``; then (``sep_rebin_checks``) the n 600 moved state of
+     tests/test_torch_sep_rebin_pull.py exactly equal, three states that
+     overflow CAP + OCAP in only the z pass's intermediate, only the y
+     pass's or only the final cell, where the kernel must flag overflow
+     exactly when plain does, the y state one particle short exactly
+     equal, and two controls that must change the output (the kernel
+     ranking in #3's (dz, dy, dx) order, and the straggler rows ranked
+     last); #5 is also held exactly to plain on every rebin of the
+     unfused path's settle steps and of the 1-shard DD2 path, at Q 4 on
+     the PSE near grid, and on each state its rows are timed at; ptxas
+     must report no spill in any instance of #3, #5 and the folds;
    - pencil spread and interpolation (kernels #13/#14 of the BDHI-FCM
      path): max|d| <= ``PENCIL_TOL`` x max|ref| at n 5000, L 24, 32^3 for
      the Gaussian, Peskin 3- and 4-point and ES/BM windows, slack 0 and 1,
@@ -105,7 +116,8 @@ Imports nothing of JAX or of the JAX package. Phases:
      ``halo_z`` on every shard of tests/test_domain2.py:25's clump system
      (n 2400, 24 straggler rows a shard) and of the melted 2^20 liquid on 4
      shards, every slot within ``SLOT_TOL`` (control: the ghost rows
-     emptied); the halo fold #8 bit-equal (control: recv zeroed); #1 and #2
+     emptied); the halo fold #8 bit-equal, in the list form and through
+     the stacked entry the path calls (control: recv zeroed); #1 and #2
      (DPD, SPH density, SPH force) on shard 0's halo-extended slab within
      1e-5 and ``CHANNEL_TOL`` (control: the ghost rows' image shift
      dropped). The assembled DD force on one state against the single-chip
@@ -282,9 +294,10 @@ E1's phases, ``--only-dd`` the build, the v1 melt and slice G1's phases,
 ``--only-g2`` the build and slice G2a's checks and paths, ``--only-pencil``
 the build, the pencil kernels' checks, the FCM path and the #13/#14 rows
 at the Poisson and PSE far fields' first states, ``--only-rebin`` the
-build, the face checks, #3's checks and its rows at the v1, DPD and SPH
-grids (their packed starts, displaced); none prints a result line (for
-work on those paths).
+build, the face checks, #3's and #5's checks and their rows at the v1,
+DPD and SPH grids (#3) and the v2 spec and PSE near grid (#5) (their
+packed starts, displaced); none prints a result line (for work on those
+paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -595,22 +608,322 @@ def check_update(gs, home, groups, noise: str, what: str):
     return err, d_err
 
 
-def check_sep_rebin(gs, what: str, expect_clean: bool = True):
+def check_sep_stacks(spec, stacked, strag, what: str, ocap=None, expect_clean: bool = True,
+                     kern=None, got=None):
+    """#5 on (stacked, strag) against its plain version: ``out``, ``mini``,
+    count and overflow exactly equal where the plain version reports no
+    overflow; where it does (the state is latched as invalid), both flag
+    it. ``got``: the kernel's result from the caller's own launch; else the
+    check launches it and that launch is not counted (``SEP_REBIN.launches``
+    is restored). Returns (the kernel's result, the plain version's)."""
     import torch
     from uammd_tpu_torch.engine import rebin_kernel as rk
 
-    stacked, strag = stacked_of(gs, 7), strag_stack_of(gs)
-    out_k, mini_k, count_k, over_k = rk.make_separable_rebin(gs.spec)(stacked, strag)
-    out_p, mini_p, count_p, over_p = rk.separable_rebin_plain(gs.spec, stacked, strag)
-    check(torch.equal(out_k, out_p) and torch.equal(mini_k, mini_p),
-          f"{what}: separable rebin out and mini equal plain slot for slot")
-    check((int(count_k), int(over_k)) == (int(count_p), int(over_p)),
-          f"{what}: separable rebin count/overflow {int(count_k)}/{int(over_k)} "
-          f"== plain {int(count_p)}/{int(over_p)}")
+    ocap = rk.OCAP if ocap is None else ocap
+    if got is None:
+        kern = rk.make_separable_rebin(spec, ocap) if kern is None else kern
+        n0 = rk.SEP_REBIN.launches
+        got = kern(stacked, strag)
+        rk.SEP_REBIN.launches = n0
+    want = rk.separable_rebin_plain(spec, stacked, strag, ocap)
+    if int(want[3]) == 0:
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{what}: separable rebin out and mini equal plain slot for slot")
+        check((int(got[2]), int(got[3])) == (int(want[2]), int(want[3])),
+              f"{what}: separable rebin count/overflow {int(got[2])}/{int(got[3])} "
+              f"== plain {int(want[2])}/{int(want[3])}")
+    else:
+        check(int(got[3]) > 0, f"{what}: separable rebin flags the overflow plain flags "
+                               f"({int(want[3])})")
     if expect_clean:
-        check(int(count_k) == gs.n and int(over_k) == 0,
-              f"{what}: separable rebin keeps all {gs.n} particles without overflow")
-    return int(count_k), int(over_k), int((mini_k[6] > 0.5).sum())
+        n = int((stacked[-1] > 0.5).sum()) + int((strag[-1] > 0.5).sum())
+        check(int(got[2]) == n and int(got[3]) == 0,
+              f"{what}: separable rebin keeps all {n} particles without overflow")
+    return got, want
+
+
+def check_sep_rebin(gs, what: str, expect_clean: bool = True):
+    got = check_sep_stacks(gs.spec, stacked_of(gs, 7), strag_stack_of(gs), what,
+                           expect_clean=expect_clean)[0]
+    return int(got[2]), int(got[3]), int((got[1][6] > 0.5).sum())
+
+
+def sep_moved_n600(dev):
+    """tests/test_torch_sep_rebin_pull.py's n 600 state: L 12, CAP 8, 128
+    straggler rows (~110 used), every particle and straggler moved; (spec,
+    stacked, strag)."""
+    import numpy as np
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    n, L = 600, 12.0
+    rng = np.random.default_rng(0)
+    pos = lattice(n, L, "fcc") + 0.3 * rng.standard_normal((n, 3))
+    spec = layout.choose_spec(L, n, 2.5, cap=8, pos=pos, n_strag=128)
+    f = layout.grid_state_to_numpy(layout.pack(spec, pos, vel=rng.standard_normal((n, 3)),
+                                               device="cpu"))
+    m = f["pid"] >= 0
+    dx = np.clip(0.35 * rng.standard_normal(f["x"].shape), -1.0, 1.0) * m
+    f["x"] = (f["x"] + dx).astype(np.float32)
+    f["y"] = (f["y"] + 0.5 * dx).astype(np.float32)
+    f["z"] = (f["z"] - 0.3 * dx).astype(np.float32)
+    sv = (f["spid"] >= 0)[:, None]
+    f["spos"] = (f["spos"] + 0.35 * rng.standard_normal(f["spos"].shape) * sv).astype(np.float32)
+    gs = layout.grid_state_from_numpy(spec, f, device=dev)
+    return spec, stacked_of(gs, 7), strag_stack_of(gs)
+
+
+def sep_crammed(dev, which: str, drop_one: bool = False):
+    """tests/test_torch_sep_rebin_pull.py's ``crammed``: at the n 600 spec
+    (4^3 cells, CAP 8, OCAP 8), a state that overflows CAP + OCAP = 16 in
+    only the z pass's intermediate ("z": three full columns of cell (1, 1,
+    1) moved into its z cell, the outer two out of its y cell), only the y
+    pass's ("y": its two full y neighbours moved into its y cell, out of
+    its x cell) or only the final cell ("x": its two full x neighbours moved
+    into it); every other cell holds one particle, three straggler rows sit
+    elsewhere. ``drop_one`` empties one crammed slot (the y state then
+    fits exactly). Returns (spec, stacked, strag)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.engine import layout
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    rng0 = np.random.default_rng(0)
+    spec = layout.choose_spec(12.0, 600, 2.5, cap=8,
+                              pos=lattice(600, 12.0, "fcc") + 0.3 * rng0.standard_normal((600, 3)),
+                              n_strag=128)
+    cap, n = spec.cap, spec.shape
+    h = [L / c for L, c in zip(spec.box_size, n)]
+    rng = np.random.default_rng(5)
+    stacked = np.zeros((7,) + spec.array_shape, np.float32)
+    stacked[:3] = layout.EMPTY_POS
+    pid = 0
+    full = {"z": {(1, 1, 0): (0, -1, 1), (1, 1, 1): (0, 0, 0), (1, 1, 2): (0, 1, -1)},
+            "y": {(1, 0, 1): (-1, 1, 0), (1, 2, 1): (1, -1, 0)},
+            "x": {(0, 1, 1): (1, 0, 0), (2, 1, 1): (-1, 0, 0)}}[which]
+    for cz in range(n[2]):
+        for cy in range(n[1]):
+            for cx in range(n[0]):
+                c = (cx, cy, cz)
+                rows, move = (cap, full[c]) if c in full else (1, (0, 0, 0))
+                yb, lane = cy // spec.fold, cx * spec.fold + cy % spec.fold
+                for r in range(rows):
+                    for a in range(3):
+                        centre = -spec.box_size[a] / 2 + (c[a] + 0.5) * h[a]
+                        stacked[a, cz, yb, r, lane] = (centre + move[a] * h[a]
+                                                       + rng.uniform(-0.2, 0.2))
+                    stacked[3:6, cz, yb, r, lane] = rng.standard_normal(3)
+                    pid += 1
+                    stacked[6, cz, yb, r, lane] = pid
+    strag = np.zeros((7, spec.n_strag), np.float32)
+    strag[:3] = layout.EMPTY_POS
+    for s, c in enumerate(((3, 3, 3), (0, 2, 3), (3, 0, 0))):
+        for a in range(3):
+            strag[a, s] = -spec.box_size[a] / 2 + (c[a] + 0.5) * h[a]
+        strag[3:6, s] = rng.standard_normal(3)
+        pid += 1
+        strag[6, s] = pid
+    if drop_one:
+        c = next(iter(full))
+        yb, lane = c[1] // spec.fold, c[0] * spec.fold + c[1] % spec.fold
+        stacked[:3, c[2], yb, 0, lane] = layout.EMPTY_POS
+        stacked[3:, c[2], yb, 0, lane] = 0.0
+    return spec, torch.from_numpy(stacked).to(dev), torch.from_numpy(strag).to(dev)
+
+
+def sep_plan_of(spec, ocap) -> dict:
+    """#5's launch plan with the library's own scratch bytes, shared memory
+    and threads, which must equal the plan's."""
+    from uammd_tpu_torch.engine import _build
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    plan = rk.sep_rebin_launch_plan(spec, ocap)
+    lib = _build.load("sep_rebin")
+    lib.uammd_sep_rebin_smem.restype = ctypes.c_longlong
+    lib.uammd_sep_rebin_scratch.restype = ctypes.c_longlong
+    nx, _, nz = spec.shape
+    got = {"pull_smem_bytes": int(lib.uammd_sep_rebin_smem(spec.cap, ocap, spec.nlane,
+                                                           spec.n_strag)),
+           "pull_threads": int(lib.uammd_sep_rebin_threads(spec.nlane)),
+           "scratch_bytes": int(lib.uammd_sep_rebin_scratch(nx, spec.nyb, nz, spec.fold,
+                                                            spec.cap, spec.n_strag))}
+    check(all(plan[k] == v for k, v in got.items()),
+          f"#5 plan: the library's {got} == the plan's {plan}")
+    return plan
+
+
+def sep_rebin_checks(dev) -> dict:
+    """Phase 2s: #5 beyond the paths' states. The n 600 moved state (~110
+    stragglers) exactly equal to plain; three states that overflow CAP +
+    OCAP in only the z pass's intermediate, only the y pass's or only the
+    final cell: the kernel flags overflow exactly when plain does; the y
+    state one particle short fits and is exactly equal. Controls that must
+    change the output on the n 600 state: the kernel ranking in #3's (dz,
+    dy, dx) order (``order`` 1) and ranking the straggler rows last (2)."""
+    import torch
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    out = {}
+    spec, stacked, strag = sep_moved_n600(dev)
+    got, _ = check_sep_stacks(spec, stacked, strag, "n 600 moved")
+    out["n600_moved"] = {"mini_stragglers": int((got[1][6] > 0.5).sum()),
+                         "plan": sep_plan_of(spec, rk.OCAP)}
+    for which in ("z", "y", "x"):
+        sp, st_, ss_ = sep_crammed(dev, which)
+        got, want = check_sep_stacks(sp, st_, ss_, f"crammed in the {which} pass",
+                                     expect_clean=False)
+        check(int(want[3]) > 0, f"crammed in the {which} pass: plain flags overflow")
+        out[f"crammed_{which}"] = {"overflow_kernel": int(got[3]),
+                                   "overflow_plain": int(want[3])}
+    sp, st_, ss_ = sep_crammed(dev, "y", drop_one=True)
+    check_sep_stacks(sp, st_, ss_, "crammed y, one short")
+    for order, what in ((1, "(dz, dy, dx) order"), (2, "stragglers ranked last")):
+        kern = rk.make_separable_rebin(spec)
+        kern.order = order
+        n0 = rk.SEP_REBIN.launches
+        ctl = kern(stacked, strag)
+        rk.SEP_REBIN.launches = n0
+        want = rk.separable_rebin_plain(spec, stacked, strag)
+        moved = int(((ctl[0] != want[0]).any(dim=0)).sum() + ((ctl[1] != want[1]).any(dim=0)).sum())
+        check(moved > 0, f"control ({what}) changes the output: {moved} slots differ")
+        out[f"control_order_{order}_slots_differing"] = moved
+    print(json.dumps({"phase": "sep_rebin_checks", "ok": True, **out}), flush=True)
+    return out
+
+
+def profiler_ms(fn, names, reps: int = 20) -> dict:
+    """``fn``'s device time a call from torch.profiler: the kernels whose
+    names contain one of ``names``, and all device work in the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = every = 0.0
+    for e in prof.key_averages():
+        d = getattr(e, "self_device_time_total", None)
+        if d is None:
+            d = getattr(e, "self_cuda_time_total", 0.0)
+        every += max(d, 0.0)
+        if d > 0 and any(n in e.key for n in names):
+            mine += d
+    return {"kernels_ms": mine / 1e3 / reps, "all_device_ms": every / 1e3 / reps}
+
+
+def spill_report(names) -> dict:
+    """ptxas's registers and spill bytes of every kernel instance of the
+    named libraries (from -Xptxas -v); each must spill nothing."""
+    import re
+    from uammd_tpu_torch.engine import _build
+
+    out = {}
+    for name in names:
+        inst, cur, spill = {}, None, None
+        for ln in _build.build_log(name).splitlines():
+            if "Compiling entry" in ln:
+                # the kernel's name and template argument from its mangled name
+                m = re.search(r"_cu_[0-9a-f]{8}(\d+)", ln)
+                if m is None:
+                    cur = re.search(r"'([^']+)'", ln).group(1)
+                else:
+                    k = int(m.group(1))
+                    rest = ln[m.end():]
+                    t = re.match(r"ILi(\d+)E", rest[k:])
+                    cur = rest[:k] + (f"<{t.group(1)}>" if t else "")
+            elif cur and "spill stores" in ln:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+                spill = int(m.group(1)) + int(m.group(2))
+            elif cur and "Used" in ln and "registers" in ln:
+                inst[cur] = {"registers": int(re.search(r"Used (\d+) registers", ln).group(1)),
+                             "spill_bytes": spill}
+                cur = None
+        check(inst and all(v["spill_bytes"] == 0 for v in inst.values()),
+              f"{name}: ptxas reports a spill: {inst}")
+        out[name] = inst
+    return out
+
+
+def sep_row(suffix: str, spec, ocap, stacked, strag, launches: int, what: str) -> dict:
+    """#5's kernels-line row on (stacked, strag): held to its plain version
+    (``check_sep_stacks``), timed with CUDA events (20 calls as the wrapper
+    makes them) and by the profiler (the classify and pull kernels, and all
+    device work of the call), with its plain version's time and its byte
+    bound: Q planes and the [Q, S] rows read once, Q planes and the [Q, nz,
+    nyb, OCAP, NLANE] mini-grid and the counts written once."""
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    kern = rk.make_separable_rebin(spec, ocap)
+    got, want = check_sep_stacks(spec, stacked, strag, what, ocap, kern=kern)
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    n0 = rk.SEP_REBIN.launches
+    ms = cuda_ms(lambda: kern(stacked, strag), reps=20)
+    prof = profiler_ms(lambda: kern(stacked, strag), ["sep_pull", "rebin_classify"])
+    rk.SEP_REBIN.launches = n0
+    plain_ms = cuda_ms(lambda: rk.separable_rebin_plain(spec, stacked, strag, ocap), reps=3,
+                       warmup=1)
+    q = stacked.shape[0]
+    nz, nyb, _, nlane = spec.array_shape
+    bytes_ = 4 * q * (2 * spec.n_slots + nz * nyb * ocap * nlane + spec.n_strag) + 8
+    return {"name": "separable_rebin" + suffix, "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/sep_rebin.cu (+ rebin_common.cuh)",
+            "replaces": "uammd_tpu/engine/rebin_kernel.py:904,920,934", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * bytes_ / PEAK_HBM_BYTES, "bound_by": "bytes", "library_ms": None,
+            "device_ms_profiler": prof, "shape": list(spec.array_shape), "q": q, "ocap": ocap,
+            "n_strag": spec.n_strag, "stragglers": int((strag[-1] > 0.5).sum()),
+            "mini_stragglers": int((got[1][-1] > 0.5).sum()),
+            "launch_plan": sep_plan_of(spec, ocap), "state": what}
+
+
+def fold_halo_row(run, launches: int, what: str) -> dict:
+    """#8's kernels-line row at a DD2 path's final state: one step's sweep
+    of its launches (one a shard) through the stacked entry, as
+    ``DomainMD2Step.compute_forces`` calls it, bit-equal to the plain
+    version, timed with CUDA events and by the profiler, with the plain
+    version's time and the byte bound (15 grids and the 9 exchanged rows
+    read, 3 grids written, over all shards)."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+    from uammd_tpu_torch.parallel.mesh import perm_up, ppermute
+
+    step, st, spec = run["step"], run["st"], run["spec"]
+    n, nzl = step.n_dev, step.nz_loc
+    ghosts = step.ghost_rows(st.x, st.y, st.z)
+    bufs = [step.kern.stacked(st.x[i], st.y[i], st.z[i], *ghosts[i],
+                              *([dd2_strag_block(step, st, i)] if step.S else []))[0]
+            for i in range(n)]
+    rec = ppermute([b[3:12, nzl - 1].contiguous() for b in bufs], perm_up(n))
+    err = 0.0
+    for b, r in zip(bufs, rec):
+        got = step.fold.stacked(b, r)
+        want = kernel2.fold_reactions_halo_plain(b[:3], [b[3 + 3 * g:6 + 3 * g]
+                                                         for g in range(4)], r[:, None])
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"{what}: the halo fold's stacked entry bit-equal to plain")
+        err = max(err, max(float((x - y).abs().max()) for x, y in zip(got, want)))
+    n0 = kernel2.FOLD_HALO.launches
+    ms = cuda_ms(lambda: [step.fold.stacked(b, r) for b, r in zip(bufs, rec)], reps=20)
+    prof = profiler_ms(lambda: [step.fold.stacked(b, r) for b, r in zip(bufs, rec)],
+                       ["fold_halo_kernel"])
+    kernel2.FOLD_HALO.launches = n0
+    plain_ms = cuda_ms(lambda: [kernel2.fold_reactions_halo_plain(
+        b[:3], [b[3 + 3 * g:6 + 3 * g] for g in range(4)], r[:, None])
+        for b, r in zip(bufs, rec)], reps=5, warmup=1)
+    row_bytes = 4 * spec.n_slots // spec.shape[2]
+    bytes_ = 18 * 4 * spec.n_slots + 9 * n * row_bytes
+    return {"name": "fold_halo" + ("" if n > 1 else "_1_shard"), "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/fold.cu",
+            "replaces": "uammd_tpu/engine/kernel2.py:613", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * bytes_ / PEAK_HBM_BYTES, "bound_by": "bytes", "library_ms": None,
+            "device_ms_profiler": prof, "shards": n,
+            "shard_spec": list(step.local_spec.array_shape),
+            "note": f"ms, plain_ms and bound_ms cover one step's {n} launch(es) (one per shard) "
+                    f"at {what}"}
 
 
 def stencil_pairs(gs) -> tuple[int, int]:
@@ -1519,24 +1832,10 @@ def pse_kernel_checks(dev):
     # the threshold
     moved = pos_fcc + 0.9 * be.spec.drift_threshold * (
         2.0 * torch.rand(pos_fcc.shape, generator=gen, device=dev) - 1.0)
-    st0 = be.em_state(pos_fcc)
     sep = be._near_rebin()
-    Ls = be.spec.box_size
-    from uammd_tpu_torch.engine.layout import EMPTY_POS, wrap
-
-    po = [st0.ref[:, d] + wrap(moved[:, d] - st0.ref[:, d], Ls[d]) for d in range(3)]
-    src = st0.pid.clamp(min=0).long()
-    e = torch.full((), EMPTY_POS, device=dev)
-    stacked = torch.stack([torch.where(st0.pid >= 0, p[src], e) for p in po]
-                          + [(st0.pid + 1).float()])
-    ss = st0.spid.clamp(min=0).long()
-    sstack = torch.stack([torch.where(st0.spid >= 0, p[ss], e) for p in po]
-                         + [(st0.spid + 1).float()])
-    ok_, mk, ck, vk = sep(stacked, sstack)
-    op, mp, cp, vp = rebin_kernel.separable_rebin_plain(be.spec, stacked, sstack, sep.ocap)
-    check(torch.equal(ok_, op) and torch.equal(mk, mp) and (int(ck), int(vk)) == (int(cp), int(vp)),
-          "PSE grid: separable rebin #5 (n_q 4, ocap 16) equals plain slot for slot")
-    check(int(ck) == PSE_N and int(vk) == 0, "PSE grid: separable rebin keeps every particle")
+    stacked, sstack = be._near_rebin_inputs(be.em_state(pos_fcc), moved)
+    mk = check_sep_stacks(be.spec, stacked, sstack, "PSE grid (n_q 4, ocap 16)", sep.ocap,
+                          kern=sep)[0][1]
     out = {"phase": "pse_kernels_vs_plain", "ok": True, "tol": CHANNEL_TOL,
            "n512_clump": {"spec": list(be_s.spec.array_shape), "stragglers": n_strag_s,
                           "rel_err": small, "newton_nan": small_nan},
@@ -1971,6 +2270,10 @@ def pse_breakdown(run, card, errs):
             plain_fold, 0.0, fold_bytes, fold_err,
             {"shape": "n = 6 at the PSE grid", "ms_3ch": t["fold_n_3ch"]}),
     ]
+    # #5 at Q 4 and OCAP 16 on the inputs a near rebin at the final state gets
+    stacked, sstack = be._near_rebin_inputs(st, p)
+    rows.append(sep_row("_pse", spec, be.NEAR_REBIN_OCAP, stacked, sstack,
+                        launches.get("separable_rebin", 0), "the PSE path's final state"))
     return rows + far_rows
 
 
@@ -2965,10 +3268,10 @@ def unfused_engine(dev, pos, **kw):
 @contextlib.contextmanager
 def rebin2_held(held: list):
     """While open, every state the v2 engine hands its rebin (md2's
-    ``rebin_fast3``) also goes through ``rebin_fast2`` (#4), which must
-    keep every particle without overflow and give the same particles by
-    pid as ``rebin_fast3``; ``held`` keeps the number of states and the
-    last of them."""
+    ``rebin_fast3``, #5) is also held to #5's plain version exactly, and
+    goes through ``rebin_fast2`` (#4), which must keep every particle
+    without overflow and give the same particles by pid as ``rebin_fast3``;
+    ``held`` keeps the number of states and the last of them."""
     from uammd_tpu_torch.engine import layout, md2
     from uammd_tpu_torch.engine import rebin_kernel as rk
 
@@ -2977,6 +3280,7 @@ def rebin2_held(held: list):
     def rebin(gs):
         k = held[0] + 1 if held else 1
         out = real(gs)
+        check_sep_rebin(gs, f"v2 unfused rebin {k}")
         r2 = rk.rebin_fast2(gs)
         n_kept = int((r2.pid >= 0).sum()) + int((r2.spid >= 0).sum())
         check(not bool(r2.overflow) and n_kept == gs.n,
@@ -3151,9 +3455,11 @@ def unfused_main_path(dev, card, melted, errs):
     mini_bytes = 4 * 7 * spec.n_slots // spec.cap * rk.OCAP
     upd_bytes_ms = 1e3 * (18 * slot + 64 * S + 8) / PEAK_HBM_BYTES
     r2_bytes_ms = 1e3 * (2 * 7 * slot + mini_bytes + 7 * 4 * S + 8) / PEAK_HBM_BYTES
+    row_sep = sep_row("_unfused", spec, rk.OCAP, stacked, srows, launches["separable_rebin"],
+                      "the last state the unfused path rebinned")
     del moved, stacked, srows
     src = "uammd_tpu_torch/engine/csrc/"
-    return [
+    return [row_sep,
         {"name": "gj_update", "route": "cuda", "source": src + "gj_update.cu (+ gj_common.cuh)",
          "replaces": "uammd_tpu/engine/update_kernel.py:134", "launches": launches["gj_update"],
          "max_abs_err": upd_err[1], "ms": t["gj_update"], "plain_ms": plain["gj_update"],
@@ -3633,8 +3939,9 @@ def check_newton_halo(step, st, what, control=False):
 
 def check_fold_halo(step, st, what, control=False):
     """#8 on every shard's Newton outputs and the reactions its down
-    neighbour sends: bit-equal to its plain version; with ``control``,
-    recv zeroed must change the result. Returns the max abs difference."""
+    neighbour sends, in the list form and through the stacked entry the
+    path calls: bit-equal to its plain version; with ``control``, recv
+    zeroed must change the result. Returns the max abs difference."""
     import torch
     from uammd_tpu_torch.engine import kernel2
     from uammd_tpu_torch.parallel.mesh import perm_up, ppermute
@@ -3653,6 +3960,11 @@ def check_fold_halo(step, st, what, control=False):
         want = kernel2.fold_reactions_halo_plain(home, groups, recv)
         check(all(torch.equal(a, b) for a, b in zip(got, want)),
               f"{what} shard {i}: halo fold bit-equal to plain")
+        # the stacked entry as the path calls it: the Newton outputs as one
+        # [15, ...] buffer and the exchanged [9, nyb, CAP, NLANE] block
+        got_s = step.fold.stacked(torch.stack(outs[i][:15]), rec[i])
+        check(all(torch.equal(a, b) for a, b in zip(got_s, want)),
+              f"{what} shard {i}: the halo fold's stacked entry bit-equal to plain")
         err = max(err, max(float((a - b).abs().max()) for a, b in zip(got, want)))
         zero = step.fold(home, groups, [torch.zeros_like(r) for r in recv])
         changed |= not all(torch.equal(a, b) for a, b in zip(zero, got))
@@ -3889,6 +4201,28 @@ def dd_host_reads(step_fn, holder, steps, rebins_of):
     return plain, rebin
 
 
+class HeldSep:
+    """A separable rebin #5 that, while ``hold`` is set (the settle steps,
+    outside the timed window), holds each of its calls (the path's own
+    launch) to the plain version (``check_sep_stacks``); it counts its
+    calls and the held ones and keeps the last inputs."""
+
+    def __init__(self, kern, what):
+        self.kern, self.what = kern, what
+        self.spec, self.ocap = kern.spec, kern.ocap
+        self.calls, self.held, self.hold, self.last = 0, 0, True, None
+
+    def __call__(self, stacked, strag):
+        got = self.kern(stacked, strag)
+        self.calls += 1
+        if self.hold:
+            self.held += 1
+            check_sep_stacks(self.spec, stacked, strag, f"{self.what} {self.calls}",
+                             self.ocap, got=got)
+        self.last = (stacked, strag)
+        return got
+
+
 def main_path_dd2(dev, card, melted, n_shards):
     """main_path_dd2 on ``n_shards``: DD_SETTLE + DD_TIMED steps from the
     melted liquid, with the launch counts zeroed just before."""
@@ -3899,11 +4233,15 @@ def main_path_dd2(dev, card, melted, n_shards):
     t0 = time.perf_counter()
     step, st, spec, _ = dd2_setup(dev, melted, n_shards)
     setup_s = time.perf_counter() - t0
+    if step.sep is not None:
+        step.sep = HeldSep(step.sep, f"DD2 {n_shards} shard rebin")
     for k in counted.values():
         k.launches = 0
     rebin_steps = []
     for k in range(DD_SETTLE + DD_TIMED):
         if k == DD_SETTLE:
+            if step.sep is not None:
+                step.sep.hold = False
             torch.cuda.synchronize()
             before = {name: c.launches for name, c in counted.items()}
             t0 = time.perf_counter()
@@ -3934,8 +4272,10 @@ def main_path_dd2(dev, card, melted, n_shards):
         check(launches[k] == 0, f"{what}: {k} never launched ({launches[k]})")
     check(len(rebin_steps) >= 1, f"{what}: rebinned on drift ({len(rebin_steps)} steps)")
     if n_shards == 1:
-        check(launches["separable_rebin"] == len(rebin_steps),
+        check(launches["separable_rebin"] == len(rebin_steps) == step.sep.calls,
               f"{what}: #5 launched on each rebin step ({launches['separable_rebin']})")
+        check(step.sep.held >= 1, f"{what}: #5 held to its plain version on the "
+                                  f"{step.sep.held} rebins of the settle steps")
     else:
         check(launches["separable_rebin"] == 0, f"{what}: the two-sort rebin, not #5")
     holder = [st]
@@ -3960,6 +4300,7 @@ def main_path_dd2(dev, card, melted, n_shards):
            "stragglers": sum(int((s > 0.5).sum()) for s in st.spidf),
            "rebin": "separable #5" if n_shards == 1 else "two-sort with migration",
            "rebin_steps": rebin_steps, "launches": launches, "timed_launches": timed,
+           "sep_rebins_held_to_plain": step.sep.held if step.sep is not None else 0,
            "timed_launches_per_step": {k: v / DD_TIMED for k, v in timed.items()},
            "host_reads_per_plain_step": plain_reads + plain2,
            "host_reads_per_rebin_step": rebin_reads + rebin2,
@@ -4147,18 +4488,16 @@ def breakdown_dd2(card, dd4, dd1, unfused_ms, errs):
     ghosts = step.ghost_rows(st.x, st.y, st.z)
     blocks = [dd2_strag_block(step, st, i) for i in range(n)]
     args = [(st.x[i], st.y[i], st.z[i]) + ghosts[i] + (blocks[i],) for i in range(n)]
-    outs = [step.kern(*a) for a in args]
-    sends = [torch.stack([g[c][nzl - 1] for g in outs[i][1][:3] for c in range(3)])
-             for i in range(n)]
+    bufs = [step.kern.stacked(*a)[0] for a in args]
+    sends = [b[3:12, nzl - 1].contiguous() for b in bufs]
     rec = ppermute(sends, perm_up(n))
-    recvs = [[rec[i][k][None] for k in range(9)] for i in range(n)]
     spid = [s.to(torch.int32) - 1 for s in st.spidf]
     t = {
         "newton_pair_halo": cuda_ms(lambda: [step.kern(*a) for a in args], reps=10),
         "exchanges": cuda_ms(lambda: (step.ghost_rows(st.x, st.y, st.z),
                                       ppermute(sends, perm_up(n))), reps=20),
-        "fold_halo": cuda_ms(lambda: [step.fold(outs[i][0], outs[i][1], recvs[i])
-                                      for i in range(n)], reps=20),
+        "fold_halo": cuda_ms(lambda: [step.fold.stacked(bufs[i], rec[i]) for i in range(n)],
+                             reps=20),
         "gj_update": cuda_ms(lambda: [step.upd(
             st.x[i], st.y[i], st.z[i], st.wx[i], st.wy[i], st.wz[i], st.fx[i], st.fy[i],
             st.fz[i], st.rx[i], st.ry[i], st.rz[i], st.stepc[i],
@@ -4203,13 +4542,9 @@ def breakdown_dd2(card, dd4, dd1, unfused_ms, errs):
     plain_newton = cuda_ms(lambda: [kernel2.newton_pair_plain(
         step.local_spec, step.kern.g_fn, *a[:3], a[6], ghost=a[3:6]) for a in args],
         reps=2, warmup=1)
-    plain_fold = cuda_ms(lambda: [kernel2.fold_reactions_halo_plain(outs[i][0], outs[i][1],
-                                                                    recvs[i])
-                                  for i in range(n)], reps=5, warmup=1)
     ghost_bytes = 3 * 4 * n * spec.n_slots // spec.shape[2]
     newton_ops_ms = 1e3 * (OPS_PAIR_TEST * pairs + OPS_PAIR_FORCE * cut) / PEAK_FP32_FLOPS
     newton_bytes_ms = 1e3 * (18 * slot + ghost_bytes + n * 28 * S) / PEAK_HBM_BYTES
-    fold_bytes_ms = 1e3 * (18 * slot + 3 * ghost_bytes) / PEAK_HBM_BYTES
     src = "uammd_tpu_torch/engine/csrc/"
     note = (f"ms, plain_ms and bound_ms cover one step's {n} launches (one per shard) at "
             "the 4-shard DD2 path's final state")
@@ -4222,11 +4557,10 @@ def breakdown_dd2(card, dd4, dd1, unfused_ms, errs):
          "bound_by": "operations" if newton_ops_ms > newton_bytes_ms else "bytes",
          "library_ms": None, "launches_1_shard_path": dd1["launches"]["newton_pair_halo"],
          "stencil_pairs": pairs, "stencil_pairs_in_cutoff": cut, "note": note},
-        {"name": "fold_halo", "route": "cuda", "source": src + "fold.cu",
-         "replaces": "uammd_tpu/engine/kernel2.py:613", "launches": dd4["launches"]["fold_halo"],
-         "max_abs_err": errs["fold_halo_abs"], "ms": t["fold_halo"], "plain_ms": plain_fold,
-         "bound_ms": fold_bytes_ms, "bound_by": "bytes", "library_ms": None,
-         "launches_1_shard_path": dd1["launches"]["fold_halo"], "note": note},
+        {**fold_halo_row(dd4, dd4["launches"]["fold_halo"], "the 4-shard DD2 path's final "
+                                                            "state"),
+         "launches_1_shard_path": dd1["launches"]["fold_halo"],
+         "max_abs_err_checks": errs["fold_halo_abs"]},
     ]
 
 
@@ -4331,7 +4665,13 @@ def dd_phases(dev, card, melted, unfused_ms):
     dd_force_parity(dev, melted)
     dd4 = main_path_dd2(dev, card, melted, DD_SHARDS)
     dd1 = main_path_dd2(dev, card, melted, 1)
-    del dd1["st"], dd1["step"]
+    held = dd1["step"].sep  # #5's last inputs on the 1-shard path
+    rows_1 = [fold_halo_row(dd1, dd1["launches"]["fold_halo"],
+                            "the 1-shard DD2 path's final state"),
+              sep_row("_dd2_1_shard", held.spec, held.ocap, *held.last,
+                      dd1["launches"]["separable_rebin"],
+                      "the 1-shard DD2 path's last rebin")]
+    del dd1["st"], dd1["step"], held
     torch.cuda.empty_cache()
     errs = {"newton_halo_abs": None, "fold_halo_abs": max(checks["fold_halo_clump"],
                                                           checks["fold_halo_2^20"])}
@@ -4348,7 +4688,7 @@ def dd_phases(dev, card, melted, unfused_ms):
     for what, spec in (("DD2 shard (#6 halo_z)", step.local_spec),
                        ("DD v1 slab (#1 halo)", dd_halo_spec(spec1, DD_SHARDS)[0])):
         print(json.dumps({"phase": "launch_plans", "what": what, **plan_of(spec)}), flush=True)
-    rows = breakdown_dd2(card, dd4, dd1, unfused_ms, errs)
+    rows = breakdown_dd2(card, dd4, dd1, unfused_ms, errs) + rows_1
     del dd4, step, st, ghosts
     torch.cuda.empty_cache()
     runs = main_path_dd_channels(dev, card, melted)
@@ -5925,8 +6265,25 @@ def rebin_only(dev, card) -> int:
     nan = check_rebin_nan(gs, "N=32768")
     rows = [rebin_row("_" + name.split()[0].lower(), st, 0, f"{name} displaced", 43)
             for name, st in states if st.spec.n_strag == 0]
+    sep_checks = sep_rebin_checks(dev)
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+    from uammd_tpu_torch.integrators.bdhi.pse_engine import PSEGrid
+
+    for name, st in states:
+        if st.spec.n_strag:  # #5 at the v2 spec (Q 7) and the PSE near grid (Q 4, OCAP 16)
+            moved = displaced(st, 47)
+            if name.startswith("PSE"):  # x, y, z and pid + 1, as the PSE step stacks them
+                keep = [0, 1, 2, 6]
+                stacked = stacked_of(moved, 7)[keep].contiguous()
+                strag = strag_stack_of(moved)[keep].contiguous()
+                ocap = PSEGrid.NEAR_REBIN_OCAP
+            else:
+                stacked, strag, ocap = stacked_of(moved, 7), strag_stack_of(moved), rk.OCAP
+            rows.append(sep_row("_" + name.split()[0].lower(), st.spec, ocap, stacked, strag, 0,
+                                f"{name} displaced"))
     print(json.dumps({"phase": "rebin_only", "card": card, "nan": nan,
-                      "faces": list(faces), "rows": rows}), flush=True)
+                      "faces": list(faces), "sep_rebin_checks": sep_checks, "rows": rows}),
+          flush=True)
     return 0
 
 def main() -> int:
@@ -5974,6 +6331,9 @@ def main() -> int:
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.build_log(name).splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
+    # the classify-and-pull rebins and the fold spill nothing in any instance
+    print(json.dumps({"phase": "spills", "ok": True,
+                      **spill_report(("rebin", "sep_rebin", "fold"))}), flush=True)
     if only_pse:
         return pse_only(dev, card)
     if only_slice_d:
@@ -6086,6 +6446,7 @@ def main() -> int:
                       "fcc_v2_mini_stragglers": sep_fcc[2]}), flush=True)
 
     rebin_face_checks(face_states(dev))
+    sep_rebin_checks(dev)
     fcm_kernel_checks(dev)
     pencil_tile_checks(dev)
     pse_errs = pse_kernel_checks(dev)
@@ -6228,10 +6589,9 @@ def main() -> int:
     upd_abs_err = check_update(gs2, home, groups, "clt", "2^20 v2 liquid")[0]
     moved2 = displaced(gs2, 15)
     sep_liquid = check_sep_rebin(moved2, "2^20 v2 liquid displaced")
-    st2, sst2 = stacked_of(moved2, 7), strag_stack_of(moved2)
-    sep = rebin_kernel.make_separable_rebin(spec2)
-    sep_abs_err = max(float((x - y).abs().max()) for x, y in zip(
-        sep(st2, sst2)[:2], rebin_kernel.separable_rebin_plain(spec2, st2, sst2)[:2]))
+    row_sep = sep_row("", spec2, rebin_kernel.OCAP, stacked_of(moved2, 7),
+                      strag_stack_of(moved2), launches_v2["separable_rebin"],
+                      "the v2 path's final state, displaced")
 
     newton_ms = cuda_ms(lambda: newton(gs2.x, gs2.y, gs2.z, strag), reps=20)
     newton_plain_ms = cuda_ms(lambda: newton_pair(gs2, plain=True), reps=3, warmup=1)
@@ -6240,9 +6600,7 @@ def main() -> int:
     upd_ms = cuda_ms(lambda: upd(*a, grp, *ref, step, strag2), reps=20)
     upd_plain_ms = cuda_ms(lambda: update_kernel.gj_fold_update_plain(
         spec2, upd.coef, "clt", *a, grp, *ref, step, strag2), reps=5, warmup=1)
-    sep_ms = cuda_ms(lambda: sep(st2, sst2), reps=20)
-    sep_plain_ms = cuda_ms(lambda: rebin_kernel.separable_rebin_plain(spec2, st2, sst2),
-                           reps=3, warmup=1)
+    sep_ms = row_sep["ms"]
     pairs2, cut2 = stencil_pairs(gs2)
     newton_ops_ms = 1e3 * (OPS_PAIR_TEST * pairs2 + OPS_PAIR_FORCE * cut2) / PEAK_FP32_FLOPS
     newton_bytes_ms = 1e3 * (18 * slot2 + 28 * S) / PEAK_HBM_BYTES
@@ -6250,10 +6608,6 @@ def main() -> int:
     # the update reads 24 grids, [S, 3] spos, svel, sforce, [S] spid and the
     # step seed, and writes 6 grids, spos, svel and the drift
     upd_bytes_ms = 1e3 * (30 * slot2 + 64 * S + 8) / PEAK_HBM_BYTES
-    # the separable rebin reads 7 grids and the [7, S] stragglers, writes 7
-    # grids and the [7, nz, nyb, OCAP, NLANE] mini-grid
-    mini_bytes = 4 * 7 * spec2.n_slots // spec2.cap * rebin_kernel.OCAP
-    sep_bytes_ms = 1e3 * (2 * 7 * slot2 + mini_bytes + 7 * 4 * S + 8) / PEAK_HBM_BYTES
 
     per_step = {k: timed_v2[k] / TIMED_STEPS for k in kernels}
     kernel_ms = {"newton_pair": newton_ms, "fold": fold_ms, "gj_fold_update": upd_ms,
@@ -6296,9 +6650,7 @@ def main() -> int:
             launches_v2["fold"], fold_abs_err, fold_ms, fold_plain_ms, fold_bytes_ms),
         row("gj_fold_update", "gj_fold_update.cu", "uammd_tpu/engine/update_kernel.py:301",
             launches_v2["gj_fold_update"], upd_abs_err, upd_ms, upd_plain_ms, upd_bytes_ms),
-        row("separable_rebin", "sep_rebin.cu",
-            "uammd_tpu/engine/rebin_kernel.py:904,920,934",
-            launches_v2["separable_rebin"], sep_abs_err, sep_ms, sep_plain_ms, sep_bytes_ms),
+        row_sep,
     ]
     rows += fcm_breakdown(fcm_path, card)
     rows += pse_breakdown(pse_path, card, pse_errs)

@@ -173,6 +173,32 @@ def test_fold_halo_matches_jax(newton_case):
             assert np.abs(a - b).max() <= 1e-6 * np.abs(b).max()
 
 
+def test_fold_halo_stacked_entry_equals_list_form_and_jax(newton_case):
+    """The stacked entry (the Newton halo kernel's [15, ...] buffer and the
+    [9, nyb, CAP, NLANE] block of the reactions' exchange) equals the list
+    form bit for bit, and ``fold_reactions_halo_jnp``."""
+    local, ins, _, _ = newton_case
+    kern = tk.make_newton_pair_kernel(local, lj_g_fused(rc2=RC2), halo_z=True)
+    buf, _ = kern.stacked(*ins)
+    h, groups, _ = kern(*ins)
+    assert tuple(buf.shape) == (15,) + local.array_shape
+    assert all(torch.equal(buf[3 + 3 * g + c], groups[g][c]) for g in range(4) for c in range(3))
+    rng = np.random.default_rng(4)
+    recv = torch.from_numpy(rng.standard_normal((9,) + local.array_shape[1:]).astype(np.float32))
+    fold = tk.make_fold_kernel_halo(local)
+    got = fold.stacked(buf, recv)
+    listed = fold(h, groups, [recv[k][None] for k in range(9)])
+    assert all(torch.equal(a, b) for a, b in zip(got, listed))
+    want = jk.fold_reactions_halo_jnp([jnp.asarray(a.numpy()) for a in h],
+                                      [[jnp.asarray(c.numpy()) for c in g] for g in groups],
+                                      [jnp.asarray(recv[k][None].numpy()) for k in range(9)])
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= 1e-6 * np.abs(b).max()
+    assert np.abs(recv.numpy()).max() > 0 and not torch.equal(
+        got[0][0], fold.stacked(buf, torch.zeros_like(recv))[0][0])
+
+
 def _err(got, want, m):
     """max |got - want| over the occupied slots, over max |want| there."""
     scale = max(np.abs(w[m]).max() for w in want)

@@ -219,6 +219,25 @@ def test_rebin_fast3_latches_overflow(strag_moved):
     assert bool(rebin_fast3(gt.replace(**cram)).overflow)
 
 
+def test_separable_plain_overflow_matches_jax_on_a_z_pass_overflow(strag_moved,
+                                                                   jax_separable):
+    """tests/test_torch_sep_rebin_pull.py's state that overflows only in the
+    z pass's intermediate (three full columns moved into one z cell, the
+    outer two out of its y cell; the final cells fit), at the n 600 spec:
+    the plain version's count and overflow equal JAX's kernel's."""
+    from test_torch_sep_rebin_pull import crammed
+    from uammd_tpu_torch.engine.rebin_kernel import separable_rebin_plain
+
+    spec, stacked, strag = crammed("z")
+    assert spec == strag_moved[1].spec
+    S, nlane = spec.n_strag, spec.nlane
+    out_j = jax_separable(jnp.asarray(stacked.numpy()),
+                          jnp.broadcast_to(jnp.asarray(strag.numpy())[:, :, None], (7, S, nlane)))
+    out_t = separable_rebin_plain(spec, stacked, strag)
+    assert int(out_t[3]) > 0
+    assert (int(out_t[2]), int(out_t[3])) == (int(out_j[2]), int(out_j[3]))
+
+
 @pytest.mark.gpu
 def test_cuda_separable_matches_plain_exactly(cuda, strag_moved):
     from uammd_tpu_torch.engine.rebin_kernel import SEP_REBIN, make_separable_rebin

@@ -8,23 +8,39 @@
 //   make_fold_kernel_halo (pallas_call at :613), the 3-channel fold on a
 //                         non-periodic z-slab of parallel/domain2.py (entry
 //                         uammd_fold_halo): at row 0 the dz = 1 groups read
-//                         the down neighbour's 9 recv blocks [1, nyb, CAP,
+//                         the down neighbour's 9 recv rows [9, nyb, CAP,
 //                         NLANE] (REACTION_GROUPS[:3] x (x, y, z)) at
 //                         (yb - dyb) % nyb instead of row nz - 1, as
 //                         fold_reactions_halo_jnp does.
-// Both compute, per channel c,
+// All compute, per channel c,
 //     out_c[z, yb] = home_c[z, yb] + sum_g G_{g,c}[(z - dz_g) % nz, (yb - dyb_g) % nyb]
 // over REACTION_GROUPS = ((1,-1), (1,0), (1,1), (0,1)), added in that order
 // with __fadd_rn, so the result equals fold_reactions_jnp /
-// fold_reactions_n_jnp bit for bit.
+// fold_reactions_n_jnp / fold_reactions_halo_jnp bit for bit.
 //
-// Design: one thread per slot, looping over the channels; the group reads
-// are the same (row, lane) of a shifted (z, yb) block, so a warp reads 32
-// neighbouring floats of each of the 5n grids.
+// #7 and #9: one thread per slot, looping over the channels; the group
+// reads are the same (row, lane) of a shifted (z, yb) block, so a warp reads
+// 32 neighbouring floats of each of the 5n grids. Their wrappers pass a
+// pointer a grid.
 //
-// What bounds it: memory, 5n grid reads and n grid writes per call.
+// #8 takes stacked buffers: the Newton halo kernel's [15, nz, nyb, CAP,
+// NLANE] output as it is (home x, y, z, then group g channel c at 3 + 3 g +
+// c), the [9, nyb, CAP, NLANE] block the reactions' exchange delivers, and
+// one [3, ...] output, so its wrapper checks three tensors and builds no
+// pointer array. What held the one-pointer-a-grid design back there was
+// the host (24 tensor checks and three ctypes pointer arrays a call; on an
+// H100 a 4-shard sweep took 0.44-0.55 ms against 0.114 ms of device time)
+// and then the device code (28 us a launch against a 9 us byte bound).
+// Device code: one thread per 4 slots of a plane (a 16-byte load of each of
+// the 15 inputs, all in flight before the adds), a block row per (z, yb),
+// 32-bit index math with no division a slot (11 us a launch there).
+//
+// What bounds all three: memory, 5n grid reads and n grid writes per call.
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -38,12 +54,7 @@ struct Outs {
   float* p[kMaxChan];
 };
 
-struct Recv {
-  const float* p[9];  // group g (dz = 1) channel c at 3 g + c; unused when !halo
-};
-
-__global__ void fold_kernel(Ins in, Outs out, Recv recv, int halo, int n, int nz, int nyb,
-                            int plane) {
+__global__ void fold_kernel(Ins in, Outs out, int n, int nz, int nyb, int plane) {
   const size_t total = static_cast<size_t>(nz) * nyb * plane;
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
@@ -54,60 +65,114 @@ __global__ void fold_kernel(Ins in, Outs out, Recv recv, int halo, int n, int nz
   const int gdz[4] = {1, 1, 1, 0};
   const int gdyb[4] = {-1, 0, 1, 1};
   size_t src[4];
-  bool from_recv[4];
   for (int g = 0; g < 4; ++g) {
     const int syb = (yb - gdyb[g] + nyb) % nyb;
-    from_recv[g] = halo && gdz[g] == 1 && zc == 0;
-    const int sz = from_recv[g] ? 0 : (zc - gdz[g] + nz) % nz;
+    const int sz = (zc - gdz[g] + nz) % nz;
     src[g] = (static_cast<size_t>(sz) * nyb + syb) * plane + rem;
   }
   for (int c = 0; c < n; ++c) {
     float acc = in.p[c][idx];
-    for (int g = 0; g < 4; ++g) {
-      const float* gp = from_recv[g] ? recv.p[3 * g + c] : in.p[n + g * n + c];
-      acc = __fadd_rn(acc, gp[src[g]]);
-    }
+    for (int g = 0; g < 4; ++g) acc = __fadd_rn(acc, in.p[n + g * n + c][src[g]]);
     out.p[c][idx] = acc;
   }
 }
 
-int launch(void** ins, void** outs, void** recvs, int n, int nz, int nyb, int plane,
-           void* stream) {
+int launch(void** ins, void** outs, int n, int nz, int nyb, int plane, void* stream) {
   if (n < 1 || n > kMaxChan) return static_cast<int>(cudaErrorInvalidValue);
   Ins in;
   for (int k = 0; k < 5 * n; ++k) in.p[k] = static_cast<const float*>(ins[k]);
   Outs out;
   for (int k = 0; k < n; ++k) out.p[k] = static_cast<float*>(outs[k]);
-  Recv recv{};
-  if (recvs != nullptr) {
-    for (int k = 0; k < 9; ++k) recv.p[k] = static_cast<const float*>(recvs[k]);
-  }
   const size_t total = static_cast<size_t>(nz) * nyb * plane;
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  fold_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, out, recv, recvs != nullptr, n, nz, nyb, plane);
+  fold_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, n, nz, nyb,
+                                                                          plane);
   return static_cast<int>(cudaGetLastError());
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// Blocks (plane4 / 256 rounded up, nz nyb); thread q of block row zyb owns
+// slots 4 q .. 4 q + 3 of the plane of (z, yb). grid4 = nz nyb plane4: a
+// channel's float4s.
+__global__ void __launch_bounds__(256)
+    fold_halo_kernel(const float4* __restrict__ in, const float4* __restrict__ recv,
+                     float4* __restrict__ out, int nyb, int plane4, int grid4) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= plane4) return;
+  const int zyb = blockIdx.y;
+  const int zc = zyb / nyb;  // once a thread
+  const int yb = zyb - zc * nyb;
+  const int yb_up = yb + 1 == nyb ? 0 : yb + 1;  // yb - dyb for dyb = -1
+  const int yb_dn = yb == 0 ? nyb - 1 : yb - 1;  // for dyb = 1
+  const int sybs[4] = {yb_up, yb, yb_dn, yb_dn};
+  // the (1, dyb) groups: row z - 1, or at z = 0 the recv rows; (0, 1): row z
+  const float4* gsrc[4];
+  int gstride[4];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    if (zc == 0) {
+      gsrc[g] = recv + (3 * g * nyb + sybs[g]) * plane4 + q;
+      gstride[g] = nyb * plane4;
+    } else {
+      gsrc[g] = in + (3 + 3 * g) * grid4 + (zyb - nyb - yb + sybs[g]) * plane4 + q;
+      gstride[g] = grid4;
+    }
+  }
+  gsrc[3] = in + 12 * grid4 + (zyb - yb + sybs[3]) * plane4 + q;
+  gstride[3] = grid4;
+  const int at = zyb * plane4 + q;
+  float4 h[3], v[4][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) h[c] = in[c * grid4 + at];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v[g][c] = gsrc[g][c * gstride[g]];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float4 acc = h[c];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc = add4(acc, v[g][c]);
+    out[c * grid4 + at] = acc;
+  }
 }
 
 }  // namespace
 
 // ins: host array of 15 device pointers, outs: of 3; plane = CAP * NLANE.
 extern "C" int uammd_fold(void** ins, void** outs, int nz, int nyb, int plane, void* stream) {
-  return launch(ins, outs, nullptr, 3, nz, nyb, plane, stream);
+  return launch(ins, outs, 3, nz, nyb, plane, stream);
 }
 
 // ins: host array of 5n device pointers (home, then the 4 groups, n each),
 // outs: of n; 1 <= n <= 6.
 extern "C" int uammd_fold_n(void** ins, void** outs, int n, int nz, int nyb, int plane,
                             void* stream) {
-  return launch(ins, outs, nullptr, n, nz, nyb, plane, stream);
+  return launch(ins, outs, n, nz, nyb, plane, stream);
 }
 
-// The halo fold: ins, outs as uammd_fold; recvs: host array of 9 device
-// pointers, the [1, nyb, CAP, NLANE] recv blocks.
-extern "C" int uammd_fold_halo(void** ins, void** outs, void** recvs, int nz, int nyb,
-                               int plane, void* stream) {
-  if (recvs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(ins, outs, recvs, 3, nz, nyb, plane, stream);
+// The halo fold: in: [15, nz, nyb, plane] (the Newton halo kernel's
+// output), recv: [9, nyb, plane], out: [3, nz, nyb, plane]; plane = CAP *
+// NLANE, a multiple of 4; 16-byte aligned pointers.
+extern "C" int uammd_fold_halo(void* in, void* recv, void* out, int nz, int nyb, int plane,
+                               void* stream) {
+  const size_t floats = 15 * static_cast<size_t>(nz) * nyb * plane;
+  const uintptr_t align = reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(recv) |
+                          reinterpret_cast<uintptr_t>(out);
+  if (nz < 1 || nyb < 1 || plane < 4 || plane % 4 != 0 || (align & 15) != 0 ||
+      floats >= (static_cast<size_t>(1) << 31) || nz * nyb > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int plane4 = plane / 4;
+  const int threads = 256;
+  const dim3 grid((plane4 + threads - 1) / threads, nz * nyb);
+  fold_halo_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(in), static_cast<const float4*>(recv),
+      static_cast<float4*>(out), nyb, plane4, nz * nyb * plane4);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,14 +32,14 @@
 // one rank at a time, 4 bytes to a sector.
 //
 // Design, two kernels:
-// 1. classify: one thread per (source column, 16 rows). It reads the 16
-//    slots' pid, x, y, z (64 independent loads, coalesced across the
-//    lanes), computes each particle's destination once, and writes one byte
-//    a slot: 9 (oz + 1) + 3 (oy + 1) + (ox + 1) for the offset o of the
-//    destination from the source cell (0..26), 27 when it is farther (or
-//    not finite), 0xff for an empty slot. The codes are stored column by
-//    column, [nz, nyb, NLANE, CPAD] with CPAD = CAP rounded up to 16, so
-//    that a column's codes are one to three 16-byte words.
+// 1. classify (rebin_common.cuh, shared with #5): one thread per (source
+//    column, 16 rows). It reads the 16 slots' pid, x, y, z (64 independent
+//    loads, coalesced across the lanes), computes each particle's
+//    destination once, and writes one code byte a slot: the offset of the
+//    destination from the source cell, 2 bits an axis (3 when farther or
+//    not finite), 0xff for an empty slot, column by column ([nz, nyb,
+//    NLANE, CPAD], CPAD = CAP rounded up to 16), so that a column's codes
+//    are one to three 16-byte words.
 // 2. pull: one block per (z, yb) row of destination cells, four threads a
 //    cell. Each thread takes a quarter of the 27 sources in order, loads
 //    their code columns (16-byte loads, independent of each other),
@@ -65,23 +65,16 @@
 
 #include <cstddef>
 
+#include "rebin_common.cuh"
+
 namespace {
 
-constexpr float kEmptyPos = 1.0e9f;
-constexpr unsigned kEmptyCode = 0xffu;
-constexpr unsigned kFarCode = 27u;
+using rebin::Geom;
+using rebin::kEmptyPos;
+
 constexpr int kParts = 4;  // threads of a destination cell in the pull
 constexpr int kSourcesPerPart = 7;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the opt-in limit of sm_90
-
-struct Geom {
-  int nx, nyb, nz, F, cap, nlane;
-  int cpad;  // CAP rounded up to 16: the bytes of a code column
-  float Lx, Ly, Lz;
-  float iLx, iLy, iLz;  // float32 reciprocals of the box lengths
-};
-
-__host__ __device__ inline int cpad_of(int cap) { return (cap + 15) / 16 * 16; }
 
 __host__ __device__ inline int pull_threads(int nlane) {
   return (kParts * nlane + 31) / 32 * 32;
@@ -91,104 +84,17 @@ size_t pull_smem(int cap, int nlane) {
   return sizeof(int) * (static_cast<size_t>(cap) + 1) * nlane;
 }
 
-// floor((p/L + 0.5 - floor(p/L + 0.5)) * n), as the TPU kernel computes it.
-__device__ __forceinline__ float dest_cell(float p, float iL, float n) {
-  const float fr = __fadd_rn(__fmul_rn(p, iL), 0.5f);
-  return floorf(__fmul_rn(__fsub_rn(fr, floorf(fr)), n));
-}
-
-// 0 + (p - L*round(p/L)) with round-half-to-even (jnp.round).
-__device__ __forceinline__ float wrap_pos(float p, float L, float iL) {
-  return __fadd_rn(0.0f, __fsub_rn(p, __fmul_rn(L, rintf(__fmul_rn(p, iL)))));
-}
-
-// 1 + the offset (-1, 0 or 1, periodic over n >= 3 cells) of cell c from
-// cell s, or -1 when c is farther or not a number.
-__device__ __forceinline__ int offset1(float c, int s, int n) {
-  const float d = c - static_cast<float>(s);  // small integers: exact
-  if (d == 0.0f) return 1;
-  if (d == 1.0f || d == static_cast<float>(1 - n)) return 2;
-  if (d == -1.0f || d == static_cast<float>(n - 1)) return 0;
-  return -1;
-}
-
-__global__ void __launch_bounds__(1024) rebin_classify(const float* __restrict__ in,
-                                                       unsigned char* __restrict__ codes,
-                                                       int Q, Geom g) {
-  const int lane = threadIdx.x;
-  const int grp = threadIdx.y;  // rows 16 grp .. 16 grp + 15
-  const int yb = blockIdx.x;
-  const int zc = blockIdx.y;
-  const int cx = lane / g.F;
-  const int cy = yb * g.F + (lane - cx * g.F);
-  const int ny = g.nyb * g.F;
-  const float fnx = static_cast<float>(g.nx);
-  const float fny = static_cast<float>(ny);
-  const float fnz = static_cast<float>(g.nz);
-  const size_t plane = static_cast<size_t>(g.cap) * g.nlane;
-  const size_t qstride = static_cast<size_t>(g.nz) * g.nyb * plane;
-  const size_t zyb = static_cast<size_t>(zc) * g.nyb + yb;
-  const float* col = in + zyb * plane + lane;
-  unsigned w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    unsigned word = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int r = grp * 16 + i * 4 + b;
-      unsigned code = kEmptyCode;
-      if (r < g.cap) {
-        const float* s = col + static_cast<size_t>(r) * g.nlane;
-        const float pid = s[(Q - 1) * qstride];  // pid travels as pid+1
-        const float px = s[0];
-        const float py = s[qstride];
-        const float pz = s[2 * qstride];
-        if (pid > 0.5f) {
-          const int ox = offset1(dest_cell(wrap_pos(px, g.Lx, g.iLx), g.iLx, fnx), cx, g.nx);
-          const int oy = offset1(dest_cell(wrap_pos(py, g.Ly, g.iLy), g.iLy, fny), cy, ny);
-          const int oz = offset1(dest_cell(wrap_pos(pz, g.Lz, g.iLz), g.iLz, fnz), zc, g.nz);
-          code = (ox < 0 || oy < 0 || oz < 0) ? kFarCode
-                                               : static_cast<unsigned>(9 * oz + 3 * oy + ox);
-        }
-      }
-      word |= code << (8 * b);
-    }
-    w[i] = word;
-  }
-  reinterpret_cast<uint4*>(codes + (zyb * g.nlane + lane) * g.cpad)[grp] =
-      make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ int wrap_index(int s, int n) {
-  return s < 0 ? s + n : (s >= n ? s - n : s);
-}
-
 // The source column of offset k (0..26 in (dz, dy, dx) order) of the
-// destination cell (cx, cy, zc): its slot 0 in the planes and its codes.
-struct Source {
-  int slot0;
-  const unsigned char* codes;
-};
-
-__device__ __forceinline__ Source source_of(int k, int cx, int cy, int zc,
-                                            const unsigned char* codes, const Geom& g) {
+// destination cell (cx, cy, zc), and the code of its particles that belong
+// to the destination.
+__device__ __forceinline__ rebin::Source source_of(int k, int cx, int cy, int zc,
+                                                   const unsigned char* codes, const Geom& g,
+                                                   unsigned* want4) {
   const int dz = k / 9 - 1;
   const int dy = (k / 3) % 3 - 1;
   const int dx = k % 3 - 1;
-  const int ny = g.nyb * g.F;
-  const int sz = wrap_index(zc + dz, g.nz);
-  const int sy = wrap_index(cy + dy, ny);
-  const int sx = wrap_index(cx + dx, g.nx);
-  const int syb = sy / g.F;
-  const int sl = sx * g.F + (sy - syb * g.F);
-  const int szyb = sz * g.nyb + syb;
-  return Source{szyb * g.cap * g.nlane + sl,
-                codes + (static_cast<size_t>(szyb) * g.nlane + sl) * g.cpad};
-}
-
-// 0x01 in each byte of w equal to the byte of want4 (want4 = code x 0x01010101)
-__device__ __forceinline__ unsigned byte_hits(unsigned w, unsigned want4) {
-  return __vcmpeq4(w, want4) & 0x01010101u;
+  *want4 = rebin::want_code(dx, dy, dz) * 0x01010101u;
+  return rebin::source_at(dx, dy, dz, cx, cy, zc, codes, g);
 }
 
 // Q: the quantities carried, 7 or 10 (the engines' two rebins)
@@ -218,13 +124,13 @@ __global__ void __launch_bounds__(512) rebin_pull(const float* __restrict__ in,
   int n = 0;
   if (cell_ok) {
     for (int k = k0; k < k1; ++k) {
-      const Source src = source_of(k, cx, cy, zc, codes, g);
-      const unsigned want4 = static_cast<unsigned>(26 - k) * 0x01010101u;
+      unsigned want4;
+      const rebin::Source src = source_of(k, cx, cy, zc, codes, g, &want4);
       const uint4* p = reinterpret_cast<const uint4*>(src.codes);
       for (int i = 0; i < words / 4; ++i) {
         const uint4 v = p[i];
-        n += __popc(byte_hits(v.x, want4)) + __popc(byte_hits(v.y, want4)) +
-             __popc(byte_hits(v.z, want4)) + __popc(byte_hits(v.w, want4));
+        n += __popc(rebin::byte_hits(v.x, want4)) + __popc(rebin::byte_hits(v.y, want4)) +
+             __popc(rebin::byte_hits(v.z, want4)) + __popc(rebin::byte_hits(v.w, want4));
       }
     }
   }
@@ -241,11 +147,11 @@ __global__ void __launch_bounds__(512) rebin_pull(const float* __restrict__ in,
   // 2. each match's source slot at its rank (ranks past CAP are dropped)
   if (cell_ok && n > 0 && rank < g.cap) {
     for (int k = k0; k < k1 && rank < g.cap; ++k) {
-      const Source src = source_of(k, cx, cy, zc, codes, g);
-      const unsigned want4 = static_cast<unsigned>(26 - k) * 0x01010101u;
+      unsigned want4;
+      const rebin::Source src = source_of(k, cx, cy, zc, codes, g, &want4);
       const unsigned* p = reinterpret_cast<const unsigned*>(src.codes);
       for (int i = 0; i < words && rank < g.cap; ++i) {
-        unsigned hit = byte_hits(p[i], want4);
+        unsigned hit = rebin::byte_hits(p[i], want4);
         while (hit && rank < g.cap) {
           const int row = 4 * i + (__ffs(hit) - 1) / 8;
           hit &= hit - 1;
@@ -269,9 +175,9 @@ __global__ void __launch_bounds__(512) rebin_pull(const float* __restrict__ in,
       float v[Q];  // all Q loads in flight before the first store
 #pragma unroll
       for (int q = 0; q < Q; ++q) v[q] = s[q * qstride];
-      o[0] = wrap_pos(v[0], g.Lx, g.iLx);
-      o[qstride] = wrap_pos(v[1], g.Ly, g.iLy);
-      o[2 * qstride] = wrap_pos(v[2], g.Lz, g.iLz);
+      o[0] = rebin::wrap_pos(v[0], g.L[0], g.iL[0]);
+      o[qstride] = rebin::wrap_pos(v[1], g.L[1], g.iL[1]);
+      o[2 * qstride] = rebin::wrap_pos(v[2], g.L[2], g.iL[2]);
 #pragma unroll
       for (int q = 3; q < Q; ++q) o[q * qstride] = __fadd_rn(0.0f, v[q]);
     } else {
@@ -302,7 +208,7 @@ __global__ void __launch_bounds__(512) rebin_pull(const float* __restrict__ in,
 extern "C" int uammd_rebin(void* in, void* codes, void* out, void* counts, int Q, int nx,
                            int nyb, int nz, int F, int cap, float Lx, float Ly, float Lz,
                            float iLx, float iLy, float iLz, void* stream) {
-  const Geom g{nx, nyb, nz, F, cap, nx * F, cpad_of(cap), Lx, Ly, Lz, iLx, iLy, iLz};
+  const Geom g{nx, nyb, nz, F, cap, nx * F, rebin::cpad_of(cap), {Lx, Ly, Lz}, {iLx, iLy, iLz}};
   const size_t slots = static_cast<size_t>(nz) * nyb * cap * g.nlane;
   const size_t smem = pull_smem(cap, g.nlane);
   if ((Q != 7 && Q != 10) || nx < 3 || nz < 3 || nyb * F < 3 || cap < 1 ||
@@ -320,8 +226,9 @@ extern "C" int uammd_rebin(void* in, void* codes, void* out, void* counts, int Q
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(nyb, nz);
-  rebin_classify<<<grid, dim3(g.nlane, g.cpad / 16), 0, st>>>(
-      static_cast<const float*>(in), static_cast<unsigned char*>(codes), Q, g);
+  rebin::rebin_classify<<<grid, dim3(g.nlane, g.cpad / 16), 0, st>>>(
+      static_cast<const float*>(in), static_cast<unsigned char*>(codes), nullptr, 0, nullptr,
+      nullptr, Q, g);
   pull<<<grid, pull_threads(g.nlane), smem, st>>>(
       static_cast<const float*>(in), static_cast<const unsigned char*>(codes),
       static_cast<float*>(out), static_cast<int*>(counts), g);

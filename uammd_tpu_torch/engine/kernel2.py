@@ -94,8 +94,9 @@ NEWTON_PAIR_HALO = _build.Kernel(
 FOLD = _build.Kernel("fold", "uammd_fold", [_PP, _PP, _I, _I, _I])
 # uammd_fold_n(ins[5n], out[n], n, nz, nyb, plane, stream): the same source
 FOLD_N = _build.Kernel("fold", "uammd_fold_n", [_PP, _PP, _I, _I, _I, _I])
-# uammd_fold_halo(ins[15], out[3], recvs[9], nz, nyb, plane, stream)
-FOLD_HALO = _build.Kernel("fold", "uammd_fold_halo", [_PP, _PP, _PP, _I, _I, _I])
+# uammd_fold_halo(in [15, ...], recv [9, nyb, CAP, NLANE], out [3, ...], nz,
+#                 nyb, plane, stream)
+FOLD_HALO = _build.Kernel("fold", "uammd_fold_halo", [_P, _P, _P, _I, _I, _I])
 # uammd_newton_channel(x, y, z, ch, strag, raw, spart, nv, nx, nyb, nz, F,
 #                      cap, S, cc, fc, occ_trim, Lx, Ly, Lz, iLx, iLy, iLz,
 #                      near, stream)
@@ -366,6 +367,16 @@ class NewtonPairKernel:
         return self._plan
 
     def __call__(self, x, y, z, *rest):
+        out, sforce = self.stacked(x, y, z, *rest)
+        home = (out[0], out[1], out[2])
+        groups = tuple((out[3 + 3 * i], out[4 + 3 * i], out[5 + 3 * i]) for i in range(4))
+        return home, groups, sforce
+
+    def stacked(self, x, y, z, *rest):
+        """The same arguments; returns ``(out [15, nz, nyb, CAP, NLANE],
+        sforce)``: home x, y, z, then group g channel c at 3 + 3 g + c, one
+        buffer (the kernel's own output; stacked from the plain version's on
+        CPU tensors), as the halo fold's stacked entry takes it."""
         spec = self.spec
         shape = spec.array_shape
         S = spec.n_strag
@@ -385,8 +396,10 @@ class NewtonPairKernel:
             for name, t, shp in named:
                 if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shp:
                     raise ValueError(f"{name} must be a float32 CPU tensor of shape {shp}")
-            return newton_pair_plain(spec, self.g_fn, x, y, z, strag,
-                                     strag_cellcenter=self.strag_cellcenter, ghost=ghost)
+            home, groups, sforce = newton_pair_plain(
+                spec, self.g_fn, x, y, z, strag, strag_cellcenter=self.strag_cellcenter,
+                ghost=ghost)
+            return torch.stack(list(home) + [c for g in groups for c in g]), sforce
         for name, t in (("x", x), ("y", y), ("z", z)):
             _build.check_cuda_tensor(t, name, shape)
         if ghost is not None:
@@ -420,9 +433,7 @@ class NewtonPairKernel:
                 nx, spec.nyb, nz, spec.fold, spec.cap, S, int(self.self_half), int(g.approx),
                 *spec.box_size, g.c1, g.c2, g.rc2, g.lo, *launch,
             )
-        home = (out[0], out[1], out[2])
-        groups = tuple((out[3 + 3 * i], out[4 + 3 * i], out[5 + 3 * i]) for i in range(4))
-        return home, groups, (sforce if S else None)
+        return out, (sforce if S else None)
 
 
 def make_newton_pair_kernel(spec: GridSpec, g_fn: LJFused, *, self_half: bool = False,
@@ -496,14 +507,20 @@ def fold_reactions_halo_plain(home, groups, recvs):
 
 class FoldHaloKernel:
     """``fold(home[3], groups[4][3], recvs[9]) -> (fx, fy, fz)`` for one
-    z-slab ``GridSpec`` (the spec's nz counts the slab's home rows).
+    z-slab ``GridSpec`` (the spec's nz counts the slab's home rows), and
+    ``fold.stacked(buf [15, nz, nyb, CAP, NLANE], recv [9, nyb, CAP,
+    NLANE])``, the same on stacked buffers: the Newton halo kernel's output
+    (``NewtonPairKernel.stacked``) and the reactions' exchange as it
+    arrives.
 
     CPU tensors go to ``fold_reactions_halo_plain``; CUDA tensors launch
     ``uammd_fold_halo`` of ``csrc/fold.cu`` (counted in
-    ``FOLD_HALO.launches``) or raise."""
+    ``FOLD_HALO.launches``; the list form stacks its grids first) or
+    raise."""
 
     def __init__(self, spec: GridSpec):
         self.spec = spec
+        self._shape = spec.array_shape
 
     def __call__(self, home, groups, recvs):
         ins = list(home) + [c for g in groups for c in g]
@@ -513,21 +530,33 @@ class FoldHaloKernel:
                              "9 recv blocks")
         shape = self.spec.array_shape
         rshape = (1,) + shape[1:]
-        named = [(f"fold input {k}", t, shape) for k, t in enumerate(ins)] + [
-            (f"recv {k}", t, rshape) for k, t in enumerate(recvs)]
         if ins[0].device.type == "cpu":
+            named = [(f"fold input {k}", t, shape) for k, t in enumerate(ins)] + [
+                (f"recv {k}", t, rshape) for k, t in enumerate(recvs)]
             for name, t, shp in named:
                 if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shp:
                     raise ValueError(f"{name} must be a float32 CPU tensor of shape {shp}")
             return fold_reactions_halo_plain(home, groups, recvs)
-        for name, t, shp in named:
-            _build.check_cuda_tensor(t, name, shp)
-        out = torch.empty((3,) + shape, dtype=torch.float32, device=ins[0].device)
+        return self.stacked(torch.stack(ins), torch.cat(recvs))
+
+    def stacked(self, buf: torch.Tensor, recv: torch.Tensor):
+        shape = self._shape
+        bshape, rshape = (15,) + shape, (9,) + shape[1:]
+        if buf.device.type == "cpu":
+            for name, t, shp in (("buf", buf, bshape), ("recv", recv, rshape)):
+                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shp:
+                    raise ValueError(f"{name} must be a float32 CPU tensor of shape {shp}")
+            return fold_reactions_halo_plain(
+                buf[:3], [buf[3 + 3 * g:6 + 3 * g] for g in range(4)], recv[:, None])
         nz, nyb, cap, nlane = shape
-        FOLD_HALO((_P * 15)(*(t.data_ptr() for t in ins)),
-                  (_P * 3)(*(o.data_ptr() for o in out)),
-                  (_P * 9)(*(t.data_ptr() for t in recvs)), nz, nyb, cap * nlane)
-        return out[0], out[1], out[2]
+        if cap * nlane % 4:
+            raise ValueError(f"the halo fold reads 4 slots at a time: CAP x NLANE = "
+                             f"{cap * nlane} is not a multiple of 4")
+        _build.check_cuda_tensor(buf, "buf", bshape)
+        _build.check_cuda_tensor(recv, "recv", rshape)
+        out = torch.empty((3,) + shape, dtype=torch.float32, device=buf.device)
+        FOLD_HALO(_build.ptr(buf), _build.ptr(recv), _build.ptr(out), nz, nyb, cap * nlane)
+        return out.unbind(0)
 
 
 def make_fold_kernel_halo(spec: GridSpec) -> FoldHaloKernel:

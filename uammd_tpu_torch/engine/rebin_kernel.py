@@ -36,8 +36,11 @@ The v2 engine's straggler-aware rebin is the port of
 the straggler list) then y then x, each pulling from the 3 neighbor cells
 along its axis at the wide capacity CAP + OCAP; ranks CAP .. CAP+OCAP-1 of
 the x pass form the overflow mini-grid that becomes the next straggler
-list. CUDA tensors launch ``csrc/sep_rebin.cu``, CPU tensors run
-``separable_rebin_plain``.
+list. CPU tensors run ``separable_rebin_plain``, the passes themselves;
+CUDA tensors launch ``csrc/sep_rebin.cu``, which gives their result in one
+classify-and-pull pair with no intermediate grid (each cell ranks its
+particles in the order the passes leave them, and counts the passes'
+intermediate occupancies for the overflow).
 
 The one-shot alternative is the port of ``make_rebin_kernel2`` (#4) with
 ``rebin_fast2``: each cell pulls from its 27 neighbor cells, as the v1
@@ -210,9 +213,26 @@ def rebin_fast(gs: GridState) -> GridState:
     )
 
 
-# uammd_sep_rebin(in, strag, wz, wy, out, mini, counts, Q, S, nx, nyb, nz, F,
-#                 cap, ocap, Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz, stream)
-SEP_REBIN = _build.Kernel("sep_rebin", "uammd_sep_rebin", [_P] * 7 + [_I] * 8 + [_F] * 6)
+# uammd_sep_rebin(in, strag, scratch, out, mini, Q, S, nx, nyb, nz, F, cap,
+#                 ocap, order, Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz, stream)
+SEP_REBIN = _build.Kernel("sep_rebin", "uammd_sep_rebin", [_P] * 5 + [_I] * 9 + [_F] * 6)
+
+
+def sep_rebin_launch_plan(spec: GridSpec, ocap: int = OCAP) -> dict:
+    """The launch of ``csrc/sep_rebin.cu`` for ``spec``: #3's classify
+    kernel with one more row of blocks for the straggler rows, and the
+    pull kernel's blocks, threads and dynamic shared memory (a rank table
+    [CAP + ocap][NLANE] of int32, a fill count a cell, 32 warp counts and a
+    straggler list of S), as the C entry computes them; the scratch's
+    bytes (the code bytes, an int32 cell a straggler row, the two int32
+    counts)."""
+    nx, _, nz = spec.shape
+    cpad = (spec.cap + 15) // 16 * 16
+    S = spec.n_strag
+    return {"classify_blocks": spec.nyb * (nz + 1), "classify_threads": spec.nlane * (cpad // 16),
+            "pull_blocks": spec.nyb * nz, "pull_threads": (4 * spec.nlane + 31) // 32 * 32,
+            "pull_smem_bytes": 4 * ((spec.cap + ocap + 1) * spec.nlane + 32 + S),
+            "scratch_bytes": nz * spec.nyb * spec.nlane * cpad + 4 * (S + 2)}
 
 
 def _rank_into(out: torch.Tensor, base: torch.Tensor, vals: torch.Tensor,
@@ -311,15 +331,28 @@ class SeparableRebinKernel:
     """``rebin(stacked [Q, nz, nyb, CAP, NLANE], strag [Q, S]) -> (out,
     mini, count, overflow)`` for one ``GridSpec`` with ``n_strag > 0``.
 
-    CPU tensors go to ``separable_rebin_plain``; CUDA tensors launch the
-    three passes of ``csrc/sep_rebin.cu`` (one count in
-    ``SEP_REBIN.launches`` per call) or raise."""
+    CPU tensors go to ``separable_rebin_plain``; CUDA tensors launch
+    ``csrc/sep_rebin.cu`` at Q = 7 or 4 (its classify and pull kernels, one
+    count in ``SEP_REBIN.launches`` per call) or raise. Where the plain
+    version reports no overflow the two are bit-equal; where it does, only
+    ``overflow > 0`` is held equal (the state is latched as invalid).
+    ``order`` is 0; a check's control sets 1 (the sources in #3's (dz, dy,
+    dx) order) or 2 (the straggler rows ranked last), which must change the
+    output."""
+
+    order = 0
 
     def __init__(self, spec: GridSpec, ocap: int = OCAP):
         if spec.n_strag <= 0:
             raise ValueError("the separable rebin needs a straggler-capable spec")
         self.spec = spec
         self.ocap = ocap
+        nx, _, nz = spec.shape
+        # the C entry's geometry and box, and where the counts sit in the
+        # scratch, made once (the PSE step's host time is its limit)
+        self._geom = (spec.n_strag, nx, spec.nyb, nz, spec.fold, spec.cap, ocap)
+        self._box = tuple(spec.box_size) + tuple(recip32(L) for L in spec.box_size)
+        self._scratch = sep_rebin_launch_plan(spec, ocap)["scratch_bytes"]
 
     def __call__(self, stacked: torch.Tensor, strag: torch.Tensor):
         spec = self.spec
@@ -333,25 +366,21 @@ class SeparableRebinKernel:
                     or tuple(strag.shape) != sshape):
                 raise ValueError(f"stacked must be float32 {shape}, strag {sshape}")
             return separable_rebin_plain(spec, stacked, strag, self.ocap)
+        if n_q not in (7, 4):
+            raise ValueError(f"the separable rebin kernel carries Q = 7 or 4 quantities, "
+                             f"not {n_q}")
         _build.check_cuda_tensor(stacked, "stacked", shape)
         strag = strag.contiguous()
         _build.check_cuda_tensor(strag, "strag", sshape)
-        nx, _, nz = spec.shape
-        nyb, cap, nlane = spec.nyb, spec.cap, spec.nlane
-        wide = cap + self.ocap
         dev = stacked.device
-        wz = torch.empty((n_q, nz, nyb, wide, nlane), dtype=torch.float32, device=dev)
-        wy = torch.empty_like(wz)
+        scratch = torch.empty(self._scratch, dtype=torch.uint8, device=dev)
+        counts = scratch[self._scratch - 8:].view(torch.int32)
         out = torch.empty_like(stacked)
-        mini = torch.empty((n_q, nz, nyb, self.ocap, nlane), dtype=torch.float32, device=dev)
-        counts = torch.zeros(2, dtype=torch.int32, device=dev)
-        Lx, Ly, Lz = spec.box_size
+        mini = torch.empty((n_q,) + spec.array_shape[:2] + (self.ocap, spec.nlane),
+                           dtype=torch.float32, device=dev)
         P = _build.ptr
-        SEP_REBIN(
-            P(stacked), P(strag), P(wz), P(wy), P(out), P(mini), P(counts),
-            n_q, spec.n_strag, nx, nyb, nz, spec.fold, cap, self.ocap,
-            Lx, Ly, Lz, recip32(Lx), recip32(Ly), recip32(Lz),
-        )
+        SEP_REBIN(P(stacked), P(strag), P(scratch), P(out), P(mini), n_q, *self._geom,
+                  int(self.order), *self._box)
         return out, mini, counts[0], counts[1]
 
 

@@ -532,16 +532,11 @@ class PSEGrid:
         return torch.stack([dnear > float(np.float32(self.spec.drift_threshold)),
                             dfar > float(np.float32(self.far_slack * self._far_hmin()))])
 
-    def _near_repack(self, st: PSEStepState, pos, pos_w):
-        """The near grid rebinned at ``pos``: the slot rebin (#5) with a
-        straggler list, else a fresh pack. Returns (pid, spid, ref, ovf)."""
-        spec = self.spec
-        n = pos.shape[0]
-        S = spec.n_strag
-        if not S:
-            cg = pack_channels(spec, pos, torch.zeros((n, 0), device=pos.device))
-            return cg.pid, cg.spid, pos_w, cg.overflow
-        Ls = spec.box_size
+    def _near_rebin_inputs(self, st: PSEStepState, pos):
+        """The slot rebin's (stacked [4, nz, nyb, CAP, NLANE], strag [4,
+        S]) at ``pos``: x, y, z and pid + 1 of the current layout's slots
+        and straggler rows."""
+        Ls = self.spec.box_size
         # old slot coordinates in the OLD layout's image branch (ref +
         # min-image drift), as the LJ engine feeds the rebin between rebins
         po = [st.ref[:, d] + wrap(pos[:, d] - st.ref[:, d], Ls[d]) for d in range(3)]
@@ -554,7 +549,18 @@ class PSEGrid:
         ssrc = st.spid.clamp(min=0).long()
         sstack = torch.stack([torch.where(sm, p[ssrc], empty) for p in po]
                              + [(st.spid + 1).to(torch.float32)])
-        out, mini, count, ovf = self._near_rebin()(stacked, sstack)
+        return stacked, sstack
+
+    def _near_repack(self, st: PSEStepState, pos, pos_w):
+        """The near grid rebinned at ``pos``: the slot rebin (#5) with a
+        straggler list, else a fresh pack. Returns (pid, spid, ref, ovf)."""
+        spec = self.spec
+        n = pos.shape[0]
+        S = spec.n_strag
+        if not S:
+            cg = pack_channels(spec, pos, torch.zeros((n, 0), device=pos.device))
+            return cg.pid, cg.spid, pos_w, cg.overflow
+        out, mini, count, ovf = self._near_rebin()(*self._near_rebin_inputs(st, pos))
         pid = out[3].to(torch.int32) - 1
         spid, s_count = compact_mini_pids(mini, S)
         ovf_b = (ovf > 0) | (count != n) | (s_count > S)

@@ -229,17 +229,15 @@ class DomainMD2Step:
                 sval = (spidf[i] > 0.5).to(torch.float32)
                 block = torch.stack([spos[i][:, 0], spos[i][:, 1], spos[i][:, 2], sval])
                 args = args + (block[:, :, None].expand(4, S, nlane),)
-            outs.append(self.kern(*args))
+            outs.append(self.kern.stacked(*args))  # ([15, nz_loc, ...] buffer, sforce)
         # the reactions on my ghost row belong to the up neighbour: one
         # exchange of the nine group-component rows
-        sends = [torch.stack([g[c][nzl - 1] for g in outs[i][1][:3] for c in range(3)])
-                 for i in range(n)]
+        sends = [outs[i][0][3:12, nzl - 1].contiguous() for i in range(n)]
         rec = ppermute(sends, perm_up(n))
-        folded = [list(self.fold(outs[i][0], outs[i][1], [rec[i][k][None] for k in range(9)]))
-                  for i in range(n)]
+        folded = [list(self.fold.stacked(outs[i][0], rec[i])) for i in range(n)]
         if S:
             sval = [spidf[i] > 0.5 for i in range(n)]
-            sf = [outs[i][2] for i in range(n)]
+            sf = [outs[i][1] for i in range(n)]
             if n > 1:
                 sl = [torch.stack([spos[i][:, 0], spos[i][:, 1], spos[i][:, 2], spidf[i]], dim=-1)
                       for i in range(n)]
