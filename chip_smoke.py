@@ -40,9 +40,14 @@ Imports nothing of JAX or of the JAX package. Phases:
      that the check fails a kernel that drops the straggler interactions
      or flips the sign of their reactions;
    - fold: bit-equal;
-   - fused fold + G-J update at T = 1.5 on identical counter noise: "clt"
-     bit-equal with an equal drift, "bm" within ``BM_TOL`` (the card's
-     logf/sinf/cosf against PyTorch's);
+   - fused fold + G-J update at T = 1.5 on identical counter noise, through
+     its stacked entry (the Newton output as one [15, ...] buffer, as
+     ``GridMD2`` hands it over): "clt" bit-equal with an equal drift, "bm"
+     within ``BM_TOL`` (the card's logf/sinf/cosf against PyTorch's), on
+     the n 600 straggler system, the 2^20 fcc state and the v2 path's final
+     liquid; two controls that must fail the "clt" check: the plain update
+     with the seed off by one, and the drift with the launch block that
+     holds its maximum dropped;
    - separable rebin #5 (one classify-and-pull launch pair) after a
      displacement with stragglers present: ``out``, ``mini``, count and
      overflow exactly equal; a crammed state latches overflow through
@@ -56,7 +61,7 @@ Imports nothing of JAX or of the JAX package. Phases:
      last); #5 is also held exactly to plain on every rebin of the
      unfused path's settle steps and of the 1-shard DD2 path, at Q 4 on
      the PSE near grid, and on each state its rows are timed at; ptxas
-     must report no spill in any instance of #3, #5 and the folds;
+     must report no spill in any instance of #3, #5, the folds and #12;
    - pencil spread and interpolation (kernels #13/#14 of the BDHI-FCM
      path): max|d| <= ``PENCIL_TOL`` x max|ref| at n 5000, L 24, 32^3 for
      the Gaussian, Peskin 3- and 4-point and ES/BM windows, slack 0 and 1,
@@ -79,10 +84,13 @@ Imports nothing of JAX or of the JAX package. Phases:
      the n-channel fold #9) and #9 alone against their plain versions at 1
      and 2 stacked 3-vectors, within ``CHANNEL_TOL`` x max|ref|, on
      tests/test_pse_engine.py:536's n 512 clump system (17 stragglers) and
-     on the PSE path's first packed state; #10 against #2 on the card, #7
-     against #9 at n = 3, and three controls that must fail the bound (the
-     stragglers dropped, a reaction group rolled the wrong way, #10's
-     candidate loops one row short); #10 with one x = NaN: NaN in exactly
+     on the PSE path's first packed state; #9's stacked entry on #10's
+     buffer bit-equal to plain at 3 and 6 channels (and at the path's final
+     state); #10 against #2 on the card, #7 against #9 at n = 3, and three
+     controls that must fail the bound (the stragglers dropped, a reaction
+     group rolled the wrong way, #10's candidate loops one row short), and
+     one that must fail #9's bit-equality (the groups added in the reverse
+     order); #10 with one x = NaN: NaN in exactly
      the plain version's entries; whether two #10 calls give the same bits
      (printed); #5 (n_q 4, ocap 16), #6 and #7 at the PSE grid's shape
      (NLANE 114, S 192).
@@ -233,6 +241,8 @@ Imports nothing of JAX or of the JAX package. Phases:
      the count audit N, finite state, #6 ``halo_z``, #8 and #11 once per
      shard per step, #6/#7/#12 never, #5 (1 shard) or the two-sort rebin
      (4 shards) on drift, at most one host read per step outside rebins.
+     #11 on each DD2 path's final state against its plain version
+     (``dd_update_row``: occupied slots within ``UNFUSED_TOL``).
      ``dd2_trajectory_parity``: DD2 on 4 shards against the single-chip
      unfused engine at T = 0 with a rebin forced at step 1, within 1e-5
      after 2 steps. DD v1, DPD and SPH (``main_path_dd_v1``, ``_dpd``,
@@ -296,8 +306,10 @@ the build, the pencil kernels' checks, the FCM path and the #13/#14 rows
 at the Poisson and PSE far fields' first states, ``--only-rebin`` the
 build, the face checks, #3's and #5's checks and their rows at the v1,
 DPD and SPH grids (#3) and the v2 spec and PSE near grid (#5) (their
-packed starts, displaced); none prints a result line (for work on those
-paths).
+packed starts, displaced), ``--only-update-fold`` the build, #12's checks,
+the v1 melt, the v2 path, #9's checks (with the PSE channel kernels'), the
+PSE path and the rows of #12, #10 and #9; none prints a result line (for
+work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -387,6 +399,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, n: int = 100, rounds: int = 5) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``n`` calls issued
+    without a sync (fewer launches than the launch queue holds), the median
+    over ``rounds``."""
+    import statistics
+    import torch
+
+    for _ in range(3):
+        fn()
+    per = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per.append(1e6 * (time.perf_counter() - t0) / n)
+    torch.cuda.synchronize()
+    return statistics.median(per)
 
 
 def rel_force_err(f_ref, f_test, mask) -> float:
@@ -577,27 +609,68 @@ def update_inputs(gs, home, groups, seed: int):
     return ([gs.x, gs.y, gs.z] + w + list(home), [c for g in groups for c in g], ref, step)
 
 
-def check_update(gs, home, groups, noise: str, what: str):
+def update_grid(spec, strag_rows: int) -> dict:
+    """#12's launch geometry as its library reports it
+    (``uammd_gj_fold_update_grid``)."""
+    from uammd_tpu_torch.engine import _build
+
+    nz, nyb, cap, nlane = spec.array_shape
+    dims = (ctypes.c_int * 4)()
+    _build.load("gj_fold_update").uammd_gj_fold_update_grid(
+        ctypes.c_int(nz), ctypes.c_int(nyb), ctypes.c_int(cap * nlane),
+        ctypes.c_int(strag_rows), dims)
+    return dict(zip(("blocks_x", "block_rows", "threads", "slots_a_thread"), dims))
+
+
+def update_block_of(spec, strag_rows: int = 0):
+    """The launch block of #12 that updates each slot (a block row per (z,
+    yb), ``threads`` x ``slots_a_thread`` slots a block along the plane), as
+    an int64 grid."""
+    import torch
+
+    g = update_grid(spec, strag_rows)
+    nz, nyb, cap, nlane = spec.array_shape
+    rows = torch.arange(nz * nyb, dtype=torch.int64)[:, None]
+    cols = (torch.arange(cap * nlane, dtype=torch.int64)[None, :]
+            // (g["threads"] * g["slots_a_thread"]))
+    return (rows * g["blocks_x"] + cols).reshape(spec.array_shape)
+
+
+def check_update(gs, home, groups, noise: str, what: str, controls: bool = False):
+    """#12 through its stacked entry (the forces as one [15, ...] buffer, as
+    ``GridMD2`` hands them over) against its plain version on identical
+    counter noise: "clt" bit-equal with an equal drift, "bm" within
+    ``BM_TOL``. With ``controls`` ("clt"), two versions that the check must
+    refuse: the plain version with the seed off by one, and the drift with
+    the launch block that holds its maximum dropped."""
     import torch
     from uammd_tpu_torch.engine import update_kernel as uk
 
     kern = uk.make_gj_fold_update_kernel(gs.spec, 0.01, TEMPERATURE, 1.0, 1.0, noise=noise)
     a, grp, ref, step = update_inputs(gs, home, groups, 20251)
+    forces = torch.stack(list(a[6:9]) + list(grp))
     strag = None
     if gs.spec.n_strag:
         gen = torch.Generator(device=gs.device).manual_seed(20252)
         sv = (gs.spid >= 0)[:, None]
         strag = (gs.spos, torch.randn(gs.svel.shape, generator=gen, device=gs.device) * sv,
                  torch.randn(gs.sforce.shape, generator=gen, device=gs.device) * sv, gs.spid)
-    out_k, d_k, *s_k = kern(*a, grp, *ref, step, strag)
-    out_p, d_p, *s_p = uk.gj_fold_update_plain(gs.spec, kern.coef, noise, *a, grp, *ref,
-                                               step, strag)
-    if strag is not None:  # the straggler rows ride in the same call
-        out_k, out_p = tuple(out_k) + s_k[0], tuple(out_p) + s_p[0]
+    out_k, d_k, *s_k = kern.stacked(*a[:6], forces, *ref, step, strag)
+
+    def plain(seed):
+        res = uk.gj_fold_update_plain(gs.spec, kern.coef, noise, *a, grp, *ref, seed, strag)
+        return (tuple(res[0]) + (tuple(res[2]) if strag is not None else ()), res[1])
+
+    out_p, d_p = plain(step)
+    out_k = tuple(out_k) + (tuple(s_k[0]) if strag is not None else ())
     err = max(float((x - y).abs().max()) for x, y in zip(out_k, out_p))
     d_err = abs(float(d_k) - float(d_p))
+
+    def bit_equal(outs, drift):
+        return all(torch.equal(x, y) for x, y in zip(out_k, outs)) and float(d_k) == drift
+
     if noise == "clt":
-        check(all(torch.equal(x, y) for x, y in zip(out_k, out_p)) and d_err == 0.0,
+        check(bit_equal(out_p, float(d_p)),
               f"{what}: fused update (clt) bit-equal to plain, drift equal "
               f"(max|d| {err:.3g}, drift {float(d_k)} vs {float(d_p)})")
     else:
@@ -605,7 +678,21 @@ def check_update(gs, home, groups, noise: str, what: str):
               f"{what}: fused update (bm) within {BM_TOL} of plain: {err:.3g}, "
               f"drift {d_err:.3g}")
     check(float(d_k) > 0.0, f"{what}: fused update sees the drift")
-    return err, d_err
+    if not controls:
+        return err, d_err
+    out_s, d_s = plain(step + 1)
+    check(not bit_equal(out_s, float(d_s)),
+          f"{what}: control, the plain update with the seed off by one, fails the check")
+    m = (a[0] < 1.0e8).to(torch.float32)
+    dinf = m * torch.stack([(p - r).abs() for p, r in zip(out_p[:3], ref)]).amax(0)
+    blocks = update_block_of(gs.spec, 0 if strag is None else strag[3].shape[0]).to(dinf.device)
+    top = blocks.reshape(-1)[int(dinf.reshape(-1).argmax())]
+    d_drop = float(torch.where(blocks == top, 0.0, dinf).max())
+    check(not bit_equal(out_p, d_drop),
+          f"{what}: control, the drift with block {int(top)} dropped ({d_drop}), fails the "
+          f"check (drift {float(d_k)})")
+    return err, d_err, {"seed_off_by_one_max_abs": max(
+        float((x - y).abs().max()) for x, y in zip(out_k, out_s)), "block_dropped_drift": d_drop}
 
 
 def check_sep_stacks(spec, stacked, strag, what: str, ocap=None, expect_clean: bool = True,
@@ -791,27 +878,48 @@ def sep_rebin_checks(dev) -> dict:
     return out
 
 
-def profiler_ms(fn, names, reps: int = 20) -> dict:
+def profiler_ms(fn, names, reps: int = 20, cold: bool = False, tries: int = 3) -> dict:
     """``fn``'s device time a call from torch.profiler: the kernels whose
-    names contain one of ``names``, and all device work in the window."""
+    names contain one of ``names`` (``kernels_ms``), and all device work in
+    the window (``all_device_ms``). ``cold``: a 256 MiB fill before each
+    call evicts the L2 (50 MB), so the inputs come from HBM; the fills are
+    not in ``kernels_ms`` but are in ``all_device_ms``. A trace with no
+    matching device event (CUPTI now and then delivers none) is taken
+    again, up to ``tries`` sessions; then both are None: not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    scrub = torch.empty(1 << 26, dtype=torch.int32, device="cuda") if cold else None
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    mine = every = 0.0
-    for e in prof.key_averages():
-        d = getattr(e, "self_device_time_total", None)
-        if d is None:
-            d = getattr(e, "self_cuda_time_total", 0.0)
-        every += max(d, 0.0)
-        if d > 0 and any(n in e.key for n in names):
-            mine += d
-    return {"kernels_ms": mine / 1e3 / reps, "all_device_ms": every / 1e3 / reps}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if cold:
+                    scrub.fill_(0)
+                fn()
+            torch.cuda.synchronize()
+        mine = every = 0.0
+        for e in prof.key_averages():
+            d = getattr(e, "self_device_time_total", None)
+            if d is None:
+                d = getattr(e, "self_cuda_time_total", 0.0)
+            every += max(d, 0.0)
+            if d > 0 and any(n in e.key for n in names):
+                mine += d
+        if mine > 0:
+            return {"kernels_ms": mine / 1e3 / reps, "all_device_ms": every / 1e3 / reps,
+                    "l2": "flushed" if cold else "warm"}
+        del prof
+    return {"kernels_ms": None, "all_device_ms": None, "l2": "flushed" if cold else "warm"}
+
+
+def device_ms(prof: dict, what: str) -> float:
+    """The kernels' device time of a ``profiler_ms`` result, which a row
+    must have measured."""
+    check(prof["kernels_ms"] is not None and prof["kernels_ms"] > 0,
+          f"{what}: the profiler measured the kernel's device time")
+    return prof["kernels_ms"]
 
 
 def spill_report(names) -> dict:
@@ -832,8 +940,11 @@ def spill_report(names) -> dict:
                 else:
                     k = int(m.group(1))
                     rest = ln[m.end():]
-                    t = re.match(r"ILi(\d+)E", rest[k:])
-                    cur = rest[:k] + (f"<{t.group(1)}>" if t else "")
+                    # the template's integer and bool arguments (n: negative)
+                    t = re.match(r"I((?:L[a-z]n?\d+E)+)E", rest[k:])
+                    targs = (re.findall(r"L[a-z](n?\d+)E", t.group(1)) if t else [])
+                    cur = rest[:k] + (f"<{', '.join(a.replace('n', '-') for a in targs)}>"
+                                      if targs else "")
             elif cur and "spill stores" in ln:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
                 spill = int(m.group(1)) + int(m.group(2))
@@ -862,6 +973,7 @@ def sep_row(suffix: str, spec, ocap, stacked, strag, launches: int, what: str) -
     n0 = rk.SEP_REBIN.launches
     ms = cuda_ms(lambda: kern(stacked, strag), reps=20)
     prof = profiler_ms(lambda: kern(stacked, strag), ["sep_pull", "rebin_classify"])
+    device_ms(prof, f"{what}: #5")
     rk.SEP_REBIN.launches = n0
     plain_ms = cuda_ms(lambda: rk.separable_rebin_plain(spec, stacked, strag, ocap), reps=3,
                        warmup=1)
@@ -908,7 +1020,8 @@ def fold_halo_row(run, launches: int, what: str) -> dict:
     n0 = kernel2.FOLD_HALO.launches
     ms = cuda_ms(lambda: [step.fold.stacked(b, r) for b, r in zip(bufs, rec)], reps=20)
     prof = profiler_ms(lambda: [step.fold.stacked(b, r) for b, r in zip(bufs, rec)],
-                       ["fold_halo_kernel"])
+                       ["fold_rows"])
+    device_ms(prof, f"{what}: #8")
     kernel2.FOLD_HALO.launches = n0
     plain_ms = cuda_ms(lambda: [kernel2.fold_reactions_halo_plain(
         b[:3], [b[3 + 3 * g:6 + 3 * g] for g in range(4)], r[:, None])
@@ -1694,6 +1807,21 @@ def check_channel_kernels(be, cg, what: str, controls: bool):
         f_p = kernel2.fold_reactions_n_plain(home, groups)
         check(all(torch.equal(a, b) for a, b in zip(f_k, f_p)),
               f"{what}: nvec {nvec} fold #9 bit-equal to plain")
+        # #9's stacked entry on #10's buffer as the path hands it over
+        raw, _ = be._kernel(nvec, newton=True).raw_stacked(cg.x, cg.y, cg.z, *chans, strag=blk)
+        f_s = kernel2.make_fold_kernel_n(spec, 3 * nvec).stacked(raw)
+        f_sp = kernel2.fold_reactions_n_plain(raw[0], raw[1:])
+        check(all(torch.equal(a, b) for a, b in zip(f_s, f_sp)),
+              f"{what}: nvec {nvec} fold #9's stacked entry bit-equal to plain")
+        if controls:
+            # the groups added in the reverse order must fail the bit-equality
+            rev = list(raw[0])
+            for (dz, dyb), g in reversed(list(zip(kernel2.REACTION_GROUPS, raw[1:]))):
+                rev = [r + torch.roll(gc, (dz, dyb), (0, 1)) for r, gc in zip(rev, g)]
+            n_diff = sum(int((a != b).sum()) for a, b in zip(f_s, rev))
+            check(n_diff > 0, f"{what}: nvec {nvec} control, #9's groups added in the reverse "
+                              f"order, fails the bit-equality ({n_diff} slots differ)")
+            errs.setdefault("fold_reverse_order_slots_differ", {})[f"nvec{nvec}"] = n_diff
         if nvec == 1:
             f7 = kernel2.make_fold_kernel(spec)(home, groups)
             check(all(torch.equal(a, b) for a, b in zip(f7, f_k)),
@@ -2141,13 +2269,26 @@ def pse_breakdown(run, card, errs):
         return ([cg.x, cg.y, cg.z] + list(cg.channels[: 3 * nvec]),
                 kernel2_strag_block(be, cg, nvec))
 
+    fold_dev, fold_host = {}, {}
     for nvec in (1, 2):
         a, blk = args(nvec)
         knt = be._kernel(nvec, newton=True)
-        t[f"newton_channel_{3 * nvec}ch"] = cuda_ms(lambda: knt.raw(*a, strag=blk), reps=10)
-        home, groups, _ = knt.raw(*a, strag=blk)
+        # #10 and #9 as the path calls them: the kernel's one buffer, folded
+        # as it is
+        t[f"newton_channel_{3 * nvec}ch"] = cuda_ms(lambda: knt.raw_stacked(*a, strag=blk),
+                                                    reps=10)
+        raw, _ = knt.raw_stacked(*a, strag=blk)
         fold = kernel2.make_fold_kernel_n(spec, 3 * nvec)
-        t[f"fold_n_{3 * nvec}ch"] = cuda_ms(lambda: fold(home, groups), reps=20)
+        n0 = kernel2.FOLD_N.launches
+        t[f"fold_n_{3 * nvec}ch"] = cuda_ms(lambda: fold.stacked(raw), reps=20)
+        # warm: #10's buffer in L2, as the path hands it over; cold: from HBM,
+        # the bytes its bound counts
+        fold_dev[3 * nvec] = {l2: profiler_ms(lambda: fold.stacked(raw), ["fold_rows"], cold=c)
+                              for l2, c in (("warm", False), ("cold", True))}
+        for l2 in fold_dev[3 * nvec]:
+            device_ms(fold_dev[3 * nvec][l2], f"#9 {3 * nvec} channels ({l2} L2)")
+        fold_host[3 * nvec] = host_us(lambda: fold.stacked(raw))
+        kernel2.FOLD_N.launches = n0
         k27 = be._kernel(nvec, newton=False)
         t[f"pair_channel_{3 * nvec}ch"] = cuda_ms(lambda: k27(*a, strag=blk), reps=5)
     calls.update({"newton_channel_6ch": 1.0, "newton_channel_3ch": m - 1.0,
@@ -2234,12 +2375,16 @@ def pse_breakdown(run, card, errs):
     a2, blk2 = args(2)
     plain_27 = cuda_ms(lambda: channel_outputs(be, cg, 2, "27_plain"), reps=1, warmup=1)
     plain_nt = cuda_ms(lambda: channel_outputs(be, cg, 2, "newton_plain"), reps=1, warmup=1)
-    home, groups, _ = be._kernel(2, newton=True).raw(*a2, strag=blk2)
-    plain_fold = cuda_ms(lambda: kernel2.fold_reactions_n_plain(home, groups), reps=5, warmup=1)
-    fold_err = max(float((x - y).abs().max()) for x, y in zip(
-        kernel2.make_fold_kernel_n(spec, 6)(home, groups),
-        kernel2.fold_reactions_n_plain(home, groups)))
+    raw, _ = be._kernel(2, newton=True).raw_stacked(*a2, strag=blk2)
+    plain_fold = cuda_ms(lambda: kernel2.fold_reactions_n_plain(raw[0], raw[1:]), reps=5,
+                         warmup=1)
+    fold_want = kernel2.fold_reactions_n_plain(raw[0], raw[1:])
+    fold_got = kernel2.make_fold_kernel_n(spec, 6).stacked(raw)
+    check(all(torch.equal(x, y) for x, y in zip(fold_got, fold_want)),
+          "PSE path's final state: #9's stacked entry bit-equal to plain (6 channels)")
+    fold_err = max(float((x - y).abs().max()) for x, y in zip(fold_got, fold_want))
     ops2 = channel_ops_ms(pairs, 2)
+    # n = 6: 30 grids read, 6 written (n = 3: half)
     fold_bytes = 1e3 * 4 * (5 * 6 + 6) * spec.n_slots / PEAK_HBM_BYTES
     # the 6-channel pass: 9 grids and the [10, S] rows read, 6 grids out
     ch_bytes = 1e3 * 4 * ((9 + 6) * spec.n_slots + 16 * spec.n_strag) / PEAK_HBM_BYTES
@@ -2268,7 +2413,15 @@ def pse_breakdown(run, card, errs):
              "launch_plan_3ch": newton_channel_plan_of(spec, 1)}),
         row("fold_n", "fold.cu", "uammd_tpu/engine/kernel2.py:702", t["fold_n_6ch"],
             plain_fold, 0.0, fold_bytes, fold_err,
-            {"shape": "n = 6 at the PSE grid", "ms_3ch": t["fold_n_3ch"]}),
+            {"shape": "n = 6 at the PSE grid, the stacked entry on #10's buffer",
+             "device_ms_profiler": fold_dev[6]["warm"],
+             "device_ms_profiler_cold": fold_dev[6]["cold"], "host_us_a_call": fold_host[6],
+             "ms_3ch": t["fold_n_3ch"], "device_ms_profiler_3ch": fold_dev[3]["warm"],
+             "device_ms_profiler_cold_3ch": fold_dev[3]["cold"],
+             "host_us_a_call_3ch": fold_host[3], "bound_ms_3ch": fold_bytes / 2,
+             "launch_plan": {"threads": 256, "slots_a_thread": 4,
+                             "blocks": [-(-spec.cap * spec.nlane // 1024),
+                                        spec.shape[2] * spec.nyb]}}),
     ]
     # #5 at Q 4 and OCAP 16 on the inputs a near rebin at the final state gets
     stacked, sstack = be._near_rebin_inputs(st, p)
@@ -4657,6 +4810,51 @@ def dd_channel_rows(card, runs, checks):
     return rows
 
 
+def dd_update_row(run, what: str) -> dict:
+    """#11's kernels-line row at a DD2 path's final state: one step's sweep
+    of its launches (one a shard) as the step makes them, each held to
+    ``gj_update_plain`` (occupied slots and rows within ``UNFUSED_TOL`` x
+    max|ref|, the drift too), timed with CUDA events, with the plain
+    version's time and the byte bound (a shard's 12 grids read and 6
+    written, its straggler rows, the seed and the drift)."""
+    import torch
+    from uammd_tpu_torch.engine import update_kernel as uk
+
+    step, st = run["step"], run["st"]
+    n = step.n_dev
+    args = [((st.x[i], st.y[i], st.z[i], st.wx[i], st.wy[i], st.wz[i], st.fx[i], st.fy[i],
+              st.fz[i], st.rx[i], st.ry[i], st.rz[i]), st.stepc[i],
+             (st.spos[i], st.svelw[i], st.sforce[i], st.spidf[i].to(torch.int32) - 1))
+            for i in range(n)]
+    n0 = uk.GJ_UPDATE.launches
+    err = 0.0
+    for g, seed, srows in args:
+        got = step.upd(*g, seed, srows)
+        want = uk.gj_update_plain(step.local_spec, step.upd.coef, *g, seed, srows)
+        m, sm = g[0] < 1.0e8, srows[3] >= 0
+        pairs = ([(x[m], y[m]) for x, y in zip(got[0], want[0])]
+                 + [(x[sm], y[sm]) for x, y in zip(got[2], want[2])]
+                 + [(got[1].reshape(1), want[1].reshape(1))])
+        pairs = [(x, y) for x, y in pairs if y.numel()]
+        rel = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+                  for x, y in pairs)
+        check(rel < UNFUSED_TOL, f"{what}: #11 vs plain {rel:.3g} < {UNFUSED_TOL}")
+        err = max(err, max(float((x - y).abs().max()) for x, y in pairs))
+    ms = cuda_ms(lambda: [step.upd(*g, seed, srows) for g, seed, srows in args], reps=20)
+    uk.GJ_UPDATE.launches = n0
+    plain = cuda_ms(lambda: [uk.gj_update_plain(step.local_spec, step.upd.coef, *g, seed, srows)
+                             for g, seed, srows in args], reps=2, warmup=1)
+    bytes_ = n * (4 * 18 * step.local_spec.n_slots + 64 * step.S + 8)
+    return {"name": "gj_update_dd2" + ("" if n > 1 else "_1_shard"), "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/gj_update.cu (+ gj_common.cuh)",
+            "replaces": "uammd_tpu/engine/update_kernel.py:134",
+            "launches": run["launches"]["gj_update"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": 1e3 * bytes_ / PEAK_HBM_BYTES, "bound_by": "bytes",
+            "library_ms": None, "shards": n, "shard_spec": list(step.local_spec.array_shape),
+            "note": f"ms, plain_ms and bound_ms cover one step's {n} launch(es) (one per "
+                    f"shard) at {what}"}
+
+
 def dd_phases(dev, card, melted, unfused_ms):
     """Slice G1's phases in order; returns the kernels-line rows."""
     import torch
@@ -4668,6 +4866,7 @@ def dd_phases(dev, card, melted, unfused_ms):
     held = dd1["step"].sep  # #5's last inputs on the 1-shard path
     rows_1 = [fold_halo_row(dd1, dd1["launches"]["fold_halo"],
                             "the 1-shard DD2 path's final state"),
+              dd_update_row(dd1, "the 1-shard DD2 path's final state"),
               sep_row("_dd2_1_shard", held.spec, held.ocap, *held.last,
                       dd1["launches"]["separable_rebin"],
                       "the 1-shard DD2 path's last rebin")]
@@ -4688,7 +4887,8 @@ def dd_phases(dev, card, melted, unfused_ms):
     for what, spec in (("DD2 shard (#6 halo_z)", step.local_spec),
                        ("DD v1 slab (#1 halo)", dd_halo_spec(spec1, DD_SHARDS)[0])):
         print(json.dumps({"phase": "launch_plans", "what": what, **plan_of(spec)}), flush=True)
-    rows = breakdown_dd2(card, dd4, dd1, unfused_ms, errs) + rows_1
+    rows = (breakdown_dd2(card, dd4, dd1, unfused_ms, errs)
+            + [dd_update_row(dd4, "the 4-shard DD2 path's final state")] + rows_1)
     del dd4, step, st, ghosts
     torch.cuda.empty_cache()
     runs = main_path_dd_channels(dev, card, melted)
@@ -6286,6 +6486,151 @@ def rebin_only(dev, card) -> int:
           flush=True)
     return 0
 
+def update_row(engine2, gs2, launches: int) -> dict:
+    """#12's kernels-line row at the v2 path's final state: the stacked
+    entry as ``GridMD2.step`` calls it (the Newton output buffer as it
+    comes), held to its plain version first ("clt" bit-equal, "bm" within
+    ``BM_TOL``: ``check_update``), then timed with CUDA events, by the
+    profiler (inputs warm, and with the L2 flushed before each call) and
+    on the host, with the "bm" update's times beside; the byte bound: 24
+    grids read and 6 written, the straggler rows (spos, svel, sforce, spid
+    read, spos', svel' written), the seed and the drift."""
+    from uammd_tpu_torch.engine import kernel2
+    from uammd_tpu_torch.engine import update_kernel as uk
+
+    spec = engine2.spec
+    strag = kernel2.broadcast_stragglers(spec, gs2.spos, gs2.spid)
+    forces, _ = engine2.pair.stacked(gs2.x, gs2.y, gs2.z, strag)
+    home, groups = forces[:3], [forces[3 + 3 * g:6 + 3 * g] for g in range(4)]
+    errs = {nz: check_update(gs2, home, groups, nz, f"2^20 v2 liquid ({nz})")
+            for nz in uk.NOISES}
+    a, grp, ref, step = update_inputs(gs2, home, groups, 31)
+    strag2 = (gs2.spos, gs2.svel, gs2.sforce, gs2.spid)  # as GridMD2.step passes them
+    n0 = uk.GJ_FOLD_UPDATE.launches
+    times = {}
+    for nz in uk.NOISES:
+        kern = (engine2.update if nz == engine2.noise else uk.make_gj_fold_update_kernel(
+            spec, engine2.dt, engine2.temperature, engine2.friction, engine2.mass, noise=nz))
+
+        def call(kern=kern):
+            return kern.stacked(*a[:6], forces, *ref, step, strag2)
+
+        times[nz] = {"ms": cuda_ms(call, reps=20),
+                     "device_ms_profiler": profiler_ms(call, ["gj_fold_update"]),
+                     "device_ms_profiler_cold": profiler_ms(call, ["gj_fold_update"],
+                                                            cold=True),
+                     "host_us_a_call": host_us(call)}
+        for k in ("device_ms_profiler", "device_ms_profiler_cold"):
+            device_ms(times[nz][k], f"#12 ({nz}, {k})")
+    uk.GJ_FOLD_UPDATE.launches = n0
+    plain_ms = cuda_ms(lambda: uk.gj_fold_update_plain(
+        spec, engine2.update.coef, engine2.noise, *a, grp, *ref, step, strag2), reps=5, warmup=1)
+    S = spec.n_strag
+    bytes_ = 4 * 30 * spec.n_slots + 64 * S + 8
+    return {"name": "gj_fold_update", "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/gj_fold_update.cu (+ gj_common.cuh)",
+            "replaces": "uammd_tpu/engine/update_kernel.py:301", "launches": launches,
+            "max_abs_err": errs[engine2.noise][0], "ms": times[engine2.noise]["ms"],
+            "plain_ms": plain_ms, "bound_ms": 1e3 * bytes_ / PEAK_HBM_BYTES,
+            "bound_by": "bytes", "library_ms": None,
+            "device_ms_profiler": times[engine2.noise]["device_ms_profiler"],
+            "device_ms_profiler_cold": times[engine2.noise]["device_ms_profiler_cold"],
+            "host_us_a_call": times[engine2.noise]["host_us_a_call"],
+            "noise": engine2.noise, "by_noise": times,
+            "max_abs_err_and_drift_err": {k: v[:2] for k, v in errs.items()},
+            "shape": list(spec.array_shape), "n_strag": S,
+            "launch_plan": update_grid(spec, S),
+            "state": "the v2 path's final state, random w and references up to 0.2 away"}
+
+
+def v2_counters() -> dict:
+    from uammd_tpu_torch.engine import kernel2, rebin_kernel, update_kernel
+
+    return {"newton_pair": kernel2.NEWTON_PAIR, "fold": kernel2.FOLD,
+            "gj_fold_update": update_kernel.GJ_FOLD_UPDATE,
+            "separable_rebin": rebin_kernel.SEP_REBIN}
+
+
+def main_path_v2(dev, melted, kernels) -> dict:
+    """Phase 3b: the v2 path as bench.py:83-91 builds it (n_strag 16,
+    "clt", the fast reciprocal) on the melted positions, 100 settle and 200
+    timed steps, with the launch counts of ``kernels`` zeroed just before
+    it; the gates, then what the breakdown and the rows need."""
+    import torch
+    from uammd_tpu_torch.engine import layout, md2
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    engine2 = md2.make_lj_md2(BOX, N, dt=0.01, temperature=TEMPERATURE, pos=melted,
+                              n_strag=N_STRAG, noise="clt", fast_recip=True, device=dev)
+    gs2 = engine2.run(engine2.init(melted, seed=1), SETTLE_STEPS)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in kernels.items()}
+    t0 = time.perf_counter()
+    gs2 = engine2.run(gs2, TIMED_STEPS)
+    torch.cuda.synchronize()
+    timed2_s = time.perf_counter() - t0
+    n_strag_now = int((gs2.spid >= 0).sum())
+    launches_v2 = {k: v.launches for k, v in kernels.items()}
+    timed_v2 = {k: launches_v2[k] - before[k] for k in kernels}
+    n_kept2, t_meas2 = gates(engine2, gs2, "v2 path", SETTLE_STEPS + TIMED_STEPS, launches_v2,
+                             ["newton_pair", "gj_fold_update"], ["fold", "separable_rebin"])
+    check(all(bool(a.isfinite().all()) for a in layout.unpack(gs2)), "v2: final state finite")
+    ms_v2 = 1e3 * timed2_s / TIMED_STEPS
+    reads = host_reads(lambda: engine2.step(gs2), 3)
+    check(len(reads) <= 3, f"v2 path: {len(reads)} host reads in 3 steps {reads}")
+    print(json.dumps({
+        "phase": "main_path_v2", "host_reads_per_step": len(reads) / 3, "host_reads_at": reads, "n": N, "box": BOX, "n_strag": N_STRAG, "noise": "clt",
+        "fast_recip": True, "spec": list(engine2.spec.array_shape), "cap": engine2.spec.cap,
+        "settle_steps": SETTLE_STEPS, "timed_steps": TIMED_STEPS,
+        "timed_seconds": timed2_s, "ms_per_step": ms_v2,
+        "particle_steps_per_s": N * TIMED_STEPS / timed2_s,
+        "temperature": t_meas2, "particles_kept": n_kept2, "stragglers": n_strag_now,
+        "overflow": False, "launches": launches_v2, "timed_launches": timed_v2,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }), flush=True)
+    return {"engine": engine2, "gs": gs2, "ms": ms_v2, "launches": launches_v2,
+            "timed": timed_v2, "stragglers": n_strag_now}
+
+
+def update_fold_only(dev, card) -> int:
+    """``--only-update-fold``: #12's checks (the n 600 straggler system with
+    its controls, the 2^20 perturbed fcc state), the v1 melt, the v2 path
+    and #12's row at its final state; #9's checks (``pse_kernel_checks``),
+    the PSE path and its breakdown; the kernels line of #12, #10 and #9,
+    and no result line (for work on those kernels)."""
+    import torch
+    from uammd_tpu_torch.engine import layout, update_kernel
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    rng = torch.Generator().manual_seed(7)
+    gs_s, _ = n600_straggler_system(dev, rng)
+    home, groups, _ = newton_pair(gs_s)
+    errs = {f"n600_{nz}": check_update(gs_s, home, groups, nz, "n 600 stragglers",
+                                       controls=nz == "clt") for nz in update_kernel.NOISES}
+    pos_fcc = lattice(N, BOX, "fcc")
+    spec = layout.choose_spec(BOX, N, 2.5, pos=pos_fcc, n_strag=N_STRAG)
+    jitter = torch.randn((N, 3), generator=rng, dtype=torch.float64).numpy() * 0.1
+    gs = layout.pack(spec, pos_fcc + jitter, device=dev)
+    home, groups, _ = newton_pair(gs)
+    for nz in update_kernel.NOISES:
+        errs[f"n2^20_{nz}"] = check_update(gs, home, groups, nz, "2^20 perturbed fcc")
+    del gs, home, groups, gs_s
+    print(json.dumps({"phase": "update_checks", "ok": True,
+                      "update_max_abs_err_and_drift_err": errs}), flush=True)
+    v2 = main_path_v2(dev, melt(dev), v2_counters())
+    rows = [update_row(v2["engine"], v2["gs"], v2["launches"]["gj_fold_update"])]
+    del v2
+    pse_errs = pse_kernel_checks(dev)
+    run = pse_main_path(dev, pse_counters())
+    rows += [r for r in pse_breakdown(run, card, pse_errs)
+             if r["name"] in ("newton_channel", "fold_n")]
+    print(json.dumps({"kernels": rows}), flush=True)
+    check(not run["fails"], "; ".join(run["fails"]))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6298,6 +6643,7 @@ def main() -> int:
     only_g2 = "--only-g2" in sys.argv[1:]
     only_pencil = "--only-pencil" in sys.argv[1:]
     only_rebin = "--only-rebin" in sys.argv[1:]
+    only_update_fold = "--only-update-fold" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6327,13 +6673,15 @@ def main() -> int:
                       "sources": sorted(p.name for p in _build.SRC_DIR.glob("*.cu"))}),
           flush=True)
     for name in ("newton_channel", "pair_channel", "pair_force", "lanczos_sqrt", "gj_update",
-                 "rebin", "rebin2", "sep_rebin", "newton_pair", "fold"):
+                 "gj_fold_update", "rebin", "rebin2", "sep_rebin", "newton_pair", "fold"):
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.build_log(name).splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
-    # the classify-and-pull rebins and the fold spill nothing in any instance
+    # the classify-and-pull rebins, the folds and the fused update spill
+    # nothing in any instance
     print(json.dumps({"phase": "spills", "ok": True,
-                      **spill_report(("rebin", "sep_rebin", "fold"))}), flush=True)
+                      **spill_report(("rebin", "sep_rebin", "fold", "gj_fold_update"))}),
+          flush=True)
     if only_pse:
         return pse_only(dev, card)
     if only_slice_d:
@@ -6353,6 +6701,8 @@ def main() -> int:
         return pencil_only(dev, card)
     if only_rebin:
         return rebin_only(dev, card)
+    if only_update_fold:
+        return update_fold_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -6408,7 +6758,8 @@ def main() -> int:
     controls = check_newton_controls(gs_s, "n 600 stragglers")
     home, groups, _ = newton_pair(gs_s)
     check_fold(spec_s, home, groups, "n 600 stragglers")
-    upd_err = {f"n600_{nz}": check_update(gs_s, home, groups, nz, "n 600 stragglers")
+    upd_err = {f"n600_{nz}": check_update(gs_s, home, groups, nz, "n 600 stragglers",
+                                          controls=nz == "clt")
                for nz in update_kernel.NOISES}
     sep_s = check_sep_rebin(moved_s, "n 600 stragglers moved")
     check(sep_s[2] > 0, "n 600 stragglers moved: the mini-grid holds stragglers")
@@ -6501,34 +6852,9 @@ def main() -> int:
     }), flush=True)
 
     # 3b. the v2 path, as bench.py:83-91 builds it, on the melted positions
-    zero_counts()
-    torch.cuda.synchronize()
-    engine2 = md2.make_lj_md2(BOX, N, dt=0.01, temperature=TEMPERATURE, pos=melted,
-                              n_strag=N_STRAG, noise="clt", fast_recip=True, device=dev)
-    gs2 = engine2.run(engine2.init(melted, seed=1), SETTLE_STEPS)
-    torch.cuda.synchronize()
-    before = {k: v.launches for k, v in kernels.items()}
-    t0 = time.perf_counter()
-    gs2 = engine2.run(gs2, TIMED_STEPS)
-    torch.cuda.synchronize()
-    timed2_s = time.perf_counter() - t0
-    n_strag_now = int((gs2.spid >= 0).sum())
-    launches_v2 = {k: v.launches for k, v in kernels.items()}
-    timed_v2 = {k: launches_v2[k] - before[k] for k in kernels}
-    n_kept2, t_meas2 = gates(engine2, gs2, "v2 path", SETTLE_STEPS + TIMED_STEPS, launches_v2,
-                             ["newton_pair", "gj_fold_update"], ["fold", "separable_rebin"])
-    check(all(bool(a.isfinite().all()) for a in layout.unpack(gs2)), "v2: final state finite")
-    ms_v2 = 1e3 * timed2_s / TIMED_STEPS
-    print(json.dumps({
-        "phase": "main_path_v2", "n": N, "box": BOX, "n_strag": N_STRAG, "noise": "clt",
-        "fast_recip": True, "spec": list(engine2.spec.array_shape), "cap": engine2.spec.cap,
-        "settle_steps": SETTLE_STEPS, "timed_steps": TIMED_STEPS,
-        "timed_seconds": timed2_s, "ms_per_step": ms_v2,
-        "particle_steps_per_s": N * TIMED_STEPS / timed2_s,
-        "temperature": t_meas2, "particles_kept": n_kept2, "stragglers": n_strag_now,
-        "overflow": False, "launches": launches_v2, "timed_launches": timed_v2,
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-    }), flush=True)
+    v2 = main_path_v2(dev, melted, kernels)
+    engine2, gs2, ms_v2 = v2["engine"], v2["gs"], v2["ms"]
+    launches_v2, timed_v2, n_strag_now = v2["launches"], v2["timed"], v2["stragglers"]
     for what, spec in (("v1 path (#1)", engine.spec), ("v2 path (#6)", engine2.spec)):
         print(json.dumps({"phase": "launch_plans", "what": what, **plan_of(spec)}), flush=True)
 
@@ -6582,11 +6908,7 @@ def main() -> int:
     check_fold(spec2, home, groups, "2^20 v2 liquid")
     fold_abs_err = max(float((x - y).abs().max()) for x, y in zip(
         fold(home, groups), kernel2.fold_reactions_plain(home, groups)))
-    upd = engine2.update
-    a, grp, ref, step = update_inputs(gs2, home, groups, 31)
-    # the straggler rows as GridMD2.step passes them
-    strag2 = (gs2.spos, gs2.svel, gs2.sforce, gs2.spid)
-    upd_abs_err = check_update(gs2, home, groups, "clt", "2^20 v2 liquid")[0]
+    row_upd = update_row(engine2, gs2, launches_v2["gj_fold_update"])
     moved2 = displaced(gs2, 15)
     sep_liquid = check_sep_rebin(moved2, "2^20 v2 liquid displaced")
     row_sep = sep_row("", spec2, rebin_kernel.OCAP, stacked_of(moved2, 7),
@@ -6597,17 +6919,12 @@ def main() -> int:
     newton_plain_ms = cuda_ms(lambda: newton_pair(gs2, plain=True), reps=3, warmup=1)
     fold_ms = cuda_ms(lambda: fold(home, groups), reps=20)
     fold_plain_ms = cuda_ms(lambda: kernel2.fold_reactions_plain(home, groups), reps=5, warmup=1)
-    upd_ms = cuda_ms(lambda: upd(*a, grp, *ref, step, strag2), reps=20)
-    upd_plain_ms = cuda_ms(lambda: update_kernel.gj_fold_update_plain(
-        spec2, upd.coef, "clt", *a, grp, *ref, step, strag2), reps=5, warmup=1)
+    upd_ms = row_upd["ms"]
     sep_ms = row_sep["ms"]
     pairs2, cut2 = stencil_pairs(gs2)
     newton_ops_ms = 1e3 * (OPS_PAIR_TEST * pairs2 + OPS_PAIR_FORCE * cut2) / PEAK_FP32_FLOPS
     newton_bytes_ms = 1e3 * (18 * slot2 + 28 * S) / PEAK_HBM_BYTES
     fold_bytes_ms = 1e3 * 18 * slot2 / PEAK_HBM_BYTES
-    # the update reads 24 grids, [S, 3] spos, svel, sforce, [S] spid and the
-    # step seed, and writes 6 grids, spos, svel and the drift
-    upd_bytes_ms = 1e3 * (30 * slot2 + 64 * S + 8) / PEAK_HBM_BYTES
 
     per_step = {k: timed_v2[k] / TIMED_STEPS for k in kernels}
     kernel_ms = {"newton_pair": newton_ms, "fold": fold_ms, "gj_fold_update": upd_ms,
@@ -6648,8 +6965,7 @@ def main() -> int:
             newton_bytes_ms, newton_ops_ms),
         row("fold", "fold.cu", "uammd_tpu/engine/kernel2.py:531",
             launches_v2["fold"], fold_abs_err, fold_ms, fold_plain_ms, fold_bytes_ms),
-        row("gj_fold_update", "gj_fold_update.cu", "uammd_tpu/engine/update_kernel.py:301",
-            launches_v2["gj_fold_update"], upd_abs_err, upd_ms, upd_plain_ms, upd_bytes_ms),
+        row_upd,
         row_sep,
     ]
     rows += fcm_breakdown(fcm_path, card)

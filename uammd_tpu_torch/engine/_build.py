@@ -125,6 +125,16 @@ def check_cuda_tensor(t: torch.Tensor, name: str, shape=None, dtype=torch.float3
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def check_cuda_tensors(ts, name: str, shape, dtype=torch.float32):
+    """``check_cuda_tensor`` on each of ``ts`` (one shape and dtype), with a
+    quick pass first: the full check, and its message, only for a tensor
+    that fails it."""
+    shape = torch.Size(shape)
+    for k, t in enumerate(ts):
+        if not (t.is_cuda and t.dtype is dtype and t.shape == shape and t.is_contiguous()):
+            check_cuda_tensor(t, f"{name} {k}", shape, dtype)
+
+
 class Kernel:
     """One C entry point of ``csrc/<source>.cu`` with its launch count.
 

@@ -18,22 +18,27 @@
 // with __fadd_rn, so the result equals fold_reactions_jnp /
 // fold_reactions_n_jnp / fold_reactions_halo_jnp bit for bit.
 //
-// #7 and #9: one thread per slot, looping over the channels; the group
-// reads are the same (row, lane) of a shifted (z, yb) block, so a warp reads
-// 32 neighbouring floats of each of the 5n grids. Their wrappers pass a
+// #7: one thread per slot, looping over the channels; the group reads are
+// the same (row, lane) of a shifted (z, yb) block, so a warp reads 32
+// neighbouring floats of each of the 15 grids. Its wrapper passes a
 // pointer a grid.
 //
-// #8 takes stacked buffers: the Newton halo kernel's [15, nz, nyb, CAP,
-// NLANE] output as it is (home x, y, z, then group g channel c at 3 + 3 g +
-// c), the [9, nyb, CAP, NLANE] block the reactions' exchange delivers, and
-// one [3, ...] output, so its wrapper checks three tensors and builds no
-// pointer array. What held the one-pointer-a-grid design back there was
-// the host (24 tensor checks and three ctypes pointer arrays a call; on an
-// H100 a 4-shard sweep took 0.44-0.55 ms against 0.114 ms of device time)
-// and then the device code (28 us a launch against a 9 us byte bound).
-// Device code: one thread per 4 slots of a plane (a 16-byte load of each of
-// the 15 inputs, all in flight before the adds), a block row per (z, yb),
-// 32-bit index math with no division a slot (11 us a launch there).
+// #9 and #8 take stacked buffers: the Newton kernels' output as it is,
+// [5, n, nz, nyb, CAP, NLANE] (home channel c at c, group g channel c at
+// n + n g + c; the Newton pair kernels' [15, ...] is n = 3), #8 also the
+// [9, nyb, CAP, NLANE] block the reactions' exchange delivers, and one
+// [n, ...] output, so a wrapper checks two or three tensors and builds no
+// pointer array. What held the one-pointer-a-grid design back was the host
+// (for #8, 24 tensor checks and three ctypes pointer arrays a call: on an
+// H100 a 4-shard sweep took 0.44-0.55 ms against 0.114 ms of device time;
+// for #9, 5n checks, two arrays and the splits of the Newton channel
+// kernel's buffer into 5n views) and then the device code (one thread a
+// slot, 64-bit division and modulo, 4-byte loads, the channels in turn:
+// 28 us a launch against #8's 9 us byte bound). Device code (fold_rows):
+// one thread per 4 slots of a plane (a 16-byte load of each of the 5n
+// inputs, all in flight before the adds), a block row per (z, yb) whose
+// four group source rows each thread computes once, 32-bit index math
+// with no division a slot.
 //
 // What bounds all three: memory, 5n grid reads and n grid writes per call.
 
@@ -96,12 +101,17 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
                      __fadd_rn(a.w, b.w));
 }
 
+constexpr int kRowThreads = 256;
+
 // Blocks (plane4 / 256 rounded up, nz nyb); thread q of block row zyb owns
-// slots 4 q .. 4 q + 3 of the plane of (z, yb). grid4 = nz nyb plane4: a
-// channel's float4s.
-__global__ void __launch_bounds__(256)
-    fold_halo_kernel(const float4* __restrict__ in, const float4* __restrict__ recv,
-                     float4* __restrict__ out, int nyb, int plane4, int grid4) {
+// slots 4 q .. 4 q + 3 of the plane of (z, yb). in: [5 N, grid4] float4s
+// (home c at c, group g channel c at N + N g + c); grid4 = nz nyb plane4,
+// a channel's float4s. HALO: z is a slab, and row 0's dz = 1 groups read
+// recv [3 N, nyb, plane4] (N = 3) instead of row nz - 1.
+template <int N, bool HALO>
+__global__ void __launch_bounds__(kRowThreads)
+    fold_rows(const float4* __restrict__ in, const float4* __restrict__ recv,
+              float4* __restrict__ out, int nz, int nyb, int plane4, int grid4) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= plane4) return;
   const int zyb = blockIdx.y;
@@ -109,37 +119,60 @@ __global__ void __launch_bounds__(256)
   const int yb = zyb - zc * nyb;
   const int yb_up = yb + 1 == nyb ? 0 : yb + 1;  // yb - dyb for dyb = -1
   const int yb_dn = yb == 0 ? nyb - 1 : yb - 1;  // for dyb = 1
+  const int z_dn = (zc == 0 ? nz : zc) - 1;      // z - dz for dz = 1, periodic
   const int sybs[4] = {yb_up, yb, yb_dn, yb_dn};
-  // the (1, dyb) groups: row z - 1, or at z = 0 the recv rows; (0, 1): row z
+  // the (1, dyb) groups: row z - 1 (or in the halo mode at z = 0 the recv
+  // rows); (0, 1): row z
   const float4* gsrc[4];
   int gstride[4];
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    if (zc == 0) {
-      gsrc[g] = recv + (3 * g * nyb + sybs[g]) * plane4 + q;
+    if (HALO && zc == 0) {
+      gsrc[g] = recv + (N * g * nyb + sybs[g]) * plane4 + q;
       gstride[g] = nyb * plane4;
     } else {
-      gsrc[g] = in + (3 + 3 * g) * grid4 + (zyb - nyb - yb + sybs[g]) * plane4 + q;
+      gsrc[g] = in + (N + N * g) * grid4 + (z_dn * nyb + sybs[g]) * plane4 + q;
       gstride[g] = grid4;
     }
   }
-  gsrc[3] = in + 12 * grid4 + (zyb - yb + sybs[3]) * plane4 + q;
+  gsrc[3] = in + 4 * N * grid4 + (zyb - yb + sybs[3]) * plane4 + q;
   gstride[3] = grid4;
   const int at = zyb * plane4 + q;
-  float4 h[3], v[4][3];
+  float4 h[N], v[4][N];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) h[c] = in[c * grid4 + at];
+  for (int c = 0; c < N; ++c) h[c] = in[c * grid4 + at];
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int c = 0; c < 3; ++c) v[g][c] = gsrc[g][c * gstride[g]];
+    for (int c = 0; c < N; ++c) v[g][c] = gsrc[g][c * gstride[g]];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
+  for (int c = 0; c < N; ++c) {
     float4 acc = h[c];
 #pragma unroll
     for (int g = 0; g < 4; ++g) acc = add4(acc, v[g][c]);
     out[c * grid4 + at] = acc;
   }
+}
+
+// the stacked entries' shared checks: plane a multiple of 4, 16-byte
+// aligned buffers, 32-bit float4 indices, a block row per (z, yb)
+bool rows_ok(const void* a, const void* b, const void* c, int n, int nz, int nyb, int plane) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                          reinterpret_cast<uintptr_t>(c);
+  const size_t floats = 5 * static_cast<size_t>(n) * nz * nyb * plane;
+  return nz >= 1 && nyb >= 1 && plane >= 4 && plane % 4 == 0 && (align & 15) == 0 &&
+         floats < (static_cast<size_t>(1) << 31) && nz * nyb <= 65535;
+}
+
+template <int N, bool HALO>
+int launch_rows(const void* in, const void* recv, void* out, int nz, int nyb, int plane,
+                void* stream) {
+  const int plane4 = plane / 4;
+  const dim3 grid((plane4 + kRowThreads - 1) / kRowThreads, nz * nyb);
+  fold_rows<N, HALO><<<grid, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(in), static_cast<const float4*>(recv),
+      static_cast<float4*>(out), nz, nyb, plane4, nz * nyb * plane4);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -149,11 +182,22 @@ extern "C" int uammd_fold(void** ins, void** outs, int nz, int nyb, int plane, v
   return launch(ins, outs, 3, nz, nyb, plane, stream);
 }
 
-// ins: host array of 5n device pointers (home, then the 4 groups, n each),
-// outs: of n; 1 <= n <= 6.
-extern "C" int uammd_fold_n(void** ins, void** outs, int n, int nz, int nyb, int plane,
+// The n-channel fold on the Newton channel kernel's buffer: raw: [5, n, nz,
+// nyb, plane] (home, then the 4 groups, n channels each), out: [n, nz, nyb,
+// plane]; 1 <= n <= 6; plane = CAP * NLANE, a multiple of 4; 16-byte
+// aligned pointers.
+extern "C" int uammd_fold_n(void* raw, void* out, int n, int nz, int nyb, int plane,
                             void* stream) {
-  return launch(ins, outs, n, nz, nyb, plane, stream);
+  if (n < 1 || n > kMaxChan || !rows_ok(raw, out, out, n, nz, nyb, plane))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (n) {
+    case 1: return launch_rows<1, false>(raw, nullptr, out, nz, nyb, plane, stream);
+    case 2: return launch_rows<2, false>(raw, nullptr, out, nz, nyb, plane, stream);
+    case 3: return launch_rows<3, false>(raw, nullptr, out, nz, nyb, plane, stream);
+    case 4: return launch_rows<4, false>(raw, nullptr, out, nz, nyb, plane, stream);
+    case 5: return launch_rows<5, false>(raw, nullptr, out, nz, nyb, plane, stream);
+    default: return launch_rows<6, false>(raw, nullptr, out, nz, nyb, plane, stream);
+  }
 }
 
 // The halo fold: in: [15, nz, nyb, plane] (the Newton halo kernel's
@@ -161,18 +205,6 @@ extern "C" int uammd_fold_n(void** ins, void** outs, int n, int nz, int nyb, int
 // NLANE, a multiple of 4; 16-byte aligned pointers.
 extern "C" int uammd_fold_halo(void* in, void* recv, void* out, int nz, int nyb, int plane,
                                void* stream) {
-  const size_t floats = 15 * static_cast<size_t>(nz) * nyb * plane;
-  const uintptr_t align = reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(recv) |
-                          reinterpret_cast<uintptr_t>(out);
-  if (nz < 1 || nyb < 1 || plane < 4 || plane % 4 != 0 || (align & 15) != 0 ||
-      floats >= (static_cast<size_t>(1) << 31) || nz * nyb > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int plane4 = plane / 4;
-  const int threads = 256;
-  const dim3 grid((plane4 + threads - 1) / threads, nz * nyb);
-  fold_halo_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(in), static_cast<const float4*>(recv),
-      static_cast<float4*>(out), nyb, plane4, nz * nyb * plane4);
-  return static_cast<int>(cudaGetLastError());
+  if (!rows_ok(in, recv, out, 3, nz, nyb, plane)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<3, true>(in, recv, out, nz, nyb, plane, stream);
 }

@@ -13,93 +13,243 @@
 // PRNG has no counterpart, and a counter hash lets the plain version
 // (update_kernel.py:philox4x32) draw the same numbers. The seed is read
 // from the device (GridState.step), so a step needs no host read for it.
-// The drift is a warp max, then atomicMax on the int bits of the
-// non-negative float into a zeroed int32. S more threads apply the same
-// update to the straggler rows (spos, svel, sforce [S, 3], spid [S]),
-// with noise counters (s, j, 1, 0), occupied where spid >= 0; the JAX
-// engine does this in separate jnp ops (md2.py:190-213).
+// One more row of blocks applies the same update to the straggler rows
+// (spos, svel, sforce [S, 3], spid [S]), with noise counters (s, j, 1, 0),
+// occupied where spid >= 0; the JAX engine does this in separate jnp ops
+// (md2.py:190-213).
 //
-// What bounds it: memory, 24 grid reads (x, y, z, w, home force, 12 group
-// grids, the 3 reference positions) and 6 grid writes per call.
+// The forces come as the Newton pair kernel's output as it is, [15, nz,
+// nyb, CAP, NLANE] (home x, y, z, then group g channel c at 3 + 3 g + c),
+// and the outputs go to one buffer: x', y', z', w'x, w'y, w'z [6, ...], the
+// stragglers' spos', svel' [2, S, 3], the drift. What held the design with
+// a pointer a grid back (0.132 ms a call on an H100 against a 0.062 ms byte
+// bound): the host (24 tensor checks, four ctypes pointer arrays and a
+// zero-fill launch for the drift a call) and the device code (a thread a
+// slot with 12 integer divisions or modulos, 24 scalar 4-byte loads, and
+// one same-address atomicMax a warp: 53,760 a step at v2's [42, 10, 32,
+// 128]).
+//
+// Design: a block row per (z, yb) plane, whose four group source rows each
+// thread computes once (no division a slot); a thread owns 4 slots and
+// reads each input as a 16-byte load, channel by channel (8 loads in
+// flight a channel: position, w, home force, 4 groups, reference). The
+// drift is reduced in the block (warp max of the non-negative floats' int
+// bits, then across the warps) and each block stores its maximum; the last
+// block to finish (a ticket counter, which it resets) reduces those into
+// the output's drift slot, so no buffer is zeroed a call.
+//
+// What bounds it: memory, 24 grid reads (x, y, z, w, the 15 force grids,
+// the 3 reference positions) and 6 grid writes per call.
 
 #include "gj_common.cuh"
 
+#include <cstddef>
+#include <cstdint>
+
 namespace {
 
-struct Ins {
-  // x, y, z, wx, wy, wz, hfx, hfy, hfz, 12 groups (3 + 3g + c), rx, ry, rz
-  const float* p[24];
+constexpr int kThreads = 256;
+
+struct Grids {
+  const float4* p[3];  // x, y, z
+  const float4* w[3];
+  const float4* r[3];  // the reference positions
 };
 
-struct Outs {
-  float* p[6];
-};
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
 
-__global__ void gj_fold_update_kernel(Ins in, Outs out, const int* __restrict__ seed_ptr,
-                                      int* __restrict__ drift_bits, gj::Strag st, int n, int S,
-                                      int nz, int nyb, int plane, int noisy, int noise,
-                                      gj::Coef k) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  float dinf = 0.0f;
-  if (idx >= n && idx < n + S)
-    gj::strag_row(st, k, idx - n, static_cast<uint32_t>(*seed_ptr), noisy, noise);
-  if (idx < n) {
-    const int rem = idx % plane;
-    const int zyb = idx / plane;
-    const int yb = zyb % nyb;
-    const int zc = zyb / nyb;
-    const int gdz[4] = {1, 1, 1, 0};
-    const int gdyb[4] = {-1, 0, 1, 1};
-    int src[4];
-    for (int g = 0; g < 4; ++g) {
-      const int sz = (zc - gdz[g] + nz) % nz;
-      const int syb = (yb - gdyb[g] + nyb) % nyb;
-      src[g] = (sz * nyb + syb) * plane + rem;
+__device__ __forceinline__ void set_comp(float4& v, int j, float x) {
+  if (j == 0) v.x = x;
+  else if (j == 1) v.y = x;
+  else if (j == 2) v.z = x;
+  else v.w = x;
+}
+
+// NOISE: -1 none (T = 0), 0 "clt", 1 "bm". Blocks (plane4 / 256 rounded
+// up, nz nyb + 1); block row zyb < nz nyb: thread q owns slots 4 q .. 4 q +
+// 3 of that plane; the last row: thread q the straggler row q < S.
+template <int NOISE>
+__global__ void __launch_bounds__(kThreads)
+    gj_fold_update_rows(Grids in, const float4* __restrict__ f, float4* __restrict__ out,
+                        const int* __restrict__ seed_ptr, int* __restrict__ partial,
+                        unsigned* __restrict__ ticket, int* __restrict__ drift_bits,
+                        gj::Strag st, int S, int nz, int nyb, int plane4, gj::Coef k) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int zyb = blockIdx.y;
+  const int nzyb = nz * nyb;
+  const int grid4 = nzyb * plane4;
+  const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
+  int dbits = 0;  // the int bits of this thread's drift, a non-negative float
+  if (zyb == nzyb) {
+    if (q < S) gj::strag_row(st, k, q, seed, NOISE >= 0, NOISE < 0 ? 0 : NOISE);
+  } else if (q < plane4) {
+    const int zc = zyb / nyb;  // once a thread
+    const int yb = zyb - zc * nyb;
+    const int yb_up = yb + 1 == nyb ? 0 : yb + 1;  // yb - dyb for dyb = -1
+    const int yb_dn = yb == 0 ? nyb - 1 : yb - 1;  // for dyb = 1
+    const int z_dn = (zc == 0 ? nz : zc) - 1;      // z - dz for dz = 1
+    const int src[4] = {(z_dn * nyb + yb_up) * plane4 + q, (z_dn * nyb + yb) * plane4 + q,
+                        (z_dn * nyb + yb_dn) * plane4 + q, (zyb - yb + yb_dn) * plane4 + q};
+    const int at = zyb * plane4 + q;
+    const float4 x4 = in.p[0][at];
+    float m[4], dinf[4] = {0.0f, 0.0f, 0.0f, 0.0f}, nse[4][3];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      m[j] = comp(x4, j) < 1.0e8f ? 1.0f : 0.0f;
+      if (NOISE >= 0) {
+        gj::normals(seed, static_cast<uint32_t>(4 * at + j), 0u, NOISE, k.scale, nse[j]);
+      } else {
+        nse[j][0] = nse[j][1] = nse[j][2] = 0.0f;
+      }
     }
-    float nse[3] = {0.0f, 0.0f, 0.0f};
-    if (noisy)
-      gj::normals(static_cast<uint32_t>(*seed_ptr), static_cast<uint32_t>(idx), 0u, noise,
-                  k.scale, nse);
-    const float m = in.p[0][idx] < 1.0e8f ? 1.0f : 0.0f;
+#pragma unroll
     for (int c = 0; c < 3; ++c) {
-      float f = in.p[6 + c][idx];
-      for (int g = 0; g < 4; ++g) f = __fadd_rn(f, in.p[9 + 3 * g + c][src[g]]);
-      float po, wo;
-      gj::update(k, in.p[c][idx], in.p[3 + c][idx], f, nse[c], m, &po, &wo);
-      out.p[c][idx] = po;
-      out.p[3 + c][idx] = wo;
-      dinf = fmaxf(dinf, fabsf(__fsub_rn(po, in.p[21 + c][idx])));
+      const float4 p = c == 0 ? x4 : in.p[c][at];
+      const float4 w = in.w[c][at];
+      float4 acc = f[c * grid4 + at];
+      float4 g[4];
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) g[gi] = f[(3 + 3 * gi + c) * grid4 + src[gi]];
+      const float4 r = in.r[c][at];
+      float4 po, wo;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float fj = comp(acc, j);
+#pragma unroll
+        for (int gi = 0; gi < 4; ++gi) fj = __fadd_rn(fj, comp(g[gi], j));
+        float pj, wj;
+        gj::update(k, comp(p, j), comp(w, j), fj, nse[j][c], m[j], &pj, &wj);
+        set_comp(po, j, pj);
+        set_comp(wo, j, wj);
+        dinf[j] = fmaxf(dinf[j], fabsf(__fsub_rn(pj, comp(r, j))));
+      }
+      out[c * grid4 + at] = po;
+      out[(3 + c) * grid4 + at] = wo;
     }
-    dinf = __fmul_rn(m, dinf);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dbits = max(dbits, __float_as_int(__fmul_rn(m[j], dinf[j])));
   }
-  gj::drift_max(dinf, drift_bits);  // every lane of the warp reaches here
+  // the block's maximum, then the last block's over the blocks
+  __shared__ int warp_max[kThreads / 32];
+  __shared__ bool last;
+  dbits = __reduce_max_sync(0xffffffffu, dbits);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = dbits;
+  __syncthreads();
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  if (threadIdx.x < 32) {
+    dbits = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0;
+    dbits = __reduce_max_sync(0xffffffffu, dbits);
+    if (threadIdx.x == 0) {
+      partial[blockIdx.y * gridDim.x + blockIdx.x] = dbits;
+      __threadfence();
+      last = atomicInc(ticket, nblocks - 1) == nblocks - 1;  // wraps to 0 for the next call
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  dbits = 0;
+  for (unsigned b = threadIdx.x; b < nblocks; b += kThreads)
+    dbits = max(dbits, __ldcg(partial + b));
+  dbits = __reduce_max_sync(0xffffffffu, dbits);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = dbits;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    dbits = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0;
+    dbits = __reduce_max_sync(0xffffffffu, dbits);
+    if (threadIdx.x == 0) *drift_bits = dbits;
+  }
+}
+
+template <int NOISE>
+void launch(const Grids& in, const void* f, void* out, const void* seed, int* partial,
+            unsigned* ticket, int* drift, const gj::Strag& st, int S, int nz, int nyb,
+            int plane4, const gj::Coef& k, dim3 grid, cudaStream_t stream) {
+  gj_fold_update_rows<NOISE><<<grid, kThreads, 0, stream>>>(
+      in, static_cast<const float4*>(f), static_cast<float4*>(out),
+      static_cast<const int*>(seed), partial, ticket, drift, st, S, nz, nyb, plane4, k);
+}
+
+dim3 grid_of(int nz, int nyb, int plane, int S) {
+  const int plane4 = plane / 4;
+  const int bx = (plane4 > S ? plane4 : S) + kThreads - 1;
+  return dim3(bx / kThreads, nz * nyb + 1);
 }
 
 }  // namespace
 
-// ins: host array of 24 device pointers, outs: of 6; seed: device int32;
-// drift_bits: device int32[1], zeroed by the caller; strag_ins: spos, svel,
-// sforce (float32 [S, 3]) and spid (int32 [S]); strag_outs: spos', svel';
-// n = nz * nyb * plane.
-extern "C" int uammd_gj_fold_update(void** ins, void** outs, void* seed, void* drift_bits,
-                                    void** strag_ins, void** strag_outs, int n, int S,
-                                    int nz, int nyb, int plane, int noisy, int noise,
-                                    float hv, float bdt, float c_x, float dt, float a,
-                                    float hva, float bm, float scale, void* stream) {
-  Ins in;
-  for (int q = 0; q < 24; ++q) in.p[q] = static_cast<const float*>(ins[q]);
-  Outs out;
-  for (int q = 0; q < 6; ++q) out.p[q] = static_cast<float*>(outs[q]);
-  const gj::Strag st{static_cast<const float*>(strag_ins[0]),
-                     static_cast<const float*>(strag_ins[1]),
-                     static_cast<const float*>(strag_ins[2]),
-                     static_cast<const int*>(strag_ins[3]), static_cast<float*>(strag_outs[0]),
-                     static_cast<float*>(strag_outs[1])};
+// The int32 scratch a launch needs: a block's drift maximum each, then the
+// ticket counter; zeroed once by the caller, kept across calls (the last
+// block resets the ticket).
+extern "C" long long uammd_gj_fold_update_scratch(int nz, int nyb, int plane, int S) {
+  const dim3 g = grid_of(nz, nyb, plane, S);
+  return static_cast<long long>(g.x) * g.y + 1;
+}
+
+// The launch's geometry, for checks that need a slot's block: dims = the
+// blocks along a plane (grid.x), the block rows (grid.y: nz nyb planes, then
+// the straggler rows), a block's threads and a thread's slots; block
+// (row, col) updates slots [4 kThreads col, 4 kThreads (col + 1)) of plane row.
+extern "C" void uammd_gj_fold_update_grid(int nz, int nyb, int plane, int S, int* dims) {
+  const dim3 g = grid_of(nz, nyb, plane, S);
+  dims[0] = static_cast<int>(g.x);
+  dims[1] = static_cast<int>(g.y);
+  dims[2] = kThreads;
+  dims[3] = 4;
+}
+
+// x, y, z, wx, wy, wz, rx, ry, rz: device grids [nz, nyb, plane]; forces:
+// [15, nz, nyb, plane] (home x, y, z, then group g channel c at 3 + 3 g +
+// c); out: float32 [6 nz nyb plane + 6 S + 1]: x', y', z', w'x, w'y, w'z,
+// then spos', svel' [2, S, 3], then the drift; seed: device int32; scratch:
+// int32 [scratch_len] (uammd_gj_fold_update_scratch); spos, svel, sforce:
+// float32 [S, 3], spid: int32 [S] (null when S = 0); plane = CAP * NLANE, a
+// multiple of 4; the grids, forces and out 16-byte aligned. noisy 0: T = 0
+// (no noise); noise 0 "clt" (scale = amp sqrt(3) / 65536), 1 "bm" (scale =
+// amp).
+extern "C" int uammd_gj_fold_update(void* x, void* y, void* z, void* wx, void* wy, void* wz,
+                                    void* forces, void* rx, void* ry, void* rz, void* out,
+                                    void* seed, void* scratch, long long scratch_len,
+                                    void* spos, void* svel, void* sforce, void* spid, int S,
+                                    int nz, int nyb, int plane, int noisy, int noise, float hv,
+                                    float bdt, float c_x, float dt, float a, float hva,
+                                    float bm, float scale, void* stream) {
+  const void* grids[11] = {x, y, z, wx, wy, wz, rx, ry, rz, forces, out};
+  uintptr_t align = 0;
+  for (const void* g : grids) align |= reinterpret_cast<uintptr_t>(g);
+  const size_t T = static_cast<size_t>(nz) * nyb * plane;
+  if (nz < 1 || nyb < 1 || plane < 4 || plane % 4 != 0 || (align & 15) != 0 || S < 0 ||
+      15 * T >= (static_cast<size_t>(1) << 31) || nz * nyb + 1 > 65535 ||
+      scratch_len < uammd_gj_fold_update_scratch(nz, nyb, plane, S) || noise < 0 || noise > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  float* o = static_cast<float*>(out);
+  Grids in;
+  const void* ps[3] = {x, y, z};
+  const void* ws[3] = {wx, wy, wz};
+  const void* rs[3] = {rx, ry, rz};
+  for (int c = 0; c < 3; ++c) {
+    in.p[c] = static_cast<const float4*>(ps[c]);
+    in.w[c] = static_cast<const float4*>(ws[c]);
+    in.r[c] = static_cast<const float4*>(rs[c]);
+  }
+  const gj::Strag st{static_cast<const float*>(spos), static_cast<const float*>(svel),
+                     static_cast<const float*>(sforce), static_cast<const int*>(spid),
+                     o + 6 * T, o + 6 * T + 3 * static_cast<size_t>(S)};
   const gj::Coef k{hv, bdt, c_x, dt, a, hva, bm, scale};
-  const int threads = 256;
-  const int blocks = (n + S + threads - 1) / threads;
-  gj_fold_update_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, out, static_cast<const int*>(seed), static_cast<int*>(drift_bits), st, n, S, nz,
-      nyb, plane, noisy, noise, k);
+  int* partial = static_cast<int*>(scratch);
+  unsigned* ticket = reinterpret_cast<unsigned*>(partial + scratch_len - 1);
+  int* drift = reinterpret_cast<int*>(o + 6 * T + 6 * static_cast<size_t>(S));
+  const dim3 grid = grid_of(nz, nyb, plane, S);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int plane4 = plane / 4;
+  if (!noisy)
+    launch<-1>(in, forces, out, seed, partial, ticket, drift, st, S, nz, nyb, plane4, k, grid, s);
+  else if (noise == 0)
+    launch<0>(in, forces, out, seed, partial, ticket, drift, st, S, nz, nyb, plane4, k, grid, s);
+  else
+    launch<1>(in, forces, out, seed, partial, ticket, drift, st, S, nz, nyb, plane4, k, grid, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -92,8 +92,9 @@ NEWTON_PAIR_HALO = _build.Kernel(
     "newton_pair", "uammd_newton_pair_halo", [_P] * 9 + [_I] * 8 + [_F] * 7 + [_I] * 3)
 # uammd_fold(ins[15], out[3], nz, nyb, plane, stream)
 FOLD = _build.Kernel("fold", "uammd_fold", [_PP, _PP, _I, _I, _I])
-# uammd_fold_n(ins[5n], out[n], n, nz, nyb, plane, stream): the same source
-FOLD_N = _build.Kernel("fold", "uammd_fold_n", [_PP, _PP, _I, _I, _I, _I])
+# uammd_fold_n(raw [5, n, ...], out [n, ...], n, nz, nyb, plane, stream): the
+# same source
+FOLD_N = _build.Kernel("fold", "uammd_fold_n", [_P, _P, _I, _I, _I, _I])
 # uammd_fold_halo(in [15, ...], recv [9, nyb, CAP, NLANE], out [3, ...], nz,
 #                 nyb, plane, stream)
 FOLD_HALO = _build.Kernel("fold", "uammd_fold_halo", [_P, _P, _P, _I, _I, _I])
@@ -576,15 +577,23 @@ def fold_reactions_n_plain(home, groups):
 
 class FoldNKernel:
     """``fold(home[n], groups[4][n]) -> n grids`` for one ``GridSpec``, the
-    fold of the Newton channel kernel (n <= 6). CPU tensors go to
-    ``fold_reactions_n_plain``; CUDA tensors launch ``uammd_fold_n`` of
-    ``csrc/fold.cu`` (counted in ``FOLD_N.launches``) or raise."""
+    fold of the Newton channel kernel (n <= 6), and ``fold.stacked(raw [5,
+    n, nz, nyb, CAP, NLANE]) -> [n, nz, nyb, CAP, NLANE]``, the same on the
+    Newton channel kernel's buffer as it comes (home channel c at [0, c],
+    group g channel c at [1 + g, c]).
+
+    CPU tensors go to ``fold_reactions_n_plain``; CUDA tensors launch
+    ``uammd_fold_n`` of ``csrc/fold.cu`` (counted in ``FOLD_N.launches``;
+    the list form stacks its grids first) or raise."""
 
     def __init__(self, spec: GridSpec, n: int):
         if not 1 <= n <= 6:
             raise ValueError(f"the fold takes 1 to 6 channels, not {n}")
         self.spec = spec
         self.n = n
+        self._raw_shape = torch.Size((5, n) + spec.array_shape)
+        nz, nyb, cap, nlane = spec.array_shape
+        self._args = (n, nz, nyb, cap * nlane)
 
     def __call__(self, home, groups):
         n = self.n
@@ -597,13 +606,22 @@ class FoldNKernel:
                 if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
                     raise ValueError(f"fold inputs must be float32 CPU tensors of shape {shape}")
             return fold_reactions_n_plain(home, groups)
-        for k, t in enumerate(ins):
-            _build.check_cuda_tensor(t, f"fold input {k}", shape)
-        out = torch.empty((n,) + shape, dtype=torch.float32, device=ins[0].device)
-        nz, nyb, cap, nlane = shape
-        FOLD_N((_P * (5 * n))(*(t.data_ptr() for t in ins)),
-               (_P * n)(*(o.data_ptr() for o in out)), n, nz, nyb, cap * nlane)
-        return tuple(out)
+        _build.check_cuda_tensors(ins, "fold input", shape)
+        return tuple(self.stacked(torch.stack(ins).view(self._raw_shape)).unbind(0))
+
+    def stacked(self, raw: torch.Tensor) -> torch.Tensor:
+        if raw.device.type == "cpu":
+            if raw.dtype != torch.float32 or raw.shape != self._raw_shape:
+                raise ValueError(f"raw must be a float32 CPU tensor of shape "
+                                 f"{tuple(self._raw_shape)}")
+            return torch.stack(fold_reactions_n_plain(raw[0], raw[1:]))
+        if self._args[3] % 4:
+            raise ValueError(f"the n-channel fold reads 4 slots at a time: CAP x NLANE = "
+                             f"{self._args[3]} is not a multiple of 4")
+        _build.check_cuda_tensor(raw, "raw", self._raw_shape)
+        out = torch.empty(self._raw_shape[1:], dtype=torch.float32, device=raw.device)
+        FOLD_N(raw.data_ptr(), out.data_ptr(), *self._args)
+        return out
 
 
 def make_fold_kernel_n(spec: GridSpec, n: int) -> FoldNKernel:
@@ -678,12 +696,13 @@ class NewtonChannelKernel:
     functor ``fn`` and ``nvec`` (1 or 2) stacked 3-vectors: the Newton
     channel kernel (#10) followed by the n-channel fold (#9), as the JAX
     kernel's ``apply`` returns them; ``raw`` gives the unfolded (home,
-    groups, spart). The JAX kernel returns the straggler rows as
-    per-program partial grids that its caller sums over (z, yb, lane); here
-    they come summed. CPU tensors run ``newton_channel_plain`` and
-    ``fold_reactions_n_plain``; CUDA tensors launch ``csrc/newton_channel.cu``
-    (counted in ``NEWTON_CHANNEL.launches``) and ``uammd_fold_n`` or
-    raise."""
+    groups, spart), ``raw_stacked`` the same as the kernel's one buffer.
+    The JAX kernel returns the straggler rows as per-program partial grids
+    that its caller sums over (z, yb, lane); here they come summed. CPU
+    tensors run ``newton_channel_plain`` and ``fold_reactions_n_plain``;
+    CUDA tensors launch ``csrc/newton_channel.cu`` (counted in
+    ``NEWTON_CHANNEL.launches``) and ``uammd_fold_n`` on its buffer as it
+    is (``FoldNKernel.stacked``) or raise."""
 
     # 0; a check's control sets 1 on an instance to stop every candidate
     # loop one row short (the CPU path ignores it)
@@ -702,13 +721,30 @@ class NewtonChannelKernel:
         self.plan = None  # newton_channel_plan, at the first launch
 
     def raw(self, x, y, z, *channels, strag=None):
+        if x.device.type == "cpu":
+            if self.spec.n_strag and strag is None:
+                raise ValueError("a straggler-capable spec needs the strag block")
+            check_cpu_inputs(self.spec, self.nvec, x, y, z, channels,
+                             "the Newton channel kernel")
+            return newton_channel_plain(self.spec, self.fn, self.nvec, x, y, z, channels,
+                                        strag)
+        raw, spart = self.raw_stacked(x, y, z, *channels, strag=strag)
+        home = tuple(raw[0])
+        groups = tuple(tuple(raw[1 + g]) for g in range(4))
+        return home, groups, spart
+
+    def raw_stacked(self, x, y, z, *channels, strag=None):
+        """``raw`` as the kernel writes it: ``(raw [5, 3 nvec, nz, nyb, CAP,
+        NLANE], spart [3 nvec, S] or None)``, home channel c at [0, c] and
+        group g channel c at [1 + g, c] (stacked from the plain version's on
+        CPU tensors), as ``FoldNKernel.stacked`` takes it."""
         spec, nvec = self.spec, self.nvec
         S = spec.n_strag
         if S and strag is None:
             raise ValueError("a straggler-capable spec needs the strag block")
         if x.device.type == "cpu":
-            check_cpu_inputs(spec, nvec, x, y, z, channels, "the Newton channel kernel")
-            return newton_channel_plain(spec, self.fn, nvec, x, y, z, channels, strag)
+            home, groups, spart = self.raw(x, y, z, *channels, strag=strag)
+            return torch.stack([torch.stack(home)] + [torch.stack(g) for g in groups]), spart
         ch, srows = channel_launch_args(spec, 3 * nvec, x, y, z, channels, strag,
                                         "the Newton channel kernel")
         if self.plan is None:
@@ -726,16 +762,14 @@ class NewtonChannelKernel:
             nvec, nx, spec.nyb, nz, spec.fold, spec.cap, S, plan.cc, plan.fc, self.occ_trim,
             *spec.box_size, *_strag_inv(spec), self.fn.struct(),
         )
-        home = tuple(raw[0])
-        groups = tuple(tuple(raw[1 + g]) for g in range(4))
-        return home, groups, (spart if S else None)
+        return raw, (spart if S else None)
 
     def __call__(self, x, y, z, *channels, strag=None):
-        home, groups, spart = self.raw(x, y, z, *channels, strag=strag)
-        folded = self.fold(home, groups)
+        raw, spart = self.raw_stacked(x, y, z, *channels, strag=strag)
+        folded = self.fold.stacked(raw).unbind(0)
         if self.spec.n_strag:
-            return tuple(folded) + tuple(spart)
-        return tuple(folded)
+            return folded + spart.unbind(0)
+        return folded
 
 
 def make_newton_channel_kernel(spec: GridSpec, fn: PSENear, nvec: int = 1) -> NewtonChannelKernel:

@@ -190,6 +190,11 @@ class GridState:
     reaction groups (12 grid tensors, ``kernel2.REACTION_GROUPS`` x 3
     components) while the fused update folds them in, else ``()``; the
     physical force is then fx + the shifted groups (``GridMD2.folded_forces``).
+    ``fstack`` is then the Newton pair kernel's [15, nz, nyb, CAP, NLANE]
+    output that fx, fy, fz and ``fgrp`` are views of, else None. Those
+    four fields are the forces; ``fstack`` only saves restacking them:
+    ``replace`` drops it when any of them is replaced without it, and
+    ``force_stack`` hands it out only while they are still its views.
     """
 
     spec: GridSpec
@@ -215,6 +220,7 @@ class GridState:
     sforce: torch.Tensor
     spid: torch.Tensor
     fgrp: tuple = ()
+    fstack: torch.Tensor | None = None
 
     @property
     def mask(self) -> torch.Tensor:
@@ -225,7 +231,24 @@ class GridState:
         return self.x.device
 
     def replace(self, **kw) -> "GridState":
+        if "fstack" not in kw and not _FORCE_FIELDS.isdisjoint(kw):
+            kw["fstack"] = None  # the buffer no longer holds the forces
         return dataclasses.replace(self, **kw)
+
+    def force_stack(self) -> torch.Tensor:
+        """fx, fy, fz and then ``fgrp`` as one [3 + len(fgrp), nz, nyb, CAP,
+        NLANE] tensor: ``fstack`` while they are its views in that order,
+        else a new stack of them."""
+        forces = (self.fx, self.fy, self.fz) + tuple(self.fgrp)
+        f = self.fstack
+        if f is not None and f.shape[0] == len(forces):
+            base, stride = f.data_ptr(), f.stride(0) * f.element_size()
+            if all(t.data_ptr() == base + k * stride for k, t in enumerate(forces)):
+                return f
+        return torch.stack(forces)
+
+
+_FORCE_FIELDS = frozenset(("fx", "fy", "fz", "fgrp"))
 
 
 def recip32(L: float) -> float:

@@ -13,14 +13,15 @@ velocity w(t) = v(t) - (dt/2m) f(t); ``velocities_of`` and
 
 ``fold_in_update`` has the JAX package's meaning. On (the default, as on
 the TPU) the fold happens in the update: the state keeps the home force in
-fx, fy, fz and the 12 reaction-group grids in ``fgrp``, and a step launches
-the fused fold + update kernel (#12); on the CPU its plain version folds
-and then updates, which computes the same thing. Off, ``compute_forces``
-folds with the fold kernel (#7) and stores the folded forces (``fgrp`` is
-``()``), and a step launches the update from folded forces (#11), which
-has Box-Muller noise whatever ``noise`` says (the JAX kernel has no
-switch). Both updates draw from the same counter streams. Either way the
-straggler-aware rebin is ``rebin_fast3`` (three one-axis passes), as in
+fx, fy, fz and the 12 reaction-group grids in ``fgrp``, views of the
+Newton pair kernel's one [15, ...] output (``fstack``), and a step hands
+that buffer (``GridState.force_stack``) to the fused fold + update kernel
+(#12); on the CPU its plain version folds and then updates, which
+computes the same thing. Off, ``compute_forces`` folds with the fold
+kernel (#7) and stores the folded forces (``fgrp`` is ``()``), and a step
+launches the update from folded forces (#11), which has Box-Muller noise
+whatever ``noise`` says (the JAX kernel has no switch). Both updates draw
+from the same counter streams. Either way the straggler-aware rebin is ``rebin_fast3`` (three one-axis passes), as in
 the JAX engine (md2.py:244).
 
 ``lax.scan`` becomes a Python loop and the ``lax.cond`` on the drift one
@@ -95,13 +96,15 @@ class GridMD2:
         forces."""
         S = self.spec.n_strag
         strag = broadcast_stragglers(self.spec, gs.spos, gs.spid) if S else None
-        home, groups, sf = self.pair(gs.x, gs.y, gs.z, strag)
         if self.fold_in_update:
-            rep = dict(fx=home[0], fy=home[1], fz=home[2],
-                       fgrp=tuple(c for g in groups for c in g))
+            # the kernel's one buffer, kept whole for the update
+            fstack, sf = self.pair.stacked(gs.x, gs.y, gs.z, strag)
+            f = fstack.unbind(0)
+            rep = dict(fx=f[0], fy=f[1], fz=f[2], fgrp=f[3:], fstack=fstack)
         else:
+            home, groups, sf = self.pair(gs.x, gs.y, gs.z, strag)
             fx, fy, fz = self.fold(home, groups)
-            rep = dict(fx=fx, fy=fy, fz=fz, fgrp=())
+            rep = dict(fx=fx, fy=fy, fz=fz, fgrp=(), fstack=None)
         if S:
             sf = sf + straggler_pair_forces(self.spec, self.g_fn, gs.spos, gs.spid)
             rep["sforce"] = sf * (gs.spid >= 0)[:, None]
@@ -144,12 +147,12 @@ class GridMD2:
         strag = (gs.spos, gs.svel, gs.sforce, gs.spid) if spec.n_strag else None
         # the grid and the straggler rows in one update, noise keyed by the
         # step seed (the JAX engine's _strag_update, md2.py:190, runs inside)
-        grids = (gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz, gs.fx, gs.fy, gs.fz)
+        grids = (gs.x, gs.y, gs.z, gs.vx, gs.vy, gs.vz)
         refs = (gs.ref_x, gs.ref_y, gs.ref_z)
         if self.fold_in_update:
-            res = self.update(*grids, gs.fgrp, *refs, gs.step, strag)
+            res = self.update.stacked(*grids, gs.force_stack(), *refs, gs.step, strag)
         else:
-            res = self.update(*grids, *refs, gs.step, strag)
+            res = self.update(*grids, gs.fx, gs.fy, gs.fz, *refs, gs.step, strag)
         (x, y, z, wx, wy, wz), drift = res[:2]
         gs = gs.replace(x=x, y=y, z=z, vx=wx, vy=wy, vz=wz, step=gs.step + 1)
         if spec.n_strag:

@@ -60,12 +60,13 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 TWO_PI = float(np.float32(2.0 * math.pi))
 NOISES = ("clt", "bm")
 
-# uammd_gj_fold_update(ins[24], outs[6], seed, drift_bits, strag_ins[4],
-#                      strag_outs[2], n, S, nz, nyb, plane, noisy, noise, hv,
+# uammd_gj_fold_update(x, y, z, wx, wy, wz, forces [15, ...], rx, ry, rz,
+#                      out [6 T + 6 S + 1], seed, scratch, scratch_len, spos,
+#                      svel, sforce, spid, S, nz, nyb, plane, noisy, noise, hv,
 #                      bdt, c_x, dt, a, hva, bm, scale, stream)
 GJ_FOLD_UPDATE = _build.Kernel(
     "gj_fold_update", "uammd_gj_fold_update",
-    [_PP, _PP, _P, _P, _PP, _PP] + [_I] * 7 + [_F] * 8)
+    [_P] * 13 + [ctypes.c_longlong] + [_P] * 4 + [_I] * 6 + [_F] * 8)
 
 # uammd_gj_update(ins[12], outs[6], seed, drift_bits, strag_ins[4],
 #                 strag_outs[2], n, S, noisy, hv, bdt, c_x, dt, a, hva, bm,
@@ -241,17 +242,36 @@ def _strag_launch_args(strag, dev):
     return S, sins, sout
 
 
+def gj_fold_update_scratch(dev, spec: GridSpec, S: int) -> torch.Tensor:
+    """A zeroed int32 scratch for #12's launches on ``dev`` with ``S``
+    straggler rows, of the length its library asks for
+    (``uammd_gj_fold_update_scratch``: a drift maximum a block, then the
+    ticket counter)."""
+    size = _build.load("gj_fold_update").uammd_gj_fold_update_scratch
+    size.restype = ctypes.c_longlong
+    nz, nyb, cap, nlane = spec.array_shape
+    n = size(ctypes.c_int(nz), ctypes.c_int(nyb), ctypes.c_int(cap * nlane), ctypes.c_int(S))
+    return torch.zeros(int(n), dtype=torch.int32, device=dev)
+
+
 class GJFoldUpdateKernel:
     """``update(x, y, z, wx, wy, wz, hfx, hfy, hfz, groups12, rx, ry, rz,
     seed[, strag]) -> ((x', y', z', wx', wy', wz'), drift[, (spos',
     svel')])`` for one ``GridSpec``; ``seed`` is the 0-d int32
     ``GridState.step`` (read on the device by the kernel), ``drift`` a 0-d
     float32 tensor and ``strag`` the straggler rows (spos, svel, sforce
-    [S, 3] float32, spid [S] int32).
+    [S, 3] float32, spid [S] int32). ``update.stacked(x, y, z, wx, wy, wz,
+    forces, rx, ry, rz, seed[, strag])`` is the same with the 15 force grids
+    as one [15, nz, nyb, CAP, NLANE] buffer, the Newton pair kernel's output
+    as ``NewtonPairKernel.stacked`` returns it (home x, y, z, then group g
+    channel c at 3 + 3 g + c).
 
     CPU tensors go to ``gj_fold_update_plain``; CUDA tensors launch
-    ``csrc/gj_fold_update.cu`` (counted in ``GJ_FOLD_UPDATE.launches``) or
-    raise."""
+    ``csrc/gj_fold_update.cu`` (counted in ``GJ_FOLD_UPDATE.launches``; the
+    list form stacks its forces first) or raise. The kernel keeps a small
+    int32 scratch on the instance (a drift maximum a block and a ticket
+    counter that the launch resets), so one instance serves one stream at a
+    time."""
 
     def __init__(self, spec: GridSpec, dt, temperature, friction, mass, *, noise="bm"):
         if noise not in NOISES:
@@ -259,41 +279,73 @@ class GJFoldUpdateKernel:
         self.spec = spec
         self.noise = noise
         self.coef = GJCoefficients(dt, temperature, friction, mass)
+        c = self.coef
+        scale = (float(np.float32(c.amp) * np.float32(math.sqrt(3.0) / 65536.0))
+                 if noise == "clt" else c.amp)
+        nz, nyb, cap, nlane = spec.array_shape
+        self._shape = torch.Size(spec.array_shape)
+        self._fshape = torch.Size((15,) + spec.array_shape)
+        # the launch's arguments after the straggler count
+        self._tail = (nz, nyb, cap * nlane, int(c.noisy), NOISES.index(noise),
+                      c.hv, c.bdt, c.c_x, c.dt, c.a, c.hva, c.bm, scale)
+        self._scratch = {}  # (device, S) -> the launch's int32 scratch
 
     def __call__(self, x, y, z, wx, wy, wz, hfx, hfy, hfz, groups, rx, ry, rz, seed,
                  strag=None):
         spec = self.spec
         shape = spec.array_shape
-        grids = [x, y, z, wx, wy, wz, hfx, hfy, hfz, *groups, rx, ry, rz]
-        if len(grids) != 24:
+        forces = [hfx, hfy, hfz, *groups]
+        if len(forces) != 15:
             raise ValueError("update takes 12 reaction-group grids")
         if x.device.type == "cpu":
-            for t in grids:
+            for t in [x, y, z, wx, wy, wz, *forces, rx, ry, rz]:
                 if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
                     raise ValueError(f"update inputs must be float32 CPU tensors of shape {shape}")
             return gj_fold_update_plain(spec, self.coef, self.noise, x, y, z, wx, wy, wz,
                                         hfx, hfy, hfz, groups, rx, ry, rz, seed, strag)
-        for k, t in enumerate(grids):
-            _build.check_cuda_tensor(t, f"update input {k}", shape)
-        _build.check_cuda_tensor(seed, "seed", (), dtype=torch.int32)
+        _build.check_cuda_tensors(forces, "update force", shape)
+        return self.stacked(x, y, z, wx, wy, wz, torch.stack(forces), rx, ry, rz, seed, strag)
+
+    def stacked(self, x, y, z, wx, wy, wz, forces, rx, ry, rz, seed, strag=None):
+        shape = self._shape
+        grids = (x, y, z, wx, wy, wz, rx, ry, rz)
+        if x.device.type == "cpu":
+            named = [(f"update grid {k}", t, shape) for k, t in enumerate(grids)]
+            for name, t, shp in named + [("forces", forces, self._fshape)]:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or t.shape != shp:
+                    raise ValueError(f"{name} must be a float32 CPU tensor of shape "
+                                     f"{tuple(shp)}")
+            return gj_fold_update_plain(self.spec, self.coef, self.noise, x, y, z, wx, wy, wz,
+                                        forces[0], forces[1], forces[2], forces[3:], rx, ry, rz,
+                                        seed, strag)
+        _build.check_cuda_tensors(grids, "update grid", shape)
+        _build.check_cuda_tensor(forces, "forces", self._fshape)
+        if self._tail[2] % 4:
+            raise ValueError(f"the update reads 4 slots at a time: CAP x NLANE = "
+                             f"{self._tail[2]} is not a multiple of 4")
+        if not (seed.is_cuda and seed.dtype is torch.int32 and seed.dim() == 0):
+            _build.check_cuda_tensor(seed, "seed", (), dtype=torch.int32)
+        if strag is None:
+            S, sp = 0, (None,) * 4
+        else:
+            S = strag[3].shape[0]
+            _build.check_cuda_tensors(strag[:3], "straggler input", (S, 3))
+            _build.check_cuda_tensor(strag[3], "spid", (S,), dtype=torch.int32)
+            sp = tuple(t.data_ptr() for t in strag)
+        T = self.spec.n_slots
         dev = x.device
-        out = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
-        drift_bits = torch.zeros(1, dtype=torch.int32, device=dev)
-        S, sins, sout = _strag_launch_args(strag, dev)
-        c = self.coef
-        scale = (float(np.float32(c.amp) * np.float32(math.sqrt(3.0) / 65536.0))
-                 if self.noise == "clt" else c.amp)
-        nz, nyb, cap, nlane = shape
-        GJ_FOLD_UPDATE(
-            (_P * 24)(*(t.data_ptr() for t in grids)),
-            (_P * 6)(*(o.data_ptr() for o in out)),
-            _build.ptr(seed), _build.ptr(drift_bits),
-            sins, (_P * 2)(sout[0].data_ptr(), sout[1].data_ptr()),
-            spec.n_slots, S, nz, nyb, cap * nlane, int(c.noisy), NOISES.index(self.noise),
-            c.hv, c.bdt, c.c_x, c.dt, c.a, c.hva, c.bm, scale,
-        )
-        grid = (tuple(out[k] for k in range(6)), drift_bits.view(torch.float32)[0])
-        return grid if strag is None else grid + ((sout[0], sout[1]),)
+        buf = torch.empty(6 * T + 6 * S + 1, dtype=torch.float32, device=dev)
+        scratch = self._scratch.get((dev, S))
+        if scratch is None:  # zeroed once; the launches keep it so
+            scratch = self._scratch[(dev, S)] = gj_fold_update_scratch(dev, self.spec, S)
+        GJ_FOLD_UPDATE(x.data_ptr(), y.data_ptr(), z.data_ptr(), wx.data_ptr(), wy.data_ptr(),
+                       wz.data_ptr(), forces.data_ptr(), rx.data_ptr(), ry.data_ptr(),
+                       rz.data_ptr(), buf.data_ptr(), seed.data_ptr(), scratch.data_ptr(),
+                       scratch.numel(), *sp, S, *self._tail)
+        grid = (buf[:6 * T].view((6,) + shape).unbind(0), buf[6 * T + 6 * S])
+        if strag is None:
+            return grid
+        return grid + (buf[6 * T:6 * T + 6 * S].view(2, S, 3).unbind(0),)
 
 
 def make_gj_fold_update_kernel(spec: GridSpec, dt, temperature, friction, mass, *,
