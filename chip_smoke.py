@@ -61,7 +61,8 @@ Imports nothing of JAX or of the JAX package. Phases:
      last); #5 is also held exactly to plain on every rebin of the
      unfused path's settle steps and of the 1-shard DD2 path, at Q 4 on
      the PSE near grid, and on each state its rows are timed at; ptxas
-     must report no spill in any instance of #3, #5, the folds and #12;
+     must report no spill in any instance of #3, #4, #5, the folds, #11
+     and #12;
    - pencil spread and interpolation (kernels #13/#14 of the BDHI-FCM
      path): max|d| <= ``PENCIL_TOL`` x max|ref| at n 5000, L 24, 32^3 for
      the Gaussian, Peskin 3- and 4-point and ES/BM windows, slack 0 and 1,
@@ -112,7 +113,16 @@ Imports nothing of JAX or of the JAX package. Phases:
      ``mini``, count and overflow exactly equal, every particle kept, and
      ``rebin_fast2`` equal by pid to ``rebin_fast3`` and the sort rebin.
      Controls: #11 with the seed off by one must fail the bound; #4 without
-     its straggler block must lose the stragglers from its count.
+     its straggler block must lose the stragglers from its count. The
+     drift of #11 and #12 (``drift_rule_checks``, JAX's select rule) on
+     both states with one slot 0.9 from its reference and, in turn, x =
+     NaN on an occupied slot, fy = NaN on one and wz = NaN on an empty one:
+     equal to plain bit for bit and NaN exactly where plain is (the NaN
+     force), at T = 0 (#11, #12 "clt") and T = 1.5 (#12 "clt"); #11's
+     straggler-drift option (float32 pid + 1, references ``sref``) with a
+     NaN on an occupied and on an empty row; two controls that must fail
+     somewhere: the old ``fmaxf`` rule's replica and the ``0 x NaN``
+     rule's.
    - slice E1 (``poisson_checks``): #2 with the Poisson functor against its
      plain version on the electrolyte's packed state, without and with 64
      straggler rows (``CHANNEL_TOL``), the straggler spec's near field
@@ -218,7 +228,8 @@ Imports nothing of JAX or of the JAX package. Phases:
      step, #12 never, #5 on drift, one host read per step. In the settle
      steps every state the engine hands its rebin also goes through
      ``rebin_fast2`` (#4), which must keep the same particles by pid as
-     the engine's ``rebin_fast3``; #4 against its plain version on the last
+     the engine's ``rebin_fast3`` and the sort rebin; #4 against its plain
+     version on the last
      of them and on the final liquid after a sub-cell drift, and #11 on
      the final liquid; #7 + #11 against #12 on one
      Newton output (``UNFUSED_TOL``, bit-equality reported); the fused
@@ -241,8 +252,11 @@ Imports nothing of JAX or of the JAX package. Phases:
      the count audit N, finite state, #6 ``halo_z``, #8 and #11 once per
      shard per step, #6/#7/#12 never, #5 (1 shard) or the two-sort rebin
      (4 shards) on drift, at most one host read per step outside rebins.
-     #11 on each DD2 path's final state against its plain version
-     (``dd_update_row``: occupied slots within ``UNFUSED_TOL``).
+     #11 on each DD2 path's final state against its plain version as the
+     step calls it (the rows' float32 pid + 1 and references;
+     ``dd_update_row``: occupied slots within ``UNFUSED_TOL``), #6
+     ``halo_z`` on the 1-shard path's final state against its plain
+     version (``newton_halo_1_shard_row``).
      ``dd2_trajectory_parity``: DD2 on 4 shards against the single-chip
      unfused engine at T = 0 with a rebin forced at step 1, within 1e-5
      after 2 steps. DD v1, DPD and SPH (``main_path_dd_v1``, ``_dpd``,
@@ -290,7 +304,9 @@ Imports nothing of JAX or of the JAX package. Phases:
    print the v2, FCM, PSE, DPD, SPH, unfused v2 and Poisson steps'
    breakdowns and the kernels' JSON line (thirteen kernels, the six new
    functors of #2, #1's observable mode, the Lanczos sqrt kernel, slice
-   G1's #6 ``halo_z``, #8, #1 halo and #2 halo rows, slice G2a's #2 PSE
+   G1's #6 ``halo_z`` (4 shards and 1), #8, #11, #1 halo and #2 halo rows
+   (the rows of #11 and #4 with the profiler's device time, warm and with
+   the L2 flushed, #11's also with its host time a launch), slice G2a's #2 PSE
    halo, #2 radial halo and #1 fused halo rows, #13 and #14 at the PSE
    and Poisson far fields besides FCM's, and #3 at the DPD and SPH paths'
    final states besides v1's, each with its launch plan).
@@ -609,14 +625,14 @@ def update_inputs(gs, home, groups, seed: int):
     return ([gs.x, gs.y, gs.z] + w + list(home), [c for g in groups for c in g], ref, step)
 
 
-def update_grid(spec, strag_rows: int) -> dict:
-    """#12's launch geometry as its library reports it
-    (``uammd_gj_fold_update_grid``)."""
+def update_grid(spec, strag_rows: int, name: str = "gj_fold_update") -> dict:
+    """#12's (or, with ``name`` "gj_update", #11's) launch geometry as its
+    library reports it (``uammd_<name>_grid``)."""
     from uammd_tpu_torch.engine import _build
 
     nz, nyb, cap, nlane = spec.array_shape
     dims = (ctypes.c_int * 4)()
-    _build.load("gj_fold_update").uammd_gj_fold_update_grid(
+    getattr(_build.load(name), f"uammd_{name}_grid")(
         ctypes.c_int(nz), ctypes.c_int(nyb), ctypes.c_int(cap * nlane),
         ctypes.c_int(strag_rows), dims)
     return dict(zip(("blocks_x", "block_rows", "threads", "slots_a_thread"), dims))
@@ -836,6 +852,27 @@ def sep_plan_of(spec, ocap) -> dict:
                                                             spec.cap, spec.n_strag))}
     check(all(plan[k] == v for k, v in got.items()),
           f"#5 plan: the library's {got} == the plan's {plan}")
+    return plan
+
+
+def rebin2_plan_of(spec, ocap) -> dict:
+    """#4's launch plan (#5's geometry) with the library's own scratch
+    bytes, shared memory and threads, which must equal the plan's."""
+    from uammd_tpu_torch.engine import _build
+    from uammd_tpu_torch.engine import rebin_kernel as rk
+
+    plan = rk.rebin2_launch_plan(spec, ocap)
+    lib = _build.load("rebin2")
+    lib.uammd_rebin2_smem.restype = ctypes.c_longlong
+    lib.uammd_rebin2_scratch.restype = ctypes.c_longlong
+    nx, _, nz = spec.shape
+    got = {"pull_smem_bytes": int(lib.uammd_rebin2_smem(spec.cap, ocap, spec.nlane,
+                                                        spec.n_strag)),
+           "pull_threads": int(lib.uammd_rebin2_threads(spec.nlane)),
+           "scratch_bytes": int(lib.uammd_rebin2_scratch(nx, spec.nyb, nz, spec.fold,
+                                                         spec.cap, spec.n_strag))}
+    check(all(plan[k] == v for k, v in got.items()),
+          f"#4 plan: the library's {got} == the plan's {plan}")
     return plan
 
 
@@ -3350,6 +3387,138 @@ def check_gj_update(gs, temperature: float, what: str, control: bool = False):
     return err, err_abs
 
 
+DRIFT_STATES = ("finite", "nan_position", "nan_force_occupied", "nan_velocity_empty")
+
+
+def same_float(a: float, b: float) -> bool:
+    return (math.isnan(a) and math.isnan(b)) or a == b
+
+
+def drift_state(grids, state: str, slots):
+    """The update's 12 input grids (x, y, z, w, f, the references) with
+    slot ``slots[0]`` (occupied) 0.9 further from its x reference and the
+    state's non-finite value: x = NaN on the occupied slot ``slots[1]``
+    (which then counts as empty), fy = NaN there, or wz = NaN on the empty
+    slot ``slots[2]``."""
+    g = [t.clone() for t in grids]
+    i0, i1, i2 = slots
+    g[9].view(-1)[i0] -= 0.9
+    at = {"nan_position": (0, i1), "nan_force_occupied": (7, i1),
+          "nan_velocity_empty": (5, i2)}.get(state)
+    if at is not None:
+        g[at[0]].view(-1)[at[1]] = float("nan")
+    return g
+
+
+def drift_rule_replicas(x, out, ref) -> dict:
+    """The drifts the two wrong rules give on the plain update's outputs:
+    the old kernels' ``fmaxf`` chain times the mask (a NaN dropped) and
+    ``mask * max(...)`` (0 x NaN kept NaN on an empty slot)."""
+    import torch
+
+    m = (x < 1.0e8).to(torch.float32)
+    d = [(o - r).abs() for o, r in zip(out[:3], ref)]
+    chain = torch.fmax(torch.fmax(torch.fmax(torch.zeros_like(d[0]), d[0]), d[1]), d[2])
+    return {"fmaxf": float((m * chain).amax()),
+            "zero_times_nan": float((m * torch.maximum(d[0], torch.maximum(d[1], d[2]))).amax())}
+
+
+def drift_rule_checks(gs, what: str, strag_rows: bool = False) -> dict:
+    """#11 and #12's drift against their plain versions on ``DRIFT_STATES``
+    built on ``gs`` (the Newton kernel's forces, random w, references up to
+    0.2 away): bit-equal, NaN exactly where plain is NaN (the NaN force on
+    an occupied slot), at T = 0 (#11, and #12 "clt") and T = 1.5 (#12
+    "clt"). Two controls that must fail, each on some state: the old
+    ``fmaxf`` rule's replica and the ``0 x NaN`` rule's. With
+    ``strag_rows``, #11's straggler-drift option too (the rows' ids as the
+    DD2 state's float32 pid + 1, their references ``sref``): a NaN on an
+    occupied row makes the drift NaN, one on an empty row changes
+    nothing."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2
+    from uammd_tpu_torch.engine import update_kernel as uk
+
+    home, groups, sf = newton_pair(gs)
+    folded = list(kernel2.make_fold_kernel(gs.spec)(home, groups))
+    a, grp, ref, step = update_inputs(gs, home, groups, 20261)
+    flat = gs.mask.reshape(-1)
+    occ, empty = flat.nonzero().flatten(), (~flat).nonzero().flatten()
+    slots = (int(occ[0]), int(occ[len(occ) // 2]), int(empty[len(empty) // 2]))
+    n0, f0 = uk.GJ_UPDATE.launches, uk.GJ_FOLD_UPDATE.launches
+    got, plain, rules = {}, {}, {}
+    for state in DRIFT_STATES:
+        g11 = drift_state(a[:6] + folded + ref, state, slots)
+        g12 = drift_state(a + ref, state, slots)
+        for temperature in (0.0, TEMPERATURE):
+            if temperature == 0.0:
+                k11 = uk.make_gj_update_kernel(gs.spec, 0.01, temperature, 1.0, 1.0)
+                res = k11(*g11, step)
+                want = uk.gj_update_plain(gs.spec, k11.coef, *g11, step)
+                key = f"#11 T0 {state}"
+                got[key], plain[key] = float(res[1]), float(want[1])
+                rules[key] = drift_rule_replicas(g11[0], want[0], g11[9:])
+            k12 = uk.make_gj_fold_update_kernel(gs.spec, 0.01, temperature, 1.0, 1.0,
+                                                noise="clt")
+            forces = torch.stack(g12[6:9] + grp)
+            res = k12.stacked(*g12[:6], forces, *g12[9:], step)
+            want = uk.gj_fold_update_plain(gs.spec, k12.coef, "clt", *g12[:9], grp, *g12[9:],
+                                           step)
+            key = f"#12 clt T{temperature} {state}"
+            got[key], plain[key] = float(res[1]), float(want[1])
+            rules[key] = drift_rule_replicas(g12[0], want[0], g12[9:])
+    if strag_rows:
+        k11 = uk.make_gj_update_kernel(gs.spec, 0.01, 0.0, 1.0, 1.0)
+        valid = gs.spid >= 0
+        rows_v, rows_e = valid.nonzero().flatten(), (~valid).nonzero().flatten()
+        spidf = (gs.spid + 1).to(torch.float32)
+        sref = gs.spos - 0.05
+        for state in ("finite", "nan_strag_occupied", "nan_strag_empty"):
+            spos = gs.spos.clone()
+            if state == "nan_strag_occupied":
+                spos[int(rows_v[len(rows_v) // 2]), 2] = float("nan")
+            elif state == "nan_strag_empty" and len(rows_e):
+                spos[int(rows_e[0]), 0] = float("nan")
+            rows = (spos, gs.svel, sf * valid[:, None], spidf)
+            g11 = drift_state(a[:6] + folded + ref, "finite", slots)
+            res = k11(*g11, step, rows, sref)
+            want = uk.gj_update_plain(gs.spec, k11.coef, *g11, step, rows, sref)
+            key = f"#11 T0 sref {state}"
+            got[key], plain[key] = float(res[1]), float(want[1])
+            check(math.isnan(plain[key]) == (state == "nan_strag_occupied"),
+                  f"{what}: plain drift {plain[key]} on {state}")
+            sp = [float((x - y).abs().max()) for x, y in zip(res[2], want[2])
+                  if state == "finite"]
+            check(all(v == 0.0 for v in sp), f"{what}: #11 straggler rows bit-equal ({sp})")
+    uk.GJ_UPDATE.launches, uk.GJ_FOLD_UPDATE.launches = n0, f0
+    for key in got:
+        check(same_float(got[key], plain[key]),
+              f"{what}: {key}: drift {got[key]} == plain {plain[key]}")
+        if key in rules:
+            check(math.isnan(plain[key]) == key.endswith("nan_force_occupied"),
+                  f"{what}: {key}: plain drift {plain[key]} NaN only with the NaN force")
+    fails = {r: [k for k in rules if not same_float(rules[k][r], got[k])]
+             for r in ("fmaxf", "zero_times_nan")}
+    for r, keys in fails.items():
+        check(bool(keys), f"{what}: control, the {r} rule, fails the drift check somewhere")
+    out = {"drifts": got, "controls_fail_on": fails}
+    print(json.dumps({"phase": "drift_rule_checks", "what": what, "ok": True, **out}),
+          flush=True)
+    return out
+
+
+def update_times(call, names, launches_a_call: int = 1) -> dict:
+    """``call``'s CUDA-event ms, the profiler's device ms of the kernels
+    ``names`` (L2 warm, and flushed before each call) and the host us a
+    launch (the wrapper's time, calls issued without a sync)."""
+    t = {"ms": cuda_ms(call, reps=20),
+         "device_ms_profiler": profiler_ms(call, names),
+         "device_ms_profiler_cold": profiler_ms(call, names, cold=True),
+         "host_us_a_call": host_us(call) / launches_a_call}
+    for k in ("device_ms_profiler", "device_ms_profiler_cold"):
+        device_ms(t[k], f"{names} ({k})")
+    return t
+
+
 def unfused_kernel_checks(dev):
     """#4 on the n 600 straggler system and #11 on the 2^20 perturbed fcc
     state at the v2 spec, each against its plain version, with controls
@@ -3380,6 +3549,8 @@ def unfused_kernel_checks(dev):
     errs = {f"T{t}": check_gj_update(gs2, t, "2^20 perturbed fcc") for t in (0.0, 1.0)}
     errs["n600_T1"] = check_gj_update(gs_s, 1.0, "n 600 stragglers")
     control = check_gj_update(gs2, 1.0, "2^20 perturbed fcc", control=True)[0]
+    drift_rule_checks(gs_s, "n 600 stragglers", strag_rows=True)
+    drift_rule_checks(gs2, "2^20 perturbed fcc")
     print(json.dumps({"phase": "unfused_kernel_checks", "ok": True,
                       "gj_update_rel_and_abs_err": errs, "gj_update_tol": UNFUSED_TOL,
                       "gj_update_control_seed_off_by_one": control,
@@ -3423,8 +3594,10 @@ def rebin2_held(held: list):
     """While open, every state the v2 engine hands its rebin (md2's
     ``rebin_fast3``, #5) is also held to #5's plain version exactly, and
     goes through ``rebin_fast2`` (#4), which must keep every particle
-    without overflow and give the same particles by pid as ``rebin_fast3``;
-    ``held`` keeps the number of states and the last of them."""
+    without overflow and give the same particles by pid as ``rebin_fast3``
+    and the sort rebin ``layout.rebin``; ``held`` keeps the number of
+    states and the last of them."""
+    import torch
     from uammd_tpu_torch.engine import layout, md2
     from uammd_tpu_torch.engine import rebin_kernel as rk
 
@@ -3441,6 +3614,9 @@ def rebin2_held(held: list):
         (p2, v2, _), (p3, v3, _) = layout.unpack(r2), layout.unpack(out)
         check(bool((p2 == p3).all()) and bool((v2 == v3).all()),
               f"v2 unfused rebin {k}: rebin_fast2 equals rebin_fast3 by pid")
+        ps, vs, _ = layout.unpack(layout.rebin(gs))
+        check(torch.equal(p2, ps) and torch.equal(v2, vs),
+              f"v2 unfused rebin {k}: rebin_fast2 equals layout.rebin by pid")
         held[:] = [k, gs]
         return out
 
@@ -3589,6 +3765,16 @@ def unfused_main_path(dev, card, melted, errs):
          "gj_update": cuda_ms(lambda: upd(*a, *ref, step, s_rows), reps=20),
          "rebin_fast3": cuda_ms(lambda: rk.rebin_fast3(moved), reps=20)}
     r2_ms = cuda_ms(lambda: r2k(stacked, srows), reps=20)
+    n2 = rk.REBIN2.launches
+    r2_dev = {k: profiler_ms(lambda: r2k(stacked, srows), ["rebin2_pull", "rebin_classify"],
+                             cold=k == "device_ms_profiler_cold")
+              for k in ("device_ms_profiler", "device_ms_profiler_cold")}
+    for k, v in r2_dev.items():
+        device_ms(v, f"#4 ({k})")
+    rk.REBIN2.launches = n2
+    n11 = uk.GJ_UPDATE.launches
+    upd_t = update_times(lambda: upd(*a, *ref, step, s_rows), ["gj_update_rows"])
+    uk.GJ_UPDATE.launches = n11
     plain = {"gj_update": cuda_ms(lambda: uk.gj_update_plain(spec, upd.coef, *a, *ref, step,
                                                              s_rows), reps=5, warmup=1),
              "rebin2": cuda_ms(lambda: rk.rebin2_plain(spec, stacked, srows), reps=3, warmup=1)}
@@ -3617,11 +3803,13 @@ def unfused_main_path(dev, card, melted, errs):
          "replaces": "uammd_tpu/engine/update_kernel.py:134", "launches": launches["gj_update"],
          "max_abs_err": upd_err[1], "ms": t["gj_update"], "plain_ms": plain["gj_update"],
          "bound_ms": upd_bytes_ms, "bound_by": "bytes", "library_ms": None,
-         "rel_err": upd_err[0], "checks": errs["gj_update"]},
-        {"name": "rebin2", "route": "cuda", "source": src + "rebin2.cu",
+         "rel_err": upd_err[0], "checks": errs["gj_update"], **upd_t,
+         "launch_plan": update_grid(spec, S, "gj_update")},
+        {"name": "rebin2", "route": "cuda", "source": src + "rebin2.cu (+ rebin_common.cuh)",
          "replaces": "uammd_tpu/engine/rebin_kernel.py:522", "launches": launches["rebin2"],
          "max_abs_err": r2_err, "ms": r2_ms, "plain_ms": plain["rebin2"],
-         "bound_ms": r2_bytes_ms, "bound_by": "bytes", "library_ms": None,
+         "bound_ms": r2_bytes_ms, "bound_by": "bytes", "library_ms": None, **r2_dev,
+         "launch_plan": rebin2_plan_of(spec, rk.OCAP),
          "launches_note": "held against rebin_fast3 on each state the unfused path rebinned "
                           "in its settle steps"},
     ], {"ms": ms, "fold_launches": launches["fold"], "fold_ms": t["fold"],
@@ -4644,7 +4832,6 @@ def breakdown_dd2(card, dd4, dd1, unfused_ms, errs):
     bufs = [step.kern.stacked(*a)[0] for a in args]
     sends = [b[3:12, nzl - 1].contiguous() for b in bufs]
     rec = ppermute(sends, perm_up(n))
-    spid = [s.to(torch.int32) - 1 for s in st.spidf]
     t = {
         "newton_pair_halo": cuda_ms(lambda: [step.kern(*a) for a in args], reps=10),
         "exchanges": cuda_ms(lambda: (step.ghost_rows(st.x, st.y, st.z),
@@ -4654,7 +4841,8 @@ def breakdown_dd2(card, dd4, dd1, unfused_ms, errs):
         "gj_update": cuda_ms(lambda: [step.upd(
             st.x[i], st.y[i], st.z[i], st.wx[i], st.wy[i], st.wz[i], st.fx[i], st.fy[i],
             st.fz[i], st.rx[i], st.ry[i], st.rz[i], st.stepc[i],
-            (st.spos[i], st.svelw[i], st.sforce[i], spid[i])) for i in range(n)], reps=20),
+            (st.spos[i], st.svelw[i], st.sforce[i], st.spidf[i]), st.sref[i])
+            for i in range(n)], reps=20),
         "strag_row_pass": cuda_ms(lambda: [step.strag_row_pass(
             st.x[i][0], st.y[i][0], st.z[i][0], st.spos[i], st.spidf[i] > 0.5)
             for i in range(n) for _ in range(2)], reps=10),
@@ -4812,26 +5000,28 @@ def dd_channel_rows(card, runs, checks):
 
 def dd_update_row(run, what: str) -> dict:
     """#11's kernels-line row at a DD2 path's final state: one step's sweep
-    of its launches (one a shard) as the step makes them, each held to
-    ``gj_update_plain`` (occupied slots and rows within ``UNFUSED_TOL`` x
-    max|ref|, the drift too), timed with CUDA events, with the plain
-    version's time and the byte bound (a shard's 12 grids read and 6
-    written, its straggler rows, the seed and the drift)."""
-    import torch
+    of its launches (one a shard) as the step makes them (the straggler
+    rows by their float32 pid + 1, their references joining the drift),
+    each held to ``gj_update_plain`` (occupied slots and rows within
+    ``UNFUSED_TOL`` x max|ref|, the drift too), timed with CUDA events, by
+    the profiler (L2 warm, and flushed before each sweep) and on the host
+    (a launch), with the plain version's time and the byte bound (a
+    shard's 12 grids read and 6 written, its straggler rows and their
+    references, the seed and the drift)."""
     from uammd_tpu_torch.engine import update_kernel as uk
 
     step, st = run["step"], run["st"]
     n = step.n_dev
     args = [((st.x[i], st.y[i], st.z[i], st.wx[i], st.wy[i], st.wz[i], st.fx[i], st.fy[i],
               st.fz[i], st.rx[i], st.ry[i], st.rz[i]), st.stepc[i],
-             (st.spos[i], st.svelw[i], st.sforce[i], st.spidf[i].to(torch.int32) - 1))
+             (st.spos[i], st.svelw[i], st.sforce[i], st.spidf[i]), st.sref[i])
             for i in range(n)]
     n0 = uk.GJ_UPDATE.launches
     err = 0.0
-    for g, seed, srows in args:
-        got = step.upd(*g, seed, srows)
-        want = uk.gj_update_plain(step.local_spec, step.upd.coef, *g, seed, srows)
-        m, sm = g[0] < 1.0e8, srows[3] >= 0
+    for g, seed, srows, sref in args:
+        got = step.upd(*g, seed, srows, sref)
+        want = uk.gj_update_plain(step.local_spec, step.upd.coef, *g, seed, srows, sref)
+        m, sm = g[0] < 1.0e8, srows[3] > 0.5
         pairs = ([(x[m], y[m]) for x, y in zip(got[0], want[0])]
                  + [(x[sm], y[sm]) for x, y in zip(got[2], want[2])]
                  + [(got[1].reshape(1), want[1].reshape(1))])
@@ -4840,19 +5030,62 @@ def dd_update_row(run, what: str) -> dict:
                   for x, y in pairs)
         check(rel < UNFUSED_TOL, f"{what}: #11 vs plain {rel:.3g} < {UNFUSED_TOL}")
         err = max(err, max(float((x - y).abs().max()) for x, y in pairs))
-    ms = cuda_ms(lambda: [step.upd(*g, seed, srows) for g, seed, srows in args], reps=20)
+
+    def sweep():
+        return [step.upd(*g, seed, srows, sref) for g, seed, srows, sref in args]
+
+    times = update_times(sweep, ["gj_update_rows"], launches_a_call=n)
     uk.GJ_UPDATE.launches = n0
-    plain = cuda_ms(lambda: [uk.gj_update_plain(step.local_spec, step.upd.coef, *g, seed, srows)
-                             for g, seed, srows in args], reps=2, warmup=1)
-    bytes_ = n * (4 * 18 * step.local_spec.n_slots + 64 * step.S + 8)
+    plain = cuda_ms(lambda: [uk.gj_update_plain(step.local_spec, step.upd.coef, *g, seed, srows,
+                                                sref) for g, seed, srows, sref in args],
+                    reps=2, warmup=1)
+    bytes_ = n * (4 * 18 * step.local_spec.n_slots + 76 * step.S + 8)
     return {"name": "gj_update_dd2" + ("" if n > 1 else "_1_shard"), "route": "cuda",
             "source": "uammd_tpu_torch/engine/csrc/gj_update.cu (+ gj_common.cuh)",
             "replaces": "uammd_tpu/engine/update_kernel.py:134",
-            "launches": run["launches"]["gj_update"], "max_abs_err": err, "ms": ms,
+            "launches": run["launches"]["gj_update"], "max_abs_err": err, **times,
             "plain_ms": plain, "bound_ms": 1e3 * bytes_ / PEAK_HBM_BYTES, "bound_by": "bytes",
             "library_ms": None, "shards": n, "shard_spec": list(step.local_spec.array_shape),
-            "note": f"ms, plain_ms and bound_ms cover one step's {n} launch(es) (one per "
-                    f"shard) at {what}"}
+            "launch_plan": update_grid(step.local_spec, step.S, "gj_update"),
+            "note": f"ms, device and plain_ms and bound_ms cover one step's {n} launch(es) "
+                    f"(one per shard), host_us_a_call one launch, at {what}"}
+
+
+def newton_halo_1_shard_row(run, what: str) -> dict:
+    """#6 ``halo_z``'s kernels-line row on the 1-shard DD2 path: its launch
+    at the path's final state against the plain version (largest abs
+    error over its outputs), CUDA events, the plain time and the bound
+    (the larger of the bytes and the stencil's operations)."""
+    import torch
+    from uammd_tpu_torch.engine import kernel2, layout
+    from uammd_tpu_torch.parallel.domain2 import gather_md2_state
+
+    step, st, spec = run["step"], run["st"], run["spec"]
+    ghost = step.ghost_rows(st.x, st.y, st.z)[0]
+    got = dd2_newton(step, st, 0, ghost)
+    want = dd2_newton(step, st, 0, ghost, plain=True)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    args = (st.x[0], st.y[0], st.z[0]) + ghost + (dd2_strag_block(step, st, 0),)
+    n0 = kernel2.NEWTON_PAIR_HALO.launches
+    ms = cuda_ms(lambda: step.kern(*args), reps=10)
+    kernel2.NEWTON_PAIR_HALO.launches = n0
+    plain = cuda_ms(lambda: kernel2.newton_pair_plain(
+        step.local_spec, step.kern.g_fn, *args[:3], args[6], ghost=args[3:6]), reps=2, warmup=1)
+    gs = layout.pack(spec, gather_md2_state(st, spec, N)[0], device=st.x[0].device)
+    pairs, cut = stencil_pairs(gs)
+    del gs
+    torch.cuda.empty_cache()
+    ops_ms = 1e3 * (OPS_PAIR_TEST * pairs + OPS_PAIR_FORCE * cut) / PEAK_FP32_FLOPS
+    ghost_bytes = 3 * 4 * spec.n_slots // spec.shape[2]
+    bytes_ms = 1e3 * (18 * 4 * spec.n_slots + ghost_bytes + 28 * step.S) / PEAK_HBM_BYTES
+    return {"name": "newton_pair_halo_1_shard", "route": "cuda",
+            "source": "uammd_tpu_torch/engine/csrc/newton_pair.cu",
+            "replaces": "uammd_tpu/engine/kernel2.py:447 (halo_z, :74-134)",
+            "launches": run["launches"]["newton_pair_halo"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes", "library_ms": None,
+            "stencil_pairs": pairs, "stencil_pairs_in_cutoff": cut,
+            "shard_spec": list(step.local_spec.array_shape), "note": f"one launch at {what}"}
 
 
 def dd_phases(dev, card, melted, unfused_ms):
@@ -4867,6 +5100,7 @@ def dd_phases(dev, card, melted, unfused_ms):
     rows_1 = [fold_halo_row(dd1, dd1["launches"]["fold_halo"],
                             "the 1-shard DD2 path's final state"),
               dd_update_row(dd1, "the 1-shard DD2 path's final state"),
+              newton_halo_1_shard_row(dd1, "the 1-shard DD2 path's final state"),
               sep_row("_dd2_1_shard", held.spec, held.ocap, *held.last,
                       dd1["launches"]["separable_rebin"],
                       "the 1-shard DD2 path's last rebin")]
@@ -6677,10 +6911,11 @@ def main() -> int:
         print(json.dumps({"ptxas": name, "lines": [
             ln.strip() for ln in _build.build_log(name).splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]}), flush=True)
-    # the classify-and-pull rebins, the folds and the fused update spill
-    # nothing in any instance
+    # the classify-and-pull rebins, the folds and the updates spill nothing
+    # in any instance
     print(json.dumps({"phase": "spills", "ok": True,
-                      **spill_report(("rebin", "sep_rebin", "fold", "gj_fold_update"))}),
+                      **spill_report(("rebin", "rebin2", "sep_rebin", "fold", "gj_update",
+                                      "gj_fold_update"))}),
           flush=True)
     if only_pse:
         return pse_only(dev, card)

@@ -20,7 +20,14 @@ The kernel stores a straggler's x and y wrapped twice, as the passes do,
 and takes its cell from the coordinates wrapped once: the last test shows
 the wrap idempotent on every float32 near a half box at each path's L.
 
-No JAX here: about 5 s on one core.
+The one-shot straggler rebin #4 (``csrc/rebin2.cu``) runs the same
+classify and a pull in #3's (dz, dy, dx) order with the cell's straggler
+rows after the last source, each value wrapped once and only the final
+ranks counted for overflow: ``rebin2_replica`` must equal
+``rebin2_plain`` bit for bit on the clean states and on a crammed one,
+and the replica in #5's order must not.
+
+No JAX here: about 6 s on one core.
 """
 
 import dataclasses
@@ -145,6 +152,42 @@ def pull_replica(spec, stacked, strag, ocap=OCAP, order=0):
     over = sum((t - wide).clamp(min=0).sum() for t in (n_z, n_y, total))
     return (out[:, :, :, :cap].contiguous(), out[:, :, :, cap:].contiguous(), total.sum(), over,
             (int(n_z.max()), int(n_y.max()), int(total.max())))
+
+
+def rebin2_replica(spec, stacked, strag, ocap=OCAP, order=1):
+    """#4's classify and pull: the sources in ``source_order(order)``'s
+    order (1: #3's (dz, dy, dx), the kernel's; 0: #5's, a control) with the
+    cell's straggler rows after the last source, every value wrapped once.
+    Returns (out, mini, count, overflow)."""
+    n_q = stacked.shape[0]
+    nz, nyb, cap, nlane = spec.array_shape
+    S = spec.n_strag
+    wide = cap + ocap
+    Ls = spec.box_size
+    codes = codes_of(spec, stacked)
+    scell = strag_cells(spec, strag)
+    rows = torch.arange(cap)[None, None, :, None]
+    gvals = torch.stack([rk._wrap_pos(stacked[d], Ls[d]) for d in range(3)]
+                        + [stacked[q] + 0.0 for q in range(3, n_q)])
+    svals = torch.stack([rk._wrap_pos(strag[d], Ls[d]) for d in range(3)]
+                        + [strag[q] + 0.0 for q in range(3, n_q)])
+    svals = svals[:, None, None, :, None].expand(n_q, nz, nyb, S, nlane)
+    flat = ((torch.arange(nz)[:, None, None] * nyb + torch.arange(nyb)[None, :, None]) * nlane
+            + torch.arange(nlane)[None, None, :])
+    mine = scell[None, None, :, None] == flat[:, :, None, :]  # [nz, nyb, S, nlane]
+    out = torch.zeros((n_q, nz, nyb, wide, nlane), dtype=torch.float32)
+    base = torch.zeros((nz, nyb, 1, nlane), dtype=torch.int64)
+    for dx, dy, dz in source_order(order)[0]:
+        zs, ybs, ls, _ = stencil_sources(spec, dz, dy, dx, "cpu")
+        cand = codes[zs, ybs, rows, ls]
+        base = rk._rank_into(out, base, gvals[:, zs, ybs, rows, ls],
+                             cand == want_code(dx, dy, dz))[0]
+    base = rk._rank_into(out, base, svals, mine)[0]
+    total = base[:, :, 0, :]
+    unfilled = torch.arange(wide)[None, None, :, None] >= base
+    out[:3] = torch.where(unfilled, torch.full_like(out[:3], EMPTY_POS), out[:3])
+    return (out[:, :, :, :cap].contiguous(), out[:, :, :, cap:].contiguous(), total.sum(),
+            (total - wide).clamp(min=0).sum())
 
 
 # ------------------------------------------------------------------- states
@@ -400,3 +443,37 @@ def test_the_double_wrap_moves_a_cell_far_outside_the_box():
     w = rk._wrap_pos(p, L)
     assert float(rk._dest_cell(w, L, 3)) == 2.0
     assert float(rk._dest_cell(rk._wrap_pos(w, L), L, 3)) == 0.0
+
+
+@pytest.mark.parametrize("name", CLEAN)
+def test_rebin2_replica_equals_plain_on_clean_states(plain_results, name):
+    spec, stacked, strag, _ = plain_results[name]
+    want = rk.rebin2_plain(spec, stacked, strag)
+    n = int((stacked[6] > 0.5).sum()) + int((strag[6] > 0.5).sum())
+    assert (int(want[2]), int(want[3])) == (n, 0)
+    got = rebin2_replica(spec, stacked, strag)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (int(got[2]), int(got[3])) == (int(want[2]), int(want[3]))
+    if name == "n600 moved":
+        assert bool((want[1][6] > 0.5).any())  # the mini-grid holds stragglers
+
+
+@pytest.mark.parametrize("which", ["z", "y", "x"])
+def test_rebin2_replica_equals_plain_on_crammed_states(which):
+    """#4 has no intermediate pass: it overflows on the state crammed into
+    one cell ("x") alone, and there too the out rows, the mini rows and
+    both counts equal the plain version's."""
+    spec, stacked, strag = crammed(which)
+    want = rk.rebin2_plain(spec, stacked, strag)
+    got = rebin2_replica(spec, stacked, strag)
+    assert (int(want[3]) > 0) == (which == "x")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (int(got[2]), int(got[3])) == (int(want[2]), int(want[3]))
+
+
+def test_rebin2_replica_in_the_passes_order_differs(plain_results):
+    """The control: #5's source order ranks a cell's particles otherwise."""
+    spec, stacked, strag, _ = plain_results["n600 moved"]
+    want = rk.rebin2_plain(spec, stacked, strag)
+    got = rebin2_replica(spec, stacked, strag, order=0)
+    assert not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))

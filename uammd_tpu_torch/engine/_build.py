@@ -129,7 +129,8 @@ def check_cuda_tensors(ts, name: str, shape, dtype=torch.float32):
     """``check_cuda_tensor`` on each of ``ts`` (one shape and dtype), with a
     quick pass first: the full check, and its message, only for a tensor
     that fails it."""
-    shape = torch.Size(shape)
+    if type(shape) is not torch.Size:
+        shape = torch.Size(shape)
     for k, t in enumerate(ts):
         if not (t.is_cuda and t.dtype is dtype and t.shape == shape and t.is_contiguous()):
             check_cuda_tensor(t, f"{name} {k}", shape, dtype)
@@ -158,8 +159,9 @@ class Kernel:
         # the current device's current stream as a raw handle: what
         # torch.cuda.current_stream().cuda_stream gives, without building a
         # Stream object (~8 us of host time a launch on an H100's host,
-        # against ~1 us)
-        stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+        # against ~1 us); the device straight from the C binding (CUDA is
+        # initialised: the caller holds CUDA tensors)
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
         err = self._fn(*args, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error {err}")

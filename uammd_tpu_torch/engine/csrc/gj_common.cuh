@@ -1,8 +1,9 @@
 // Device code shared by the two Gronbech-Jensen update kernels
 // (gj_fold_update.cu, #12, and gj_update.cu, #11): the Philox-4x32-10
-// counter hash, the two noise generators, the per-component update and the
-// straggler-row update, so that both kernels draw the same numbers for the
-// same (seed, slot, stream) and update the same way.
+// counter hash, the two noise generators, the per-component update, the
+// straggler-row update, a slot's drift and the drift's reduction over a
+// launch, so that both kernels draw the same numbers for the same (seed,
+// slot, stream), update the same way and take the same drift.
 //
 // Noise: Philox-4x32-10 (Random123's constants) under key (seed, 0) with
 // counters (slot, 0, stream, 0) and (slot, 1, stream, 0); stream 0 for the
@@ -11,6 +12,13 @@
 // round-to-nearest intrinsic, so a kernel equals its plain version bit for
 // bit where their math functions agree (always for "clt"; logf/sinf/cosf
 // for "bm").
+//
+// Drift: JAX's rule as XLA compiles it (gj_update_jnp,
+// uammd_tpu/engine/update_kernel.py:354; XLA turns mask * y into a select),
+// the maximum over slots of where(mask, max(|x' - rx|, |y' - ry|,
+// |z' - rz|), 0). Both maxima keep a NaN: they compare the int bits of
+// non-negative floats, and a NaN's bits (its sign cleared by fabsf)
+// exceed +inf's. An empty slot adds exactly 0, whatever it holds.
 
 #pragma once
 
@@ -27,9 +35,11 @@ struct Strag {
   const float* pos;
   const float* vel;
   const float* force;
-  const int* pid;
+  const int* pid;  // occupied where pid >= 0 (null: pidf holds the rows' ids)
   float* pos_out;
   float* vel_out;
+  const float* pidf = nullptr;  // pid + 1 as float32, occupied where > 0.5
+  const float* ref = nullptr;   // [S, 3] positions at the last rebin: the rows' drift
 };
 
 __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -92,24 +102,69 @@ __device__ __forceinline__ void update(const Coef& k, float p, float w, float f,
                                __fmul_rn(k.bm, nse)));
 }
 
-// straggler row s: the same update with noise stream 1, occupied where
-// pid >= 0 (the JAX engine's _strag_update, md2.py:190-213)
-__device__ __forceinline__ void strag_row(const Strag& st, const Coef& k, int s,
-                                          uint32_t seed, int noisy, int noise) {
+// The int bits of |d|: a non-negative float's order as an int, NaN above +inf.
+__device__ __forceinline__ int abs_bits(float d) { return __float_as_int(fabsf(d)); }
+
+// straggler row s: the same update with noise stream 1, occupied where pid
+// >= 0 (the JAX engine's _strag_update, md2.py:190-213) or pidf > 0.5 (the
+// DD2 state's pid + 1, JAX domain2.py:280-292). Returns the row's drift
+// bits: where(occupied, max_c |spos'_c - ref_c|, 0) when st.ref is set
+// (JAX domain2.py:409-413), else 0.
+__device__ __forceinline__ int strag_row(const Strag& st, const Coef& k, int s, uint32_t seed,
+                                         int noisy, int noise) {
   float nse[3] = {0.0f, 0.0f, 0.0f};
   if (noisy) normals(seed, static_cast<uint32_t>(s), 1u, noise, k.scale, nse);
-  const float m = st.pid[s] >= 0 ? 1.0f : 0.0f;
-  for (int c = 0; c < 3; ++c)
-    update(k, st.pos[3 * s + c], st.vel[3 * s + c], st.force[3 * s + c], nse[c], m,
-           st.pos_out + 3 * s + c, st.vel_out + 3 * s + c);
+  const bool occupied = st.pid != nullptr ? st.pid[s] >= 0 : st.pidf[s] > 0.5f;
+  const float m = occupied ? 1.0f : 0.0f;
+  int bits = 0;
+  for (int c = 0; c < 3; ++c) {
+    float po, wo;
+    update(k, st.pos[3 * s + c], st.vel[3 * s + c], st.force[3 * s + c], nse[c], m, &po, &wo);
+    st.pos_out[3 * s + c] = po;
+    st.vel_out[3 * s + c] = wo;
+    if (st.ref != nullptr) bits = max(bits, abs_bits(__fsub_rn(po, st.ref[3 * s + c])));
+  }
+  return occupied ? bits : 0;
 }
 
-// warp max, then atomicMax on the int bits of the non-negative float into a
-// zeroed int32; every lane of the warp must reach it
-__device__ __forceinline__ void drift_max(float dinf, int* drift_bits) {
-  int bits = __float_as_int(dinf);
+// The maximum over the launch of each thread's drift bits: a warp max, the
+// block's maximum into partial[block], then the last block to finish (an
+// atomicInc ticket that wraps to 0, ready for the next launch) writes the
+// maximum over the blocks into *drift. No buffer is zeroed a call: partial
+// and the ticket are a scratch the caller zeroes once. Every thread of the
+// block calls it, and the block is THREADS threads, whole warps.
+template <int THREADS>
+__device__ __forceinline__ void drift_reduce(int bits, int* __restrict__ partial,
+                                             unsigned* __restrict__ ticket,
+                                             int* __restrict__ drift) {
+  __shared__ int warp_max[THREADS / 32];
+  __shared__ bool last;
   bits = __reduce_max_sync(0xffffffffu, bits);
-  if ((threadIdx.x & 31) == 0) atomicMax(drift_bits, bits);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = bits;
+  __syncthreads();
+  const unsigned nblocks = gridDim.x * gridDim.y;
+  if (threadIdx.x < 32) {
+    bits = threadIdx.x < THREADS / 32 ? warp_max[threadIdx.x] : 0;
+    bits = __reduce_max_sync(0xffffffffu, bits);
+    if (threadIdx.x == 0) {
+      partial[blockIdx.y * gridDim.x + blockIdx.x] = bits;
+      __threadfence();
+      last = atomicInc(ticket, nblocks - 1) == nblocks - 1;  // wraps to 0 for the next call
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  bits = 0;
+  for (unsigned b = threadIdx.x; b < nblocks; b += THREADS) bits = max(bits, __ldcg(partial + b));
+  bits = __reduce_max_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = bits;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    bits = threadIdx.x < THREADS / 32 ? warp_max[threadIdx.x] : 0;
+    bits = __reduce_max_sync(0xffffffffu, bits);
+    if (threadIdx.x == 0) *drift = bits;
+  }
 }
 
 }  // namespace gj

@@ -7,7 +7,8 @@
 //   v  = w + hv f                      (complete the deferred half kick)
 //   x' = x + m (bdt v + c_x (dt f + n))
 //   w' = m ((a v + hva f) + bm n)      with m = (x < 1e8), the occupied mask
-//   drift = max over slots of m * max(|x' - rx|, |y' - ry|, |z' - rz|)
+//   drift = max over slots of where(m, max(|x' - rx|, |y' - ry|, |z' - rz|), 0)
+// (JAX's select rule, NaN kept: gj_common.cuh)
 // The noise n comes from the Philox-4x32-10 counter hash of gj_common.cuh
 // (shared with the unfused update gj_update.cu, #11): the TPU's hardware
 // PRNG has no counterpart, and a counter hash lets the plain version
@@ -33,10 +34,8 @@
 // thread computes once (no division a slot); a thread owns 4 slots and
 // reads each input as a 16-byte load, channel by channel (8 loads in
 // flight a channel: position, w, home force, 4 groups, reference). The
-// drift is reduced in the block (warp max of the non-negative floats' int
-// bits, then across the warps) and each block stores its maximum; the last
-// block to finish (a ticket counter, which it resets) reduces those into
-// the output's drift slot, so no buffer is zeroed a call.
+// drift is reduced in the block and over the blocks by a ticket
+// (gj::drift_reduce, shared with #11), so no buffer is zeroed a call.
 //
 // What bounds it: memory, 24 grid reads (x, y, z, w, the 15 force grids,
 // the 3 reference positions) and 6 grid writes per call.
@@ -81,7 +80,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nzyb = nz * nyb;
   const int grid4 = nzyb * plane4;
   const uint32_t seed = static_cast<uint32_t>(*seed_ptr);
-  int dbits = 0;  // the int bits of this thread's drift, a non-negative float
+  int dbits = 0;  // this thread's drift bits (gj::abs_bits)
   if (zyb == nzyb) {
     if (q < S) gj::strag_row(st, k, q, seed, NOISE >= 0, NOISE < 0 ? 0 : NOISE);
   } else if (q < plane4) {
@@ -94,7 +93,8 @@ __global__ void __launch_bounds__(kThreads)
                         (z_dn * nyb + yb_dn) * plane4 + q, (zyb - yb + yb_dn) * plane4 + q};
     const int at = zyb * plane4 + q;
     const float4 x4 = in.p[0][at];
-    float m[4], dinf[4] = {0.0f, 0.0f, 0.0f, 0.0f}, nse[4][3];
+    float m[4], nse[4][3];
+    int dj[4] = {0, 0, 0, 0};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       m[j] = comp(x4, j) < 1.0e8f ? 1.0f : 0.0f;
@@ -123,44 +123,15 @@ __global__ void __launch_bounds__(kThreads)
         gj::update(k, comp(p, j), comp(w, j), fj, nse[j][c], m[j], &pj, &wj);
         set_comp(po, j, pj);
         set_comp(wo, j, wj);
-        dinf[j] = fmaxf(dinf[j], fabsf(__fsub_rn(pj, comp(r, j))));
+        dj[j] = max(dj[j], gj::abs_bits(__fsub_rn(pj, comp(r, j))));
       }
       out[c * grid4 + at] = po;
       out[(3 + c) * grid4 + at] = wo;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dbits = max(dbits, __float_as_int(__fmul_rn(m[j], dinf[j])));
+    for (int j = 0; j < 4; ++j) dbits = max(dbits, m[j] != 0.0f ? dj[j] : 0);
   }
-  // the block's maximum, then the last block's over the blocks
-  __shared__ int warp_max[kThreads / 32];
-  __shared__ bool last;
-  dbits = __reduce_max_sync(0xffffffffu, dbits);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = dbits;
-  __syncthreads();
-  const unsigned nblocks = gridDim.x * gridDim.y;
-  if (threadIdx.x < 32) {
-    dbits = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0;
-    dbits = __reduce_max_sync(0xffffffffu, dbits);
-    if (threadIdx.x == 0) {
-      partial[blockIdx.y * gridDim.x + blockIdx.x] = dbits;
-      __threadfence();
-      last = atomicInc(ticket, nblocks - 1) == nblocks - 1;  // wraps to 0 for the next call
-    }
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  dbits = 0;
-  for (unsigned b = threadIdx.x; b < nblocks; b += kThreads)
-    dbits = max(dbits, __ldcg(partial + b));
-  dbits = __reduce_max_sync(0xffffffffu, dbits);
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = dbits;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    dbits = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0;
-    dbits = __reduce_max_sync(0xffffffffu, dbits);
-    if (threadIdx.x == 0) *drift_bits = dbits;
-  }
+  gj::drift_reduce<kThreads>(dbits, partial, ticket, drift_bits);
 }
 
 template <int NOISE>

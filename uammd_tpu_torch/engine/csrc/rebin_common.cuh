@@ -1,5 +1,5 @@
-// Device code shared by the slot rebins #3 (rebin.cu) and #5 (sep_rebin.cu),
-// for Hopper (sm_90a).
+// Device code shared by the slot rebins #3 (rebin.cu), #4 (rebin2.cu) and
+// #5 (sep_rebin.cu), for Hopper (sm_90a).
 //
 // The rule of every rebin here (rebin_kernel._wrapped_cell, the sort
 // rebin's): a particle belongs to the cell of its wrapped coordinate
@@ -18,10 +18,10 @@
 // that fixes only some axes (#5's intermediate counts) masks the other
 // fields first. The codes are stored column by column, [nz, nyb, NLANE,
 // CPAD] with CPAD = CAP rounded up to 16, so that a column's codes are one
-// to three 16-byte words. #5 also launches one more row of blocks, which
-// classifies the straggler rows [Q, S] by their full cell (the z pass's
-// rule): the flat index (z nyb + yb) NLANE + lane of the cell that claims
-// a row, or -1.
+// to three 16-byte words. #4 and #5 also launch one more row of blocks,
+// which classifies the straggler rows [Q, S] by their full cell: the flat
+// index (z nyb + yb) NLANE + lane of the cell that claims a row, or -1; a
+// pull block lists the rows of its row of cells with row_stragglers.
 
 #pragma once
 
@@ -35,6 +35,7 @@ namespace {  // internal linkage: each library that includes this has its own co
 constexpr float kEmptyPos = 1.0e9f;
 constexpr unsigned kEmptyCode = 0xffu;
 constexpr unsigned kFar = 3u;  // a field: farther than one cell, or not a number
+constexpr int kLaneBits = 10;  // a straggler list entry: row << kLaneBits | lane
 
 struct Geom {
   int nx, nyb, nz, F, cap, nlane;
@@ -179,6 +180,40 @@ __device__ __forceinline__ Source source_at(int dx, int dy, int dz, int cx, int 
   const int szyb = sz * g.nyb + syb;
   return Source{szyb * g.cap * g.nlane + sl,
                 codes + (static_cast<size_t>(szyb) * g.nlane + sl) * g.cpad};
+}
+
+// The straggler rows whose cell (scell, from rebin_classify's last row of
+// blocks) lies in a pull block's row of cells [cell0, cell0 + nlane), in
+// row order: row << kLaneBits | lane into slist [S]; returns their number.
+// wcount: 32 ints of shared memory. Every thread of the block calls it.
+__device__ int row_stragglers(const int* __restrict__ scell, int S, int cell0, int nlane,
+                              int* wcount, int* slist) {
+  const int tid = threadIdx.x;
+  const int nwarps = blockDim.x >> 5;
+  int nrow = 0;
+  for (int base = 0; base < S; base += blockDim.x) {
+    const int s = base + tid;
+    const int l = s < S ? scell[s] - cell0 : -1;
+    const bool mine = l >= 0 && l < nlane;
+    const unsigned b = __ballot_sync(0xffffffffu, mine);
+    if ((tid & 31) == 0) wcount[tid >> 5] = __popc(b);
+    __syncthreads();
+    int off = nrow;
+    for (int w = 0; w < nwarps; ++w) {
+      if (w < (tid >> 5)) off += wcount[w];
+      nrow += wcount[w];
+    }
+    if (mine) slist[off + __popc(b & ((1u << (tid & 31)) - 1u))] = (s << kLaneBits) | l;
+    __syncthreads();
+  }
+  return nrow;
+}
+
+// The rows of slist [nrow] whose lane is c.
+__device__ __forceinline__ int lane_rows(const int* slist, int nrow, int c) {
+  int k = 0;
+  for (int i = 0; i < nrow; ++i) k += (slist[i] & ((1 << kLaneBits) - 1)) == c;
+  return k;
 }
 
 // 0x01 in each byte of w equal to the byte of want4 (want4 = code x 0x01010101)

@@ -87,7 +87,6 @@ using rebin::kEmptyPos;
 
 constexpr int kParts = 4;  // threads of a destination cell in the pull
 constexpr int kSourcesPerPart = 7;
-constexpr int kLaneBits = 10;  // a straggler list entry: row << kLaneBits | lane
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the opt-in limit of sm_90
 
 __host__ __device__ inline int pull_threads(int nlane) {
@@ -132,23 +131,7 @@ __global__ void __launch_bounds__(512)
   const int zyb = zc * g.nyb + yb;
 
   // 0. the straggler rows whose cell lies in this row of cells, in order
-  int nrow = 0;
-  const int nwarps = blockDim.x >> 5;
-  for (int base = 0; base < S; base += blockDim.x) {
-    const int s = base + tid;
-    const int l = s < S ? scell[s] - zyb * g.nlane : -1;
-    const bool mine = l >= 0 && l < g.nlane;
-    const unsigned b = __ballot_sync(0xffffffffu, mine);
-    if ((tid & 31) == 0) wcount[tid >> 5] = __popc(b);
-    __syncthreads();
-    int off = nrow;
-    for (int w = 0; w < nwarps; ++w) {
-      if (w < (tid >> 5)) off += wcount[w];
-      nrow += wcount[w];
-    }
-    if (mine) slist[off + __popc(b & ((1u << (tid & 31)) - 1u))] = (s << kLaneBits) | l;
-    __syncthreads();
-  }
+  const int nrow = rebin::row_stragglers(scell, S, zyb * g.nlane, g.nlane, wcount, slist);
 
   // 1. this quarter's matches and intermediate counts, then the prefix
   const int c = tid / kParts;  // destination lane
@@ -174,8 +157,7 @@ __global__ void __launch_bounds__(512)
         if (d.x == 0 && d.y == 0) n_z += hits4(v, 0x30303030u, (want & 0x30u) * 0x01010101u);
       }
       if (j == js) {
-        int ns = 0;
-        for (int i = 0; i < nrow; ++i) ns += (slist[i] & ((1 << kLaneBits) - 1)) == c;
+        const int ns = rebin::lane_rows(slist, nrow, c);
         n += ns;
         n_y += ns;
         n_z += ns;
@@ -215,8 +197,8 @@ __global__ void __launch_bounds__(512)
       }
       if (j == js) {
         for (int i = 0; i < nrow && rank < wide; ++i) {
-          if ((slist[i] & ((1 << kLaneBits) - 1)) == c) {
-            sidx[rank * g.nlane + c] = -1 - (slist[i] >> kLaneBits);
+          if ((slist[i] & ((1 << rebin::kLaneBits) - 1)) == c) {
+            sidx[rank * g.nlane + c] = -1 - (slist[i] >> rebin::kLaneBits);
             ++rank;
           }
         }
@@ -292,7 +274,7 @@ extern "C" int uammd_sep_rebin(void* in, void* strag, void* scratch, void* out, 
   const size_t slots = static_cast<size_t>(nz) * nyb * wide * g.nlane;
   const size_t smem = pull_smem(wide, g.nlane, S);
   if ((Q != 7 && Q != 4) || nx < 3 || nz < 3 || nyb * F < 3 || cap < 1 || ocap < 0 ||
-      S < 1 || S >= (1 << (31 - kLaneBits)) || g.nlane >= (1 << kLaneBits) ||
+      S < 1 || S >= (1 << (31 - rebin::kLaneBits)) || g.nlane >= (1 << rebin::kLaneBits) ||
       order < 0 || order > 2 || g.nlane * (g.cpad / 16) > 1024 ||
       pull_threads(g.nlane) > 512 || smem > kMaxSmem ||
       static_cast<size_t>(Q) * slots >= (static_cast<size_t>(1) << 31)) {

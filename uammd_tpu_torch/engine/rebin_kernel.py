@@ -46,7 +46,8 @@ The one-shot alternative is the port of ``make_rebin_kernel2`` (#4) with
 ``rebin_fast2``: each cell pulls from its 27 neighbor cells, as the v1
 rebin does, and then from the whole straggler list; ranks CAP ..
 CAP+OCAP-1 form the overflow mini-grid. CUDA tensors launch
-``csrc/rebin2.cu``, CPU tensors run ``rebin2_plain``.
+``csrc/rebin2.cu`` (#5's classify-and-pull pair, ranked in #3's order with
+the straggler rows last), CPU tensors run ``rebin2_plain``.
 """
 
 from __future__ import annotations
@@ -389,9 +390,13 @@ def make_separable_rebin(spec: GridSpec, ocap: int = OCAP) -> SeparableRebinKern
     return SeparableRebinKernel(spec, ocap)
 
 
-# uammd_rebin2(in, strag, out, mini, counts, Q, S, nx, nyb, nz, F, cap, ocap,
+# uammd_rebin2(in, strag, scratch, out, mini, Q, S, nx, nyb, nz, F, cap, ocap,
 #              Lx, Ly, Lz, 1/Lx, 1/Ly, 1/Lz, stream)
 REBIN2 = _build.Kernel("rebin2", "uammd_rebin2", [_P] * 5 + [_I] * 8 + [_F] * 6)
+
+# The launch of ``csrc/rebin2.cu`` is #5's: the same classify kernel and
+# rows of blocks, a pull of the same threads, shared memory and scratch.
+rebin2_launch_plan = sep_rebin_launch_plan
 
 
 def rebin2_plain(spec: GridSpec, stacked: torch.Tensor, strag: torch.Tensor,
@@ -456,13 +461,19 @@ class RebinKernel2:
     NLANE] block of them (its first lane is read).
 
     CPU tensors go to ``rebin2_plain``; CUDA tensors launch
-    ``csrc/rebin2.cu`` (counted in ``REBIN2.launches``) or raise."""
+    ``csrc/rebin2.cu`` at Q = 7 or 4 (its classify and pull kernels, one
+    count in ``REBIN2.launches`` per call) or raise. The two are bit-equal,
+    counts included."""
 
     def __init__(self, spec: GridSpec, ocap: int = OCAP):
         if spec.n_strag <= 0:
             raise ValueError("the one-shot straggler rebin needs a straggler-capable spec")
         self.spec = spec
         self.ocap = ocap
+        nx, _, nz = spec.shape
+        self._geom = (spec.n_strag, nx, spec.nyb, nz, spec.fold, spec.cap, ocap)
+        self._box = tuple(spec.box_size) + tuple(recip32(L) for L in spec.box_size)
+        self._scratch = rebin2_launch_plan(spec, ocap)["scratch_bytes"]
 
     def __call__(self, stacked: torch.Tensor, strag: torch.Tensor):
         spec = self.spec
@@ -480,22 +491,23 @@ class RebinKernel2:
                     or strag.dtype != torch.float32 or tuple(strag.shape) != sshape):
                 raise ValueError(f"stacked must be float32 {shape}, strag {sshape}")
             return rebin2_plain(spec, stacked, strag, self.ocap)
+        if n_q not in (7, 4):
+            raise ValueError(f"the one-shot rebin kernel carries Q = 7 or 4 quantities, "
+                             f"not {n_q}")
+        if min(spec.shape) < 3:
+            raise ValueError(f"the one-shot rebin kernel needs 3 cells or more an axis, "
+                             f"not {tuple(spec.shape)}")
         _build.check_cuda_tensor(stacked, "stacked", shape)
         strag = strag.contiguous()
         _build.check_cuda_tensor(strag, "strag", sshape)
-        nx, _, nz = spec.shape
         dev = stacked.device
+        scratch = torch.empty(self._scratch, dtype=torch.uint8, device=dev)
+        counts = scratch[self._scratch - 8:].view(torch.int32)
         out = torch.empty_like(stacked)
-        mini = torch.empty((n_q, nz, spec.nyb, self.ocap, spec.nlane), dtype=torch.float32,
-                           device=dev)
-        counts = torch.zeros(2, dtype=torch.int32, device=dev)
-        Lx, Ly, Lz = spec.box_size
+        mini = torch.empty((n_q,) + spec.array_shape[:2] + (self.ocap, spec.nlane),
+                           dtype=torch.float32, device=dev)
         P = _build.ptr
-        REBIN2(
-            P(stacked), P(strag), P(out), P(mini), P(counts),
-            n_q, spec.n_strag, nx, spec.nyb, nz, spec.fold, spec.cap, self.ocap,
-            Lx, Ly, Lz, recip32(Lx), recip32(Ly), recip32(Lz),
-        )
+        REBIN2(P(stacked), P(strag), P(scratch), P(out), P(mini), n_q, *self._geom, *self._box)
         return out, mini, counts[0], counts[1]
 
 

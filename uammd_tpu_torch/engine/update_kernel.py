@@ -30,14 +30,22 @@ tensors it runs ``gj_fold_update_plain``.
 
 #11 (``GJUpdateKernel``) is the same update from already folded forces,
 which the v2 engine runs when the fold is a pass of its own
-(``fold_in_update=False``). It has Box-Muller noise only (the JAX kernel
-has no switch) from the same counter hash, key, slot counters and streams
-as #12, and updates the straggler rows in the same call, so a fused and an
-unfused run draw the same numbers. CUDA tensors launch
-``csrc/gj_update.cu``; CPU tensors run ``gj_update_plain``, and
-``gj_update_z`` takes the three standard-normal fields from the caller
-(the CPU tests feed it ``jax.random``'s draws, as ``gj_update_jnp``
-makes them).
+(``fold_in_update=False``) and the DD2 step runs on every shard. It has
+Box-Muller noise only (the JAX kernel has no switch) from the same counter
+hash, key, slot counters and streams as #12, and updates the straggler
+rows in the same call, so a fused and an unfused run draw the same
+numbers. Given the straggler rows' reference positions (``sref``) it also
+folds their drift into the one it returns, as JAX's DD2 step does
+(domain2.py:409-413). CUDA tensors launch ``csrc/gj_update.cu``; CPU
+tensors run ``gj_update_plain``, and ``gj_update_z`` takes the three
+standard-normal fields from the caller (the CPU tests feed it
+``jax.random``'s draws, as ``gj_update_jnp`` makes them).
+
+Drift. Every update returns JAX's drift as XLA compiles ``gj_update_jnp``
+(update_kernel.py:354, where ``mask * y`` becomes a select): the maximum
+over slots of ``where(mask, max(|x' - rx|, |y' - ry|, |z' - rz|), 0)``. A
+NaN on an occupied slot carries through both maxima, and an empty slot
+adds exactly 0 whatever it holds.
 """
 
 from __future__ import annotations
@@ -55,7 +63,6 @@ from .layout import GridSpec
 _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
-_PP = ctypes.POINTER(ctypes.c_void_p)
 
 TWO_PI = float(np.float32(2.0 * math.pi))
 NOISES = ("clt", "bm")
@@ -68,11 +75,20 @@ GJ_FOLD_UPDATE = _build.Kernel(
     "gj_fold_update", "uammd_gj_fold_update",
     [_P] * 13 + [ctypes.c_longlong] + [_P] * 4 + [_I] * 6 + [_F] * 8)
 
-# uammd_gj_update(ins[12], outs[6], seed, drift_bits, strag_ins[4],
-#                 strag_outs[2], n, S, noisy, hv, bdt, c_x, dt, a, hva, bm,
-#                 amp, stream)
+# uammd_gj_update(x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
+#                 out [6 T + 6 S + 1], seed, scratch, scratch_len, spos, svel,
+#                 sforce, spid, spid_float, sref, S, params, stream)
 GJ_UPDATE = _build.Kernel(
-    "gj_update", "uammd_gj_update", [_PP, _PP, _P, _P, _PP, _PP] + [_I] * 3 + [_F] * 8)
+    "gj_update", "uammd_gj_update",
+    [_P] * 15 + [ctypes.c_longlong] + [_P] * 4 + [_I, _P, _I, _P])
+
+
+class _GJParams(ctypes.Structure):
+    """#11's scalar arguments, made once a kernel and passed by address
+    (``Params`` in ``csrc/gj_update.cu``)."""
+
+    _fields_ = ([(k, _I) for k in ("nz", "nyb", "plane", "noisy")]
+                + [(k, _F) for k in ("hv", "bdt", "c_x", "dt", "a", "hva", "bm", "amp")])
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -198,14 +214,15 @@ def gj_fold_update_plain(spec: GridSpec, coef: GJCoefficients, noise: str,
 def _grid_update(coef: GJCoefficients, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
                  noise_fields):
     """((x', y', z', wx', wy', wz'), drift) of the grid slots from folded
-    forces and noise fields of standard deviation ``coef.amp``."""
-    mask = (x < 1.0e8).to(torch.float32)
+    forces and noise fields of standard deviation ``coef.amp``; the drift
+    is JAX's select rule (see the module docstring)."""
+    occupied = x < 1.0e8
+    mask = occupied.to(torch.float32)
     out = [_gj(coef, p, w, f, n_.reshape(x.shape), mask) for p, w, f, n_ in
            zip((x, y, z), (wx, wy, wz), (fx, fy, fz), noise_fields)]
     (xo, wxo), (yo, wyo), (zo, wzo) = out
-    dinf = mask * torch.maximum(torch.abs(xo - rx),
-                                torch.maximum(torch.abs(yo - ry), torch.abs(zo - rz)))
-    return (xo, yo, zo, wxo, wyo, wzo), dinf.max()
+    dinf = torch.maximum(torch.abs(xo - rx), torch.maximum(torch.abs(yo - ry), torch.abs(zo - rz)))
+    return (xo, yo, zo, wxo, wyo, wzo), torch.where(occupied, dinf, 0.0).amax()
 
 
 def _update_plain(spec: GridSpec, coef: GJCoefficients, noise: str, x, y, z, wx, wy, wz,
@@ -219,27 +236,30 @@ def _update_plain(spec: GridSpec, coef: GJCoefficients, noise: str, x, y, z, wx,
     return grid + (_strag_plain(coef, noise, seed, strag),)
 
 
+def strag_occupied(spid: torch.Tensor) -> torch.Tensor:
+    """The occupied straggler rows of ``spid``: int32 pids (-1 empty) or the
+    DD2 state's float32 pid + 1 (0 empty; JAX's ``spidf > 0.5``)."""
+    return spid > 0.5 if spid.dtype == torch.float32 else spid >= 0
+
+
 def _strag_plain(coef: GJCoefficients, noise: str, seed, strag):
     """The straggler rows' (spos', svel'), with noise stream 1."""
     spos, svel, sforce, spid = strag
-    smask = (spid >= 0).to(torch.float32)
+    smask = strag_occupied(spid).to(torch.float32)
     sn = _noise(coef, noise, seed, spid.shape[0], spos.device, 1)
     sout = [_gj(coef, spos[:, c], svel[:, c], sforce[:, c], sn[c], smask) for c in range(3)]
     return (torch.stack([o[0] for o in sout], dim=-1),
             torch.stack([o[1] for o in sout], dim=-1))
 
 
-def _strag_launch_args(strag, dev):
-    """(S, the 4 straggler input pointers, the [2, S, 3] output) of an
-    update launch; S = 0 without stragglers."""
-    S = 0 if strag is None else strag[3].shape[0]
-    if S:
-        for name, t in zip(("spos", "svel", "sforce"), strag[:3]):
-            _build.check_cuda_tensor(t, name, (S, 3))
-        _build.check_cuda_tensor(strag[3], "spid", (S,), dtype=torch.int32)
-    sout = torch.empty((2, S, 3), dtype=torch.float32, device=dev)
-    sins = (_P * 4)(*((t.data_ptr() for t in strag) if S else (0,) * 4))
-    return S, sins, sout
+def strag_drift_plain(drift, spos_new, sref, spid):
+    """``drift`` joined with the straggler rows' own, as JAX's DD2 step
+    takes it (domain2.py:409-413): ``maximum(drift, max(where(occupied,
+    |spos' - sref|, 0)))``, NaN kept by both maxima."""
+    if spid.shape[0] == 0:
+        return drift
+    occupied = strag_occupied(spid)[:, None]
+    return torch.maximum(drift, torch.where(occupied, torch.abs(spos_new - sref), 0.0).amax())
 
 
 def gj_fold_update_scratch(dev, spec: GridSpec, S: int) -> torch.Tensor:
@@ -372,54 +392,114 @@ def gj_update_z(coef: GJCoefficients, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, r
 
 
 def gj_update_plain(spec: GridSpec, coef: GJCoefficients, x, y, z, wx, wy, wz, fx, fy, fz,
-                    rx, ry, rz, seed, strag=None):
+                    rx, ry, rz, seed, strag=None, sref=None):
     """Plain version of #11: the update from folded forces with "bm"
     counter noise keyed by ``seed`` (the fused update's streams). Returns
     ((x', y', z', wx', wy', wz'), drift), and with ``strag = (spos, svel,
-    sforce, spid)`` also the stragglers' (spos', svel')."""
-    return _update_plain(spec, coef, "bm", x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
-                         seed, strag)
+    sforce, spid)`` (``spid`` int32 pids or float32 pid + 1) also the
+    stragglers' (spos', svel'); with ``sref`` (their positions at the last
+    rebin) the drift takes in theirs (``strag_drift_plain``)."""
+    res = _update_plain(spec, coef, "bm", x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz,
+                        seed, strag)
+    if sref is None:
+        return res
+    if strag is None:
+        raise ValueError("sref needs the straggler rows")
+    return res[0], strag_drift_plain(res[1], res[2][0], sref, strag[3]), res[2]
+
+
+def gj_update_scratch(dev, spec: GridSpec, S: int) -> torch.Tensor:
+    """A zeroed int32 scratch for #11's launches on ``dev`` with ``S``
+    straggler rows (``uammd_gj_update_scratch``: a drift maximum a block,
+    then the ticket counter)."""
+    lib = _build.load("gj_update")
+    if lib.uammd_gj_update_params_size() != ctypes.sizeof(_GJParams):
+        raise RuntimeError("csrc/gj_update.cu's Params block differs from _GJParams")
+    size = lib.uammd_gj_update_scratch
+    size.restype = ctypes.c_longlong
+    nz, nyb, cap, nlane = spec.array_shape
+    n = size(ctypes.c_int(nz), ctypes.c_int(nyb), ctypes.c_int(cap * nlane), ctypes.c_int(S))
+    return torch.zeros(int(n), dtype=torch.int32, device=dev)
 
 
 class GJUpdateKernel:
-    """``update(x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, seed[, strag])
-    -> ((x', y', z', wx', wy', wz'), drift[, (spos', svel')])`` for one
-    ``GridSpec``, from folded forces; arguments as ``GJFoldUpdateKernel``
-    takes them.
+    """``update(x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, seed[, strag[,
+    sref]]) -> ((x', y', z', wx', wy', wz'), drift[, (spos', svel')])`` for
+    one ``GridSpec``, from folded forces; ``seed`` the 0-d int32 step seed
+    (read on the device), ``strag = (spos, svel, sforce, spid)`` the
+    straggler rows ([S, 3] float32; ``spid`` [S] int32 pids, -1 empty, or
+    float32 pid + 1, 0 empty, the DD2 state's form) and ``sref`` [S, 3]
+    their positions at the last rebin, whose drift then joins the grid's.
 
     CPU tensors go to ``gj_update_plain``; CUDA tensors launch
-    ``csrc/gj_update.cu`` (counted in ``GJ_UPDATE.launches``) or raise."""
+    ``csrc/gj_update.cu`` (counted in ``GJ_UPDATE.launches``) or raise. The
+    outputs are views of one fresh buffer. The kernel keeps a small int32
+    scratch on the instance (a drift maximum a block and a ticket counter
+    that the launch resets), so one instance serves one stream at a
+    time."""
 
     def __init__(self, spec: GridSpec, dt, temperature, friction, mass):
         self.spec = spec
-        self.coef = GJCoefficients(dt, temperature, friction, mass)
+        self.coef = c = GJCoefficients(dt, temperature, friction, mass)
+        nz, nyb, cap, nlane = spec.array_shape
+        self._shape = torch.Size(spec.array_shape)
+        self._T = T = spec.n_slots
+        self._grids_at = ((6,) + spec.array_shape, (T, nyb * cap * nlane, cap * nlane, nlane, 1))
+        self._params = _GJParams(nz, nyb, cap * nlane, int(c.noisy), c.hv, c.bdt, c.c_x,
+                                 c.dt, c.a, c.hva, c.bm, c.amp)
+        self._params_at = ctypes.addressof(self._params)
+        self._plane_odd = (cap * nlane) % 4 != 0
+        self._scratch = {}  # (device, S) -> (the launch's int32 scratch, its pointer, length)
 
-    def __call__(self, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, seed, strag=None):
-        spec = self.spec
-        shape = spec.array_shape
-        grids = [x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz]
-        if x.device.type == "cpu":
-            for t in grids:
-                if t.device.type != "cpu" or t.dtype != torch.float32 or tuple(t.shape) != shape:
-                    raise ValueError(f"update inputs must be float32 CPU tensors of shape {shape}")
-            return gj_update_plain(spec, self.coef, *grids, seed, strag)
-        for k, t in enumerate(grids):
-            _build.check_cuda_tensor(t, f"update input {k}", shape)
-        _build.check_cuda_tensor(seed, "seed", (), dtype=torch.int32)
+    def __call__(self, x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz, seed, strag=None,
+                 sref=None):
+        grids = (x, y, z, wx, wy, wz, fx, fy, fz, rx, ry, rz)
+        if sref is not None and strag is None:
+            raise ValueError("sref needs the straggler rows")
         dev = x.device
-        out = torch.empty((6,) + shape, dtype=torch.float32, device=dev)
-        drift_bits = torch.zeros(1, dtype=torch.int32, device=dev)
-        S, sins, sout = _strag_launch_args(strag, dev)
-        c = self.coef
-        GJ_UPDATE(
-            (_P * 12)(*(t.data_ptr() for t in grids)),
-            (_P * 6)(*(o.data_ptr() for o in out)),
-            _build.ptr(seed), _build.ptr(drift_bits),
-            sins, (_P * 2)(sout[0].data_ptr(), sout[1].data_ptr()),
-            spec.n_slots, S, int(c.noisy), c.hv, c.bdt, c.c_x, c.dt, c.a, c.hva, c.bm, c.amp,
-        )
-        grid = (tuple(out[k] for k in range(6)), drift_bits.view(torch.float32)[0])
-        return grid if strag is None else grid + ((sout[0], sout[1]),)
+        shape = self._shape
+        if dev.type == "cpu":
+            for t in grids:
+                if t.device.type != "cpu" or t.dtype != torch.float32 or t.shape != shape:
+                    raise ValueError(f"update inputs must be float32 CPU tensors of shape "
+                                     f"{tuple(shape)}")
+            return gj_update_plain(self.spec, self.coef, *grids, seed, strag, sref)
+        # only what the kernel cannot survive: a CUDA float32 contiguous
+        # tensor of the right shape, a plane of whole 16-byte words
+        _build.check_cuda_tensors(grids, "update grid", shape)
+        if self._plane_odd:
+            raise ValueError(f"the update reads 4 slots at a time: CAP x NLANE = "
+                             f"{self._params.plane} is not a multiple of 4")
+        if not (seed.is_cuda and seed.dtype is torch.int32 and seed.dim() == 0):
+            _build.check_cuda_tensor(seed, "seed", (), dtype=torch.int32)
+        S, sp, spid_float, rp = 0, (None,) * 4, 0, None
+        if strag is not None:
+            spos, svel, sforce, spid = strag
+            S = spid.shape[0]
+            _build.check_cuda_tensors(strag[:3], "straggler input", (S, 3))
+            spid_float = int(spid.dtype is torch.float32)
+            if not (spid_float and spid.is_cuda and spid.shape == (S,)
+                    and spid.is_contiguous()):
+                _build.check_cuda_tensor(spid, "spid", (S,), dtype=torch.int32)
+            sp = (spos.data_ptr(), svel.data_ptr(), sforce.data_ptr(), spid.data_ptr())
+            if sref is not None:
+                _build.check_cuda_tensors((sref,), "sref", (S, 3))
+                rp = sref.data_ptr()
+        T6 = 6 * self._T
+        buf = torch.empty(T6 + 6 * S + 1, dtype=torch.float32, device=dev)
+        scratch = self._scratch.get((dev, S))
+        if scratch is None:  # zeroed once; the launches keep it so
+            t = gj_update_scratch(dev, self.spec, S)
+            scratch = self._scratch[(dev, S)] = (t, t.data_ptr(), t.numel())
+        GJ_UPDATE(x.data_ptr(), y.data_ptr(), z.data_ptr(), wx.data_ptr(), wy.data_ptr(),
+                  wz.data_ptr(), fx.data_ptr(), fy.data_ptr(), fz.data_ptr(), rx.data_ptr(),
+                  ry.data_ptr(), rz.data_ptr(), buf.data_ptr(), seed.data_ptr(), scratch[1],
+                  scratch[2], *sp, spid_float, rp, S, self._params_at)
+        grid = (buf.as_strided(*self._grids_at).unbind(0), buf[T6 + 6 * S])
+        if strag is None:
+            return grid
+        rows = (S, 3), (3, 1)
+        return grid + ((buf.as_strided(*rows, T6), buf.as_strided(*rows, T6 + 3 * S)),)
 
 
 def make_gj_update_kernel(spec: GridSpec, dt, temperature, friction, mass) -> GJUpdateKernel:

@@ -9,7 +9,8 @@ home rows [nz_loc, nyb, CAP, NLANE] and its own [S] straggler list.
 One step, as phases over the shards with the collectives between them:
 
 1. the G-J update #11 of every shard (grid and straggler rows in one
-   launch, noise keyed by the shard's ``stepc``) and its drift;
+   launch, noise keyed by the shard's ``stepc``) and its drift, the
+   straggler rows' own since the last rebin included;
 2. ``pmax`` of the drift, the step's one host read, which decides the rebin
    for every shard at once;
 3. on drift, the rebin: on a 1-shard mesh the separable rebin #5 with
@@ -142,23 +143,17 @@ class DomainMD2Step:
         spos, svelw = list(st.spos), list(st.svelw)
         dinfs = []
         for i in range(n):
-            strag = None
-            if S:
-                spid = st.spidf[i].to(torch.int32) - 1  # pid + 1 -> pid, -1 = empty
-                strag = (st.spos[i], st.svelw[i], st.sforce[i], spid)
+            # the straggler rows by their pid + 1 (the state's form), and
+            # their drift since the last rebin joined in the same launch
+            strag = (st.spos[i], st.svelw[i], st.sforce[i], st.spidf[i]) if S else None
             res = self.upd(st.x[i], st.y[i], st.z[i], st.wx[i], st.wy[i], st.wz[i],
                            st.fx[i], st.fy[i], st.fz[i], st.rx[i], st.ry[i], st.rz[i],
-                           st.stepc[i], strag)
+                           st.stepc[i], strag, st.sref[i] if S else None)
             for k, v in zip(("x", "y", "z", "wx", "wy", "wz"), res[0]):
                 grids[k][i] = v
-            dinf = res[1]
             if S:
                 spos[i], svelw[i] = res[2]
-                sm = (st.spidf[i] > 0.5)[:, None]
-                sdrift = torch.where(sm, torch.abs(spos[i] - st.sref[i]),
-                                     torch.zeros((), device=spos[i].device)).max()
-                dinf = torch.maximum(dinf, sdrift)
-            dinfs.append(dinf)
+            dinfs.append(res[1])
         # the step's one host read: the drift, the same for every shard
         drift = float(pmax(dinfs)[0])
         pidf, spidf, ovf = list(st.pidf), list(st.spidf), list(st.ovf)
