@@ -289,6 +289,25 @@ Imports nothing of JAX or of the JAX package. Phases:
      phase of the pse_dd2 step (drift read, rebin, ghosts, pair force,
      matvec x (1 + m), Lanczos, bucketing, far field, update) and the host
      reads per step.
+   - the general path (``general_path``, slice C): the README quick
+     start's protocol on the v1 melt's final state: ``lj(cutoff=2.5)``
+     unshifted in float32 over ``build_neighbor_list(skin_multiplier=1.2)``
+     and ``ensure_capacity``, ``nvt_gronbech_jensen`` at dt 0.01, T 1.5,
+     friction 1: 100 settle and 200 timed steps, each timed step ended by
+     a synchronize (ms/step is their median). Gates: no overflow, finite
+     pos, vel and force, T within 20 % of 1.5, at least one rebuild in the
+     timed steps, one host read a step (also in a step that rebuilds).
+     Checks at the start state: the forces by pid against #1's on the v1
+     GridState (one launch) within ``GEN_FORCE_TOL`` x max|f|, the
+     particles within 1e-5 of a face and their partners, and the pairs
+     whose r2 lies within ``GEN_RC2_WINDOW`` of rc^2 (where the unshifted
+     force jumps by 0.039 and the two paths' roundings of r2 may fall on
+     either side), left out and counted; control: a list of radius 2.4 must fail the bound; the list
+     against brute force (the same partners within 3.0) for 4096 sampled
+     particles; the dense NBody path against the list path at N = 16384
+     within 1e-5. Each layer (cell list, rebuild, ``apply_pairs``, the
+     drift test and its read, the G-J update) timed alone. The path runs
+     no hand kernel: the JAX general path has no ``pallas_call``.
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -306,7 +325,9 @@ Imports nothing of JAX or of the JAX package. Phases:
    functors of #2, #1's observable mode, the Lanczos sqrt kernel, slice
    G1's #6 ``halo_z`` (4 shards and 1), #8, #11, #1 halo and #2 halo rows
    (the rows of #11 and #4 with the profiler's device time, warm and with
-   the L2 flushed, #11's also with its host time a launch), slice G2a's #2 PSE
+   the L2 flushed, #11's also with its host time a launch; #7's the same
+   at the v2 path's final state, and at the unfused and PSE paths' in
+   ``v2_unfused_path_times`` and ``pse_path_times``), slice G2a's #2 PSE
    halo, #2 radial halo and #1 fused halo rows, #13 and #14 at the PSE
    and Poisson far fields besides FCM's, and #3 at the DPD and SPH paths'
    final states besides v1's, each with its launch plan).
@@ -324,8 +345,9 @@ build, the face checks, #3's and #5's checks and their rows at the v1,
 DPD and SPH grids (#3) and the v2 spec and PSE near grid (#5) (their
 packed starts, displaced), ``--only-update-fold`` the build, #12's checks,
 the v1 melt, the v2 path, #9's checks (with the PSE channel kernels'), the
-PSE path and the rows of #12, #10 and #9; none prints a result line (for
-work on those paths).
+PSE path and the rows of #12, #10 and #9, ``--only-general`` the build,
+the v1 melt and the general path; none prints a result line (for work on
+those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -957,6 +979,22 @@ def device_ms(prof: dict, what: str) -> float:
     check(prof["kernels_ms"] is not None and prof["kernels_ms"] > 0,
           f"{what}: the profiler measured the kernel's device time")
     return prof["kernels_ms"]
+
+
+def fold_times(fold, home, groups) -> dict:
+    """#7 (``uammd_fold``) on (home, groups): CUDA events, the profiler's
+    device time warm and with the L2 flushed before each call, and the
+    wrapper's host time a call; its launch count left as it was."""
+    from uammd_tpu_torch.engine import kernel2
+
+    n0 = kernel2.FOLD.launches
+    out = {"ms": cuda_ms(lambda: fold(home, groups), reps=20)}
+    for k, cold in (("device_ms_profiler", False), ("device_ms_profiler_cold", True)):
+        out[k] = profiler_ms(lambda: fold(home, groups), ["fold_kernel"], cold=cold)
+        device_ms(out[k], f"#7 ({k})")
+    out["host_us_a_call"] = host_us(lambda: fold(home, groups))
+    kernel2.FOLD.launches = n0
+    return out
 
 
 def spill_report(names) -> dict:
@@ -2348,6 +2386,12 @@ def pse_breakdown(run, card, errs):
     fs = run["fs"]
     t["pair_force_newton_fold"] = cuda_ms(lambda: fs(cg), reps=10)
     calls["pair_force_newton_fold"] = 1.0
+    # #7 alone on the Newton output of this state, as the step folds it
+    n6 = kernel2.NEWTON_PAIR.launches
+    strag6 = kernel2.broadcast_stragglers(spec, cg.spos, cg.spid) if spec.n_strag else None
+    home6, groups6, _ = kernel2.make_newton_pair_kernel(spec, wca())(cg.x, cg.y, cg.z, strag6)
+    kernel2.NEWTON_PAIR.launches = n6
+    run["fold_times"] = fold_times(kernel2.make_fold_kernel(spec), home6, groups6)
     Ls = spec.box_size
     pos_w = torch.stack([p[:, d] - Ls[d] * torch.round(p[:, d] / Ls[d]) for d in range(3)], -1)
     t["near_rebin_sep_rebin"] = cuda_ms(lambda: be._near_repack(st, p, pos_w), reps=10)
@@ -3760,8 +3804,9 @@ def unfused_main_path(dev, card, melted, errs):
     upd = engine.update
     stacked, srows = stacked_of(moved, 7), strag_stack_of(moved)
     r2k = rk.make_rebin_kernel2(spec)
+    fold_t = fold_times(fold, home, groups)
     t = {"newton_pair": cuda_ms(lambda: newton(gs.x, gs.y, gs.z, strag), reps=20),
-         "fold": cuda_ms(lambda: fold(home, groups), reps=20),
+         "fold": fold_t["ms"],
          "gj_update": cuda_ms(lambda: upd(*a, *ref, step, s_rows), reps=20),
          "rebin_fast3": cuda_ms(lambda: rk.rebin_fast3(moved), reps=20)}
     r2_ms = cuda_ms(lambda: r2k(stacked, srows), reps=20)
@@ -3812,7 +3857,7 @@ def unfused_main_path(dev, card, melted, errs):
          "launch_plan": rebin2_plan_of(spec, rk.OCAP),
          "launches_note": "held against rebin_fast3 on each state the unfused path rebinned "
                           "in its settle steps"},
-    ], {"ms": ms, "fold_launches": launches["fold"], "fold_ms": t["fold"],
+    ], {"ms": ms, "fold_launches": launches["fold"], "fold_ms": t["fold"], "fold_times": fold_t,
         "newton_launches": launches["newton_pair"],
         "sep_rebin_launches": launches["separable_rebin"]}
 
@@ -6865,6 +6910,272 @@ def update_fold_only(dev, card) -> int:
     return 0
 
 
+# ------------------------------------------------ slice C: the general path
+# The README quick start's protocol (README.md:76-98) at the v1 melt's
+# final state (N = 2^20, box 128^3, rho 0.5): lj(cutoff=2.5) unshifted in
+# float32 over a Verlet list (skin 1.2, then ensure_capacity), stepped by
+# nvt_gronbech_jensen at bench.py's dt 0.01 and T 1.5, friction 1.
+GEN_CUTOFF, GEN_SKIN, GEN_DT, GEN_FRICTION = 2.5, 1.2, 0.01, 1.0
+GEN_SETTLE, GEN_TIMED = 100, 200
+GEN_HOST_READ_STEPS = 5
+# the general path's forces against #1's by pid: float32 sums in two orders
+GEN_FORCE_TOL = 1e-4
+# the control's list radius: below the potential's 2.5, so its pairs in
+# (2.4, 2.5] are missing
+GEN_CONTROL_CUTOFF = 2.4
+# particles this close to a face lose their pairs across it on the grid
+# path (ROADMAP.md section 3), so they and their partners are left out
+GEN_FACE_EPS = 1e-5
+# the unshifted LJ force jumps by 0.039 at rc; the two paths round a pair's
+# displacement apart by up to an ulp of a box-sized coordinate (7.6e-6 at
+# 64), so r2 by up to 2 |dr| sqrt(3) 7.6e-6 = 6.6e-5 at rc: a pair with r2
+# this close to rc^2 may be in on one path and out on the other, and its
+# two particles are left out
+GEN_RC2_WINDOW = 1e-4
+GEN_SAMPLE, GEN_SAMPLE_ROWS = 4096, 128
+GEN_DENSE_N, GEN_DENSE_TOL = 16384, 1e-5
+
+
+def general_vs_pair_kernel(dev, b, pot, pos, nl) -> dict:
+    """The general path's forces at ``pos`` held by pid against #1's on the
+    v1 GridState packed from the same positions (one launch of #1), leaving
+    out the particles within ``GEN_FACE_EPS`` of a face and their list
+    partners, and the two particles of each pair whose r2 lies within
+    ``GEN_RC2_WINDOW`` of rc^2; the control, a list of radius 2.4, must
+    fail the bound."""
+    import torch
+    from uammd_tpu_torch.engine import layout, md, pair_kernel
+    from uammd_tpu_torch.interactors.pair import pair_forces
+    from uammd_tpu_torch.neighbors.neighbor_list import (build_neighbor_list, ensure_capacity,
+                                                         pair_r2)
+
+    n = pos.shape[0]
+    pos_np = pos.cpu().numpy()
+    spec = layout.choose_spec(BOX, n, GEN_CUTOFF, pos=pos_np)
+    gs = layout.pack(spec, pos_np, device=dev)
+    check(not bool(gs.overflow), "general vs #1: the v1 pack keeps every particle")
+    n0 = pair_kernel.PAIR_FORCE.launches
+    fx, fy, fz = pair_kernel.make_pair_force_kernel(spec, md.lj_g())(gs.x, gs.y, gs.z)
+    check(pair_kernel.PAIR_FORCE.launches == n0 + 1, "general vs #1: #1 launched once")
+    m = gs.pid >= 0
+    f1 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    f1[gs.pid[m].long()] = torch.stack([fx[m], fy[m], fz[m]], dim=-1)
+    half = torch.tensor([0.5 * x for x in b.lengths], dtype=pos.dtype, device=dev)
+    wrapped = b.wrap_position(pos)
+    face = ((wrapped.abs() - half).abs() < GEN_FACE_EPS).any(dim=1)
+    keep = ~face
+    partners = nl.idx[face].long().reshape(-1)
+    keep[partners[partners < n]] = False
+    _, r2 = pair_r2(b, pos[torch.clamp(nl.idx, max=n - 1).long()], pos[:, None, :])
+    rc2_gap = (r2 - GEN_CUTOFF ** 2).abs()
+    del r2
+    at_rc = (rc2_gap < GEN_RC2_WINDOW) & (nl.idx < n)
+    keep &= ~at_rc.any(dim=1)
+    f = pair_forces(pot, pos, nl).force
+    check(bool(f.isfinite().all()), "general vs #1: forces finite")
+    scale = float(f1[keep].abs().max())
+    df = torch.where(keep[:, None], (f - f1).abs(), 0.0).amax(dim=1)
+    err = float(df.max()) / scale
+    w = int(df.argmax())
+    worst = {"pid": w, "abs_df": float(df[w]), "f_general": f[w].tolist(),
+             "f_pair_force": f1[w].tolist(), "pos": pos[w].tolist(),
+             "partners": int((nl.idx[w] < n).sum()),
+             "min_abs_r2_minus_rc2": float(rc2_gap[w][nl.idx[w] < n].min())}
+    del rc2_gap
+    check(err < GEN_FORCE_TOL,
+          f"general path vs #1 by pid: max|df| / max|f| = {err:.3g} < {GEN_FORCE_TOL}")
+    ctl_nl = ensure_capacity(build_neighbor_list(pos, b, GEN_CONTROL_CUTOFF,
+                                                 skin_multiplier=1.0), pos)
+    ctl = float((pair_forces(pot, pos, ctl_nl).force - f1)[keep].abs().max()) / scale
+    check(ctl >= GEN_FORCE_TOL,
+          f"control (a list of radius {GEN_CONTROL_CUTOFF}) fails the check: {ctl:.3g}")
+    del ctl_nl, gs
+    return {"rel_err": err, "tol": GEN_FORCE_TOL, "control_rel_err": ctl,
+            "particles_near_a_face": int(face.sum()),
+            "pairs_within_the_rc2_window": int(at_rc.sum()) // 2,
+            "rc2_window": GEN_RC2_WINDOW, "particles_left_out": int((~keep).sum()),
+            "max_abs_f": scale, "worst": worst, "pair_force_spec": list(spec.array_shape)}
+
+
+def general_list_checks(dev, b, pos, nl) -> dict:
+    """The list against brute force for ``GEN_SAMPLE`` sampled particles
+    (the same set of partners within the list radius, the same arithmetic:
+    ``neighbor_list.pair_r2``), and the dense NBody path against the list
+    path at N = ``GEN_DENSE_N`` (a jittered fcc lattice at rho 0.5)."""
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.interactors.pair import pair_forces
+    from uammd_tpu_torch.neighbors.neighbor_list import (build_neighbor_list, ensure_capacity,
+                                                         pair_r2)
+    from uammd_tpu_torch.potentials.radial import lj
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    n = pos.shape[0]
+    # the list radius squared, rounded to the positions' dtype as the build rounds it
+    rl2 = float(torch.tensor((nl.cutoff * nl.skin_multiplier) ** 2, dtype=pos.dtype))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    sample = torch.randperm(n, generator=gen, device=dev)[:GEN_SAMPLE]
+    wrong = partners = 0
+    for lo in range(0, GEN_SAMPLE, GEN_SAMPLE_ROWS):
+        rows = sample[lo:lo + GEN_SAMPLE_ROWS]
+        _, r2 = pair_r2(b, pos[None, :, :], pos[rows][:, None, :])  # [B, N]
+        brute = r2 <= rl2
+        brute[torch.arange(rows.shape[0], device=dev), rows] = False
+        listed = torch.zeros((rows.shape[0], n + 1), dtype=torch.bool, device=dev)
+        listed.scatter_(1, nl.idx[rows].long(), True)
+        wrong += int((listed[:, :n] != brute).sum())
+        partners += int(brute.sum())
+    check(wrong == 0, f"the list against brute force: {wrong} pairs differ over "
+                      f"{GEN_SAMPLE} particles")
+    L16 = (GEN_DENSE_N / 0.5) ** (1.0 / 3.0)
+    rng = torch.Generator().manual_seed(23)
+    jit = (torch.rand((GEN_DENSE_N, 3), generator=rng, dtype=torch.float64) - 0.5) * 0.4
+    p16 = torch.as_tensor(lattice(GEN_DENSE_N, L16, "fcc") + jit.numpy(), dtype=torch.float32,
+                          device=dev)
+    b16 = box(L16, device=dev)
+    pot = lj(cutoff=GEN_CUTOFF, device=dev)
+    nl16 = ensure_capacity(build_neighbor_list(p16, b16, pot.max_cutoff,
+                                               skin_multiplier=GEN_SKIN), p16)
+    f_list = pair_forces(pot, p16, nl16).force
+    f_dense = pair_forces(pot, p16, box=b16).force
+    dense_err = float((f_list - f_dense).abs().max() / f_dense.abs().max())
+    check(dense_err < GEN_DENSE_TOL,
+          f"dense NBody vs list at N = {GEN_DENSE_N}: {dense_err:.3g} < {GEN_DENSE_TOL}")
+    return {"sampled": GEN_SAMPLE, "pairs_checked": partners, "pairs_differing": wrong,
+            "dense_n": GEN_DENSE_N, "dense_vs_list_rel_err": dense_err,
+            "dense_tol": GEN_DENSE_TOL}
+
+
+def general_path(dev, card, melted) -> dict:
+    """Phase 3j: the general path (slice C) as the README quick start runs
+    it, on the v1 melt's final state: the build, ``GEN_SETTLE`` settle and
+    ``GEN_TIMED`` timed Gronbech-Jensen steps (each ended by a
+    synchronize: the median is ms/step), the gates, the checks against #1,
+    brute force and the dense path, and each layer timed alone."""
+    import dataclasses
+    import statistics
+    import torch
+    from uammd_tpu_torch import box, make_state
+    from uammd_tpu_torch.core.grid import Grid
+    from uammd_tpu_torch.integrators.base import run, temperature
+    from uammd_tpu_torch.integrators.verlet import nvt_gronbech_jensen
+    from uammd_tpu_torch.interactors.pair import pair_forces
+    from uammd_tpu_torch.neighbors.cell_list import build_cell_list
+    from uammd_tpu_torch.neighbors.neighbor_list import (
+        build_neighbor_list, ensure_capacity, maybe_rebuild, rebuild_neighbor_list)
+    from uammd_tpu_torch.potentials.radial import lj
+
+    torch.cuda.empty_cache()
+    n = melted.shape[0]
+    b = box(BOX, device=dev)
+    st = make_state(melted, seed=0, device=dev)
+    pot = lj(cutoff=GEN_CUTOFF, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nl = build_neighbor_list(st.pos, b, pot.max_cutoff, skin_multiplier=GEN_SKIN)
+    nl = ensure_capacity(nl, st.pos)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    check(not bool(nl.overflow), "general path: the first list does not overflow")
+    vs1 = general_vs_pair_kernel(dev, b, pot, st.pos, nl)
+    lists = general_list_checks(dev, b, st.pos, nl)
+    rebuilt = [0]
+
+    def forces(state, nbrs):
+        new = maybe_rebuild(nbrs, state.pos)
+        rebuilt[0] += new is not nbrs
+        return pair_forces(pot, state.pos, new), new
+
+    integ = nvt_gronbech_jensen(forces, dt=GEN_DT, temperature=TEMPERATURE,
+                                friction=GEN_FRICTION)
+    # every kernel's count, zeroed just before the path: it launches none
+    counted = {**v2_counters(), **unfused_counters(), **dd_counters(), **pse_counters()}
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st, nl, _ = run(integ, st, nl, GEN_SETTLE)
+    torch.cuda.synchronize()
+    settle_rebuilds = rebuilt[0]
+    per_step = []
+    t_all = time.perf_counter()
+    for _ in range(GEN_TIMED):
+        t0 = time.perf_counter()
+        st, nl = integ.step(st, nl)
+        torch.cuda.synchronize()
+        per_step.append(1e3 * (time.perf_counter() - t0))
+    timed_s = time.perf_counter() - t_all
+    timed_rebuilds = rebuilt[0] - settle_rebuilds
+    launches = {k: v.launches for k, v in counted.items()}
+    t_meas = float(temperature(st))
+    check(not bool(nl.overflow), "general path: no overflow")
+    check(all(bool(a.isfinite().all()) for a in (st.pos, st.vel, st.force)),
+          "general path: pos, vel and force finite")
+    check(math.isfinite(t_meas) and abs(t_meas - TEMPERATURE) < 0.2 * TEMPERATURE,
+          f"general path: temperature {t_meas:.4f} within 20 % of {TEMPERATURE}")
+    check(timed_rebuilds >= 1, f"general path: {timed_rebuilds} rebuilds in the timed steps")
+    holder = [st, nl]
+
+    def step():
+        holder[0], holder[1] = integ.step(holder[0], holder[1])
+
+    reads = host_reads(step, GEN_HOST_READ_STEPS)
+    # and a step that rebuilds: the list's reference moved past the skin
+    holder[1] = dataclasses.replace(holder[1], ref_pos=holder[1].ref_pos + 1.0)
+    n_before = rebuilt[0]
+    reads_rebuild = host_reads(step, 1)
+    check(rebuilt[0] == n_before + 1, "general path: the forced step rebuilt its list")
+    check(len(reads) == GEN_HOST_READ_STEPS and len(reads_rebuild) == 1,
+          f"general path: one host read a step ({reads}; a rebuilding step: {reads_rebuild})")
+    st, nl = holder
+    peak = torch.cuda.max_memory_allocated()
+    # each layer alone at the final state (CUDA events)
+    grid = Grid(box=b, shape=nl.grid_shape)
+    fev = pair_forces(pot, st.pos, nl)
+    layers = {
+        "cell_list_ms": cuda_ms(lambda: build_cell_list(st.pos, grid, nl.cell_capacity),
+                                reps=10),
+        "rebuild_ms": cuda_ms(lambda: rebuild_neighbor_list(nl, st.pos), reps=5, warmup=1),
+        "apply_pairs_lj_ms": cuda_ms(lambda: pair_forces(pot, st.pos, nl), reps=10),
+        "drift_test_ms": cuda_ms(lambda: nl.needs_rebuild(st.pos), reps=20),
+        "drift_read_host_us": host_us(lambda: bool(nl.needs_rebuild(st.pos)), n=20),
+        "gj_update_ms": cuda_ms(lambda: nvt_gronbech_jensen(
+            lambda s, a: (fev, a), dt=GEN_DT, temperature=TEMPERATURE,
+            friction=GEN_FRICTION).step(st, nl), reps=20),
+    }
+    med = statistics.median(per_step)
+    out = {
+        "phase": "general_path", "card": card, "n": n, "box": BOX, "potential":
+        "lj(cutoff=2.5), unshifted, float32", "integrator":
+        f"nvt_gronbech_jensen(dt={GEN_DT}, temperature={TEMPERATURE}, "
+        f"friction={GEN_FRICTION})", "settle_steps": GEN_SETTLE, "timed_steps": GEN_TIMED,
+        "grid_shape": list(nl.grid_shape), "cell_capacity": nl.cell_capacity,
+        "max_neighbors": nl.max_neighbors, "build_ms": build_ms,
+        "ms_per_step": med, "ms_per_step_mean": 1e3 * timed_s / GEN_TIMED,
+        "ms_per_step_quartiles": statistics.quantiles(per_step, n=4),
+        "particle_steps_per_s": n * GEN_TIMED / timed_s,
+        "rebuilds_settle": settle_rebuilds, "rebuilds_timed": timed_rebuilds,
+        "ms_per_rebuild": layers["rebuild_ms"], "layers": layers,
+        "temperature": t_meas, "overflow": False,
+        "host_reads_per_step": len(reads) / GEN_HOST_READ_STEPS, "host_reads_at": reads,
+        "host_reads_rebuilding_step": reads_rebuild,
+        "peak_memory_gib": peak / 2**30, "kernel_launches": launches,
+        "vs_pair_force_kernel": vs1, "list_checks": lists,
+        "note": "ms_per_step: the median of the timed steps, each ended by "
+                "torch.cuda.synchronize(); the path runs no hand kernel (the JAX general "
+                "path has no pallas_call), #1 is launched once as the forces' yardstick",
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def general_only(dev, card) -> int:
+    """``--only-general``: the v1 melt and the general path alone; prints
+    no result line."""
+    general_path(dev, card, melt(dev))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6878,6 +7189,7 @@ def main() -> int:
     only_pencil = "--only-pencil" in sys.argv[1:]
     only_rebin = "--only-rebin" in sys.argv[1:]
     only_update_fold = "--only-update-fold" in sys.argv[1:]
+    only_general = "--only-general" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6938,6 +7250,8 @@ def main() -> int:
         return rebin_only(dev, card)
     if only_update_fold:
         return update_fold_only(dev, card)
+    if only_general:
+        return general_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -7152,7 +7466,8 @@ def main() -> int:
 
     newton_ms = cuda_ms(lambda: newton(gs2.x, gs2.y, gs2.z, strag), reps=20)
     newton_plain_ms = cuda_ms(lambda: newton_pair(gs2, plain=True), reps=3, warmup=1)
-    fold_ms = cuda_ms(lambda: fold(home, groups), reps=20)
+    fold_t = fold_times(fold, home, groups)
+    fold_ms = fold_t["ms"]
     fold_plain_ms = cuda_ms(lambda: kernel2.fold_reactions_plain(home, groups), reps=5, warmup=1)
     upd_ms = row_upd["ms"]
     sep_ms = row_sep["ms"]
@@ -7198,8 +7513,9 @@ def main() -> int:
         row("newton_pair", "newton_pair.cu", "uammd_tpu/engine/kernel2.py:447",
             launches_v2["newton_pair"], newton_abs_err, newton_ms, newton_plain_ms,
             newton_bytes_ms, newton_ops_ms),
-        row("fold", "fold.cu", "uammd_tpu/engine/kernel2.py:531",
-            launches_v2["fold"], fold_abs_err, fold_ms, fold_plain_ms, fold_bytes_ms),
+        {**row("fold", "fold.cu", "uammd_tpu/engine/kernel2.py:531",
+               launches_v2["fold"], fold_abs_err, fold_ms, fold_plain_ms, fold_bytes_ms),
+         **{k: v for k, v in fold_t.items() if k != "ms"}},
         row_upd,
         row_sep,
     ]
@@ -7208,6 +7524,8 @@ def main() -> int:
     for r in rows[:6]:  # the LJ kernels that the PSE path also runs
         if r["name"] in pse_path["launches"]:
             r["launches_pse_path"] = pse_path["launches"][r["name"]]
+        if r["name"] == "fold":
+            r["pse_path_times"] = pse_path["fold_times"]
     rows.append(lanczos_row(pse_path, d_errs["lanczos_sqrt"]))
     # 3e-3h, 4d: slice D's paths, each with its own zeroed launch counts
     rows += slice_d_paths(dev, card, gs2, engine2)
@@ -7220,6 +7538,8 @@ def main() -> int:
     for r in rows:  # the earlier kernels that the unfused path also runs
         if r["name"] in unfused_launches:
             r["launches_v2_unfused_path"] = unfused_launches[r["name"]]
+        if r["name"] == "fold":
+            r["v2_unfused_path_times"] = a3["fold_times"]
     rows += a3_rows
     e1_rows, _ = poisson_main_path(dev, card, e1_checks)
     rows += e1_rows
@@ -7229,6 +7549,11 @@ def main() -> int:
     # slice G2a: the composed multi-shard PSE steps, each path with its own
     # zeroed launch counts
     rows += g2_phases(dev, card)
+    # slice C: the general path, with every kernel count zeroed just before
+    gen = general_path(dev, card, melted)
+    print(json.dumps({"phase": "general_vs_grid_paths", "card": card, "n": N,
+                      "ms_per_step": {"general": gen["ms_per_step"], "v1": ms_v1,
+                                      "v2": ms_v2, "v2_unfused": a3["ms"]}}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

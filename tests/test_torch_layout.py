@@ -210,6 +210,9 @@ def test_port_imports_no_jax():
         "import uammd_tpu_torch.engine.rebin_kernel, uammd_tpu_torch.engine.update_kernel\n"
         "import uammd_tpu_torch.parallel.mesh, uammd_tpu_torch.parallel.domain\n"
         "import uammd_tpu_torch.parallel.domain2\n"
+        "import uammd_tpu_torch.neighbors.pair_map, uammd_tpu_torch.potentials.dpd\n"
+        "import uammd_tpu_torch.interactors.pair, uammd_tpu_torch.interactors.bonded\n"
+        "import uammd_tpu_torch.integrators.verlet, uammd_tpu_torch.core.groups\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'uammd_tpu' or m.startswith('uammd_tpu.')]\n"
         "assert not bad, bad\n"

@@ -10,8 +10,10 @@ ctypes), with a plain PyTorch version beside it that serves CPU tensors.
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
+from .core.box import Box, box
+from .core.state import SimState, make_state
 from .device import resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["resolve_device"]
+__all__ = ["Box", "SimState", "box", "make_state", "resolve_device"]

@@ -6,9 +6,6 @@ SoA tensors; unallocated properties are None. The JAX PRNG key becomes a
 ``torch.Generator`` on the state's device, seeded from ``seed``: the two
 packages draw different numbers from the same seed, so tests compare
 statistics, or T = 0 trajectories.
-
-``permute`` and ``spatial_sort`` are not ported yet: no ported path needs
-them.
 """
 
 from __future__ import annotations
@@ -83,6 +80,35 @@ class SimState:
         if self.id is not None:
             return self.id
         return torch.arange(self.n, dtype=torch.int32, device=self.device)
+
+    def permute(self, perm) -> "SimState":
+        """Reorder every per-particle property (built-in and ``extra``) by
+        ``perm`` (new index -> old index). Stable ids travel with their
+        particles (reference: ParticleData.cuh:492 sortParticles)."""
+        perm = torch.as_tensor(perm, device=self.device).long()
+
+        def take(a):
+            if a is None or a.ndim == 0 or a.shape[0] != self.n:
+                return a
+            return a[perm]
+
+        kw = {f.name: take(getattr(self, f.name)) for f in dataclasses.fields(self)
+              if f.name not in ("gen", "extra", "time", "step")}
+        kw["id"] = self.get_id()[perm]
+        kw["extra"] = {k: take(v) for k, v in self.extra.items()}
+        return self.replace(**kw)
+
+
+def spatial_sort(state: SimState, box_size, n_cells: int = 64) -> SimState:
+    """Sort particles by their cell on an ``n_cells``^3 grid, x fastest, for
+    locality (reference: src/utils/ParticleSorter.cuh:51-129). A stable
+    sort: particles of one cell keep their order."""
+    Ls = torch.as_tensor(box_size, dtype=state.dtype, device=state.device).broadcast_to((3,))
+    frac = state.pos / Ls + 0.5
+    frac = frac - torch.floor(frac)
+    c = torch.clamp((frac * n_cells).to(torch.int32), 0, n_cells - 1).long()
+    h = (c[:, 2] * n_cells + c[:, 1]) * n_cells + c[:, 0]
+    return state.permute(torch.argsort(h, stable=True))
 
 
 def make_state(pos, *, seed: int = 0, vel=None, mass=None, radius=None, charge=None,

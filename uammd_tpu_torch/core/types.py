@@ -15,6 +15,31 @@ import torch
 default_real = torch.float32
 
 
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _leaves(v)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name))
+
+
+def real_dtype(x):
+    """Working float dtype of a tensor, or of the first float tensor in a
+    structure of dicts, sequences and dataclasses."""
+    if hasattr(x, "dtype"):
+        return x.dtype
+    for leaf in _leaves(x):
+        if leaf.is_floating_point():
+            return leaf.dtype
+    return default_real
+
+
 @dataclasses.dataclass(frozen=True)
 class Computables:
     """What an interactor should produce (the reference's Computables

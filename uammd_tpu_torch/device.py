@@ -16,3 +16,10 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def device_vector(values, dtype, device) -> torch.Tensor:
+    """A short vector of host constants made on ``device`` by fill kernels:
+    a copy from the host (``torch.tensor(..., device=...)``) waits for the
+    device, which a step must not do."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])

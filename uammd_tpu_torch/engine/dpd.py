@@ -8,10 +8,11 @@ channels, and the pair noise is a counter-based integer hash of
 (min pid, max pid, step), so the random force is exactly antisymmetric and
 momentum is conserved to round-off.
 
-The hash (``_mix``, ``_hash``, ``_u24f``) is JAX's bit for bit: here in
-int64 tensors masked to 32 bits (torch's ``>>`` on int32 is arithmetic,
-JAX's ``shift_right_logical`` is not), and in ``csrc/channel_functors.cuh``
-with ``uint32_t``.
+The hash is JAX's bit for bit: ``core/rng.py``'s (the same murmur3-style
+mix as the JAX engine's ``_hash``, in int64 tensors masked to 32 bits:
+torch's ``>>`` on int32 is arithmetic, JAX's ``shift_right_logical`` is
+not), with this engine's own keys and its CLT draw, and in
+``csrc/channel_functors.cuh`` with ``uint32_t``.
 
 Integration: velocity Verlet with the half-kicked velocity entering the
 dissipative force (Groot-Warren lambda = 1/2). The JAX engine's
@@ -27,46 +28,17 @@ import math
 import numpy as np
 import torch
 
+from ..core import rng as prng
 from ..device import resolve_device
 from .layout import GridSpec, GridState, choose_spec, pack
 from .pair_kernel import (PAIR_CHANNEL_DPD, PAIR_CHANNEL_DPD_HALO, ChannelFunctor, DPDParams,
                           make_pair_channel_kernel)
 from .rebin_kernel import rebin_fast_noforce
 
-_MASK32 = 0xFFFFFFFF
-_C1, _C2, _C3, _C4 = 0x85EBCA6B, 0xC2B2AE35, 0x01000193, 0x6A09E667
-_SEED = 0x9E3779B9
 _K1, _K2 = 0x00BEEF01, 0x00F00D02
-
-
-def _mul32(m: int, a: torch.Tensor) -> torch.Tensor:
-    """(m * a) mod 2^32 for uint32 values held in int64, through 16-bit
-    halves of ``a`` so that no product passes 2^63."""
-    return (m * (a & 0xFFFF) + (((m * (a >> 16)) & 0xFFFF) << 16)) & _MASK32
-
-
-def _mix(h: torch.Tensor) -> torch.Tensor:
-    """murmur3-style finalizer (dpd.py:50-58) on uint32 values in int64."""
-    h = h ^ (h >> 16)
-    h = _mul32(_C1, h)
-    h = h ^ (h >> 13)
-    h = _mul32(_C2, h)
-    return h ^ (h >> 16)
-
-
-def _hash(*words) -> torch.Tensor:
-    """dpd.py:61-65 on int32 words (tensors or ints); returns uint32 values
-    in int64."""
-    h = torch.tensor(_SEED, dtype=torch.int64)
-    for w in words:
-        w = torch.as_tensor(w).to(torch.int64) & _MASK32
-        h = (_mul32(_C3, _mix(h ^ w)) + _C4) & _MASK32
-    return _mix(h)
-
-
-def _u24f(h: torch.Tensor) -> torch.Tensor:
-    """uint32 hash -> uniform [0, 1) float32 from the top 24 bits."""
-    return (h >> 8).to(torch.float32) * float(np.float32(1.0 / (1 << 24)))
+# the JAX engine's ``_hash`` and ``_u24f`` (dpd.py:61-69)
+_hash = prng.hash_u32
+_u24f = prng.uniform_from_bits
 
 
 class DPDPair(ChannelFunctor):
