@@ -71,7 +71,10 @@ Imports nothing of JAX or of the JAX package. Phases:
      with one particle's values dropped and the interpolation of a field
      shifted by one node. ``FCM.grid_velocity`` and ``interpolate_auto``
      must go through the same kernels (one launch each) and agree with
-     the plain versions at n 4200, 48^3. The fcc start on the 384^3 grid
+     the plain versions at n 4200, 48^3; on a 36^3 grid (tile-safe, not
+     pencil-safe) at n 8192 ``spread_auto`` and ``interpolate_auto`` must
+     launch no pencil kernel, equal the tiled path bit for bit and agree
+     with the direct path within ``PENCIL_TOL`` (the same two controls). The fcc start on the 384^3 grid
      must overflow the pencil cap and NaN-poison the mobility. Then
      (``pencil_tile_checks``) the same bound on grids two pencils wide
      (16 x 16 x 32), a 24 x 16 grid, nz = support (8 and 4) and C = 1, 4,
@@ -308,6 +311,34 @@ Imports nothing of JAX or of the JAX package. Phases:
      within 1e-5. Each layer (cell list, rebuild, ``apply_pairs``, the
      drift test and its read, the G-J update) timed alone. The path runs
      no hand kernel: the JAX general path has no ``pallas_call``.
+   - slice C2 (``c2_phases``), each path with its counts zeroed just
+     before: the list PSE (``list_pse_path``) on bench.py:116-123's system
+     (N = 131072, volume fraction 0.05, fcc start), WCA over a Verlet list,
+     ``bdhi_euler_maruyama`` over ``PSE.create(tolerance=1e-4)`` (far grid
+     280^3 through #13/#14) at dt 0.01, T 1: 5 + 20 steps, each timed one
+     ended by a synchronize. Gates: M F against the grid engine's T = 0
+     displacement at the fcc state within ``C2_MF_RMS`` (RMS; control: the
+     near field dropped), the mean square displacement of the timed steps
+     within ``FDT_TOL`` of 2 T dt m_self per axis, #13 once, #14 twice and
+     the Lanczos sqrt once a step, #13/#14 against their plain versions at
+     this far grid with the two controls; each layer timed alone. Dense
+     RPY (``dense_rpy_path``): ``CholeskyBDHI`` at N = 2048 and
+     ``LanczosBDHI`` at N = 8192 from fcc, 3 + 10 steps; at N = 2048 the two
+     M F within ``DENSE_MF_TOL`` and Lanczos' M^(1/2) z (m 24) within
+     ``LANCZOS_ROOT_TOL`` of eigh's (control: m 2). Rotational FCM
+     (``rotational_fcm_path``): ``bdhi_fcm_rotational`` on the FCM path's
+     suspension with seeded forces and torques at T 1, 5 + 20 steps: |q|
+     within ``QUAT_TOL`` of 1, #13/#14 twice a step, the T = 0 velocities
+     through the kernels against the plain pencils within ``PENCIL_TOL``;
+     one torqued particle's rotational self-mobility printed against
+     1/(8 pi). The list SPH (``list_sph_path``) against #2's two sweeps by
+     pid at the grid SPH path's final state, within ``SPH_LIST_TOL`` of
+     the largest sum_j |term| (control: no viscosity), then
+     ``make_sph_force_fn`` under ``nve``, 5 + 20 steps. Deserno
+     (``deserno_path``): ``build_bilayer(64)`` under ``leimkuhler`` at dt
+     2e-4, T 0.9, 20 + 100 steps, tests/test_support_subsystems.py:140's
+     gates, and the list's forces against all pairs on
+     ``build_bilayer(16)`` within 1e-5.
    Every kernel launch count is set to 0 just before each path and read
    just after it. Each LJ path requires no overflow, all particles kept
    (grid plus stragglers), T within 20 % of 1.5, and every kernel of the
@@ -346,8 +377,9 @@ DPD and SPH grids (#3) and the v2 spec and PSE near grid (#5) (their
 packed starts, displaced), ``--only-update-fold`` the build, #12's checks,
 the v1 melt, the v2 path, #9's checks (with the PSE channel kernels'), the
 PSE path and the rows of #12, #10 and #9, ``--only-general`` the build,
-the v1 melt and the general path; none prints a result line (for work on
-those paths).
+the v1 melt and the general path, ``--only-c2`` the build, the auto
+dispatch's checks, the SPH path and slice C2's phases; none prints a
+result line (for work on those paths).
 
 The last line is ``{"ok": true, "device": {...}}``; any failed check raises
 before it and the exit code is not 0. Without a GPU it exits with code 2
@@ -1214,7 +1246,8 @@ def check_auto_dispatch(dev):
     """``FCM.grid_velocity`` and ``interpolate_auto`` take the pencil path
     through kernels #13/#14 (one launch each) and agree with their plain
     versions within PENCIL_TOL x max|ref|, at tests/test_bdhi.py:187's
-    system (n 4200, L 40, points_per_radius 1.2, support 8)."""
+    system (n 4200, L 40, points_per_radius 1.2, support 8); then the
+    tiled branch (``check_auto_dispatch_tiled``)."""
     import numpy as np
     import torch
     from uammd_tpu_torch.core.box import box
@@ -1241,7 +1274,7 @@ def check_auto_dispatch(dev):
                               f"the spread / interp kernels {launched} times, want (1, 1)")
     check(all(math.isfinite(e) and e <= PENCIL_TOL for e in errs.values()),
           f"auto dispatch vs plain, max|d|/max|ref| = {errs} <= {PENCIL_TOL}")
-    return errs
+    return {**errs, "tiled": check_auto_dispatch_tiled(dev)}
 
 
 def pencil_smem_of(plan, C: int, interp: bool) -> int:
@@ -1464,10 +1497,15 @@ def fcm_setup(dev, seed: int):
 
 
 def hashimoto_mobility() -> float:
-    """Periodic self-mobility of one sphere, Hashimoto's series
-    (tests/test_bdhi.py:67), at viscosity 1 and radius 1."""
+    """Periodic self-mobility of one sphere in the FCM path's box."""
+    return hashimoto_mobility_at(FCM_L)
+
+
+def hashimoto_mobility_at(L: float) -> float:
+    """Hashimoto's periodic self-mobility of one sphere (tests/test_bdhi.py:67)
+    at viscosity 1 and radius 1 in a cube of side L."""
     m0 = 1.0 / (6.0 * math.pi)
-    return m0 * (1.0 - 2.83729748 / FCM_L + (4.0 * math.pi / 3.0) / FCM_L**3)
+    return m0 * (1.0 - 2.83729748 / L + (4.0 * math.pi / 3.0) / L ** 3)
 
 
 def fcm_kernel_checks(dev):
@@ -2197,8 +2235,7 @@ def pse_main_path(dev, counted):
     gate(split_rms < SPLIT_RMS, f"PSE path: split invariance RMS {split_rms:.3g} < {SPLIT_RMS}")
 
     # fluctuation-dissipation: the noise part of the step, dx(T) - dx(0)
-    m_self = (1.0 / (6.0 * math.pi)) * (1.0 - 2.83729748 / PSE_L
-                                        + (4.0 * math.pi / 3.0) / PSE_L ** 3)
+    m_self = hashimoto_mobility_at(PSE_L)
     msq = torch.zeros(3, dtype=torch.float64, device=dev)
     for _ in range(FDT_DRAWS):
         dxt, _, _ = be.displacement_with_pair_force_persistent(run["fs"], p, gen, PSE_DT,
@@ -3063,11 +3100,12 @@ def engine_breakdown(what, run, card, parts):
                 "drift and its read, minus the drift's device time"}), flush=True)
 
 
-def slice_d_paths(dev, card, gs2, engine2):
+def slice_d_paths(dev, card, gs2, engine2, keep=None):
     """Phases 3e-3h and 4d: the DPD and SPH paths, the mixtures at N = 2^20
     and the two-grid hierarchy, the observables on the v2 LJ path's final
     state; the kernels at each one's final state; returns the kernels-line
-    rows of #2's five functors and #1's observable mode."""
+    rows of #2's five functors and #1's observable mode. With ``keep`` (a
+    dict), ``keep["sph"]`` gets the SPH path's (GridSPH, final GridState)."""
     import numpy as np
     import torch
     from uammd_tpu_torch.engine import layout, mixtures, pair_kernel
@@ -3128,6 +3166,8 @@ def slice_d_paths(dev, card, gs2, engine2):
                             extra={"rel_err_vs_sum_abs_terms": e_f, **f_info,
                                    "control_p_j_dropped": c_f,
                                    "shape": list(ms.spec.array_shape)}, fn=ms.f_kern.fn))
+    if keep is not None:
+        keep["sph"] = (ms, gs)
     del sph, ms, gs, a_rho, a_f
     # LJ mixture at N = 2^20
     rng = np.random.default_rng(15)
@@ -7176,6 +7216,690 @@ def general_only(dev, card) -> int:
     return 0
 
 
+# ---------------------------------------- slice C2: BDHI over lists, SPH, Deserno
+# The list PSE on bench.py:116-123's system (pse_box_and_fcc: N = 131072,
+# volume fraction 0.05, radius 1, fcc start): WCA between surfaces over a
+# Verlet list, bdhi_euler_maruyama over PSE.create(tolerance=1e-4) at the
+# PSE path's dt and T; C2_WARM settle and C2_TIMED timed steps, each ended
+# by a synchronize (ms/step: their median).
+C2_WARM, C2_TIMED = 5, 20
+C2_HOST_READ_STEPS = 3
+# the list PSE's M F against the grid engine's (PSEGrid at T = 0) at the
+# fcc state: RMS of the difference over RMS of the grid's, the grid PSE
+# path's split bar (both approximate the periodic RPY mobility, pair by
+# pair, to ~1e-4 m0; a random force sums their differences over many
+# neighbours)
+C2_MF_RMS = SPLIT_RMS
+# Dense RPY (open boundaries) from an fcc start at volume fraction 0.05
+DENSE_N_CHOL, DENSE_N_LANCZOS = 2048, 8192
+DENSE_WARM, DENSE_TIMED = 3, 10
+DENSE_MF_TOL = 1e-5  # Cholesky's M F against Lanczos' matrix-free one, x max
+# Lanczos M^(1/2) z (m = 24) against the symmetric root from eigh (float64),
+# |d| / |ref|: float32 round-off once converged; m = 2 is far from converged
+LANCZOS_ROOT_TOL = 1e-4
+QUAT_TOL = 1e-5
+# list SPH against GridSPH's two #2 sweeps, by pid: max|df| over the
+# largest sum_j |term_ij| (the pressure terms of a uniform bulk cancel);
+# float32 in two summation orders and two roundings of r_j - r_i
+SPH_LIST_SKIN = 1.3  # examples/dambreak.py
+SPH_LIST_TOL = 1e-4
+SPH_EDGE_WINDOW = 1e-4  # pairs with |r2 - (2h)^2| below it are left out
+# Deserno: build_bilayer(64) (8192 lipids, 24576 beads) in [L, L, 6L],
+# leimkuhler at tests/test_support_subsystems.py:140's dt and T
+DESERNO_SIDE, DESERNO_DT, DESERNO_T = 64, 2e-4, 0.9
+DESERNO_WARM, DESERNO_TIMED = 20, 100
+DESERNO_DENSE_SIDE, DESERNO_DENSE_TOL = 16, 1e-5
+# the auto dispatch's tiled branch: a 36^3 grid (36 % 8 != 0: no pencils;
+# tile 4) at N = 8192
+TILED_M, TILED_N = 36, 8192
+
+
+def c2_counters() -> dict:
+    from uammd_tpu_torch.solvers import lanczos, pencil_ibm
+
+    return {"pencil_spread": pencil_ibm.SPREAD, "pencil_interp": pencil_ibm.INTERP,
+            "lanczos_sqrt": lanczos.LANCZOS_SQRT}
+
+
+@contextlib.contextmanager
+def plain_pencils():
+    """FCM's spread and interpolation through the plain versions of #13/#14
+    on CUDA tensors, for the length of the block."""
+    from uammd_tpu_torch.integrators.bdhi import fcm
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    saved = fcm.spread_pencil_fused, fcm.interpolate_pencil_fused
+    fcm.spread_pencil_fused = tp.spread_pencil_fused_plain
+    fcm.interpolate_pencil_fused = tp.interpolate_pencil_fused_plain
+    try:
+        yield
+    finally:
+        fcm.spread_pencil_fused, fcm.interpolate_pencil_fused = saved
+
+
+def timed_steps(step, holder, warm: int, timed: int):
+    """``warm`` then ``timed`` calls of ``step(holder)``, each timed one
+    ended by a synchronize: (per-step ms list, timed seconds)."""
+    import torch
+
+    for _ in range(warm):
+        step(holder)
+    torch.cuda.synchronize()
+    per = []
+    t_all = time.perf_counter()
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        step(holder)
+        torch.cuda.synchronize()
+        per.append(1e3 * (time.perf_counter() - t0))
+    return per, time.perf_counter() - t_all
+
+
+def step_stats(per) -> dict:
+    import statistics
+
+    return {"ms_per_step": statistics.median(per), "ms_per_step_mean": sum(per) / len(per),
+            "ms_per_step_quartiles": statistics.quantiles(per, n=4)}
+
+
+def pencil_cold_rows(rows, kern, pos, vals, field, shape, b, bins, slack=0):
+    """Add the profiler's device time with the L2 flushed to the two rows
+    ``pencil_rows`` made."""
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    calls = (lambda: tp.spread_pencil_fused(kern, pos, vals, shape, b, bins, slack=slack),
+             lambda: tp.interpolate_pencil_fused(kern, pos, field, b, bins, slack=slack))
+    n0 = tp.SPREAD.launches, tp.INTERP.launches
+    for row, call, name in zip(rows, calls, ("spread_kernel", "interp_kernel")):
+        row["device_ms_profiler_cold"] = profiler_ms(call, [name], cold=True)
+        device_ms(row["device_ms_profiler_cold"], row["name"])
+    tp.SPREAD.launches, tp.INTERP.launches = n0
+    return rows
+
+
+def list_pse_path(dev, card, grid_be=None) -> list:
+    """Phase 3k: the list PSE (slice C2's path) at full size, its gates and
+    layers, and #13/#14's rows at its far grid; ``grid_be`` the PSE path's
+    PSEGrid (made here from the fcc state if None)."""
+    import torch
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.integrators.bdhi.euler_maruyama import bdhi_euler_maruyama
+    from uammd_tpu_torch.integrators.bdhi.pse import PSE
+    from uammd_tpu_torch.interactors.pair import pair_forces
+    from uammd_tpu_torch.neighbors.neighbor_list import (build_neighbor_list, ensure_capacity,
+                                                         maybe_rebuild)
+    from uammd_tpu_torch.potentials.radial import wca as radial_wca
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+    from uammd_tpu_torch.solvers.lanczos import lanczos_sqrt_apply
+
+    torch.cuda.empty_cache()
+    b, pos = pse_box_and_fcc(dev)
+    t0 = time.perf_counter()
+    pse = PSE.create(b, 1.0, 1.0, tolerance=PSE_TOLERANCE)
+    create_s = time.perf_counter() - t0
+    far = pse.far
+    check(far.pencil_bins(pos) is not None, "list PSE: the far field takes the pencil path")
+    gen_f = torch.Generator(device=dev).manual_seed(5)
+    F = torch.randn(pos.shape, generator=gen_f, device=dev)
+    # gate 1: M F against the grid engine's deterministic displacement
+    if grid_be is None:
+        grid_be = pse_backend(b, pos)
+    d0, ovf = grid_be.displacement(pos, F, gen_f, PSE_DT, 0.0)
+    check(not bool(ovf), "list PSE gate 1: the grid engine does not overflow at the fcc state")
+    m_grid = d0 / PSE_DT
+    m_list = pse.compute_mf(pos, F)
+
+    def rms_rel(x):
+        return float(((x - m_grid) ** 2).mean().sqrt() / (m_grid ** 2).mean().sqrt())
+
+    mf_rms = rms_rel(m_list)
+    mf_max = float((m_list - m_grid).abs().max() / m_grid.abs().max())
+    ctl_rms = rms_rel(far.compute_mf(pos, F))  # the control: near field dropped
+    check(mf_rms < C2_MF_RMS, f"list PSE vs PSEGrid at T = 0: RMS {mf_rms:.3g} < {C2_MF_RMS}")
+    check(ctl_rms >= C2_MF_RMS, f"control (list PSE without near_matvec) fails the bound: "
+                                f"RMS {ctl_rms:.3g}")
+    del d0, m_grid, m_list
+
+    pot = radial_wca(1.0, 2.0, device=dev)
+    wnl = ensure_capacity(build_neighbor_list(pos, b, pot.max_cutoff), pos)
+    check(not bool(wnl.overflow), "list PSE: the WCA list does not overflow")
+
+    def forces(state, nbrs):
+        nbrs = maybe_rebuild(nbrs, state.pos)
+        return pair_forces(pot, state.pos, nbrs), nbrs
+
+    integ = bdhi_euler_maruyama(forces, pse, dt=PSE_DT, temperature=PSE_T)
+    counted = c2_counters()
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    st, aux = integ.init(make_state(pos, seed=3, device=dev), wnl)
+    holder = [st, aux]
+
+    def step(h):
+        h[0], h[1] = integ.step(h[0], h[1])
+
+    for _ in range(C2_WARM):
+        step(holder)
+    p0 = holder[0].pos.clone()
+    per, timed_s = timed_steps(step, holder, 0, C2_TIMED)
+    launches = {k: v.launches for k, v in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st, wnl = holder
+    check(bool(st.pos.isfinite().all()), "list PSE path: positions finite")
+    check(not bool(wnl.overflow), "list PSE path: no WCA list overflow")
+    steps = C2_WARM + C2_TIMED
+    # compute_mf spreads and interpolates once, compute_bdw interpolates once
+    # (far noise) and runs one Lanczos sqrt (the near noise)
+    per_step_min = {"pencil_spread": 1, "pencil_interp": 2, "lanczos_sqrt": 1}
+    for k, need in per_step_min.items():
+        check(launches[k] >= need * steps,
+              f"list PSE path: {k} launched {launches[k]} >= {need} x {steps} times")
+    # gate 2: self-diffusion over the timed steps (no force acts: WCA is zero
+    # at these separations, so the displacement is the noise alone)
+    m_self = hashimoto_mobility_at(PSE_L)
+    msd = ((st.pos - p0).double() ** 2).mean(0)
+    want = 2.0 * PSE_T * PSE_DT * C2_TIMED * m_self
+    fdt = [float(x) / want - 1.0 for x in msd]
+    check(all(abs(x) < FDT_TOL for x in fdt),
+          f"list PSE path: mean square displacement per axis {[float(x) for x in msd]} within "
+          f"{FDT_TOL:.0%} of 2 T dt steps m_self = {want:.6g}")
+    reads = host_reads(lambda: step(holder), C2_HOST_READ_STEPS)
+    st, wnl = holder
+    # each layer alone at the final state (CUDA events)
+    nl = build_neighbor_list(st.pos, b, pse.rcut)  # PSE's own near list
+    z = torch.randn(3 * PSE_N, generator=gen_f, device=dev)
+
+    def near_mv(x):
+        return pse.near_matvec(st.pos, x.reshape(-1, 3), nl).reshape(-1)
+
+    n0 = {k: v.launches for k, v in counted.items()}
+    layers = {
+        "list_build_ms": cuda_ms(lambda: build_neighbor_list(st.pos, b, pse.rcut), reps=5),
+        "far_compute_mf_ms": cuda_ms(lambda: far.compute_mf(st.pos, F), reps=5),
+        "near_matvec_ms": cuda_ms(lambda: pse.near_matvec(st.pos, F, nl), reps=10),
+        "near_lanczos_ms": cuda_ms(lambda: lanczos_sqrt_apply(near_mv, z,
+                                                              m=pse.lanczos_iterations), reps=3),
+        "far_noise_ms": cuda_ms(lambda: far.compute_bdw(st.pos, st.gen), reps=5),
+        "wca_ms": cuda_ms(lambda: pair_forces(pot, st.pos, wnl), reps=10),
+    }
+    for k, v in counted.items():
+        v.launches = n0[k]
+    calls = {"list_build_ms": 2}
+    split = {k: v * calls.get(k, 1) for k, v in layers.items()}
+    stats = step_stats(per)
+    # #13/#14 at the path's far grid and Gaussian, against plain, with controls
+    kern = far._kernel(st.pos.dtype)
+    bins = far.pencil_bins(st.pos)
+    n1 = tp.SPREAD.launches, tp.INTERP.launches
+    _, _, f_p, v_p = check_pencil(kern, st.pos, F, far.shape, b, bins, 0, "list PSE far field")
+    ctl = check_pencil_controls(kern, st.pos, F, far.shape, b, bins, 0, f_p, v_p,
+                                "list PSE far field")
+    u = far._irfftn(far._mobility_k(torch.fft.rfftn(f_p, dim=(0, 1, 2)), st.pos))
+    tp.SPREAD.launches, tp.INTERP.launches = n1
+    rows = pencil_rows("_list_pse", "list PSE far field", kern, st.pos, F, u, far.shape, b,
+                       bins, 0, launches)
+    pencil_cold_rows(rows, kern, st.pos, F, u, far.shape, b, bins)
+    tp.SPREAD.launches, tp.INTERP.launches = n1
+    print(json.dumps({
+        "phase": "list_pse_path", "card": card, "n": PSE_N, "box": PSE_L,
+        "volume_fraction": PSE_PHI, "dt": PSE_DT, "temperature": PSE_T,
+        "settle_steps": C2_WARM, "timed_steps": C2_TIMED, "create_seconds": create_s,
+        "xi": pse.xi, "rcut": pse.rcut, "self_f": pse.self_f,
+        "lanczos_m": pse.lanczos_iterations, "far_shape": list(far.shape),
+        "far_support": far.support, "far_sigma_over_h": kern.sigma,
+        "near_max_neighbors": nl.max_neighbors, "near_grid": list(nl.grid_shape),
+        "wca_max_neighbors": wnl.max_neighbors, **stats,
+        "timed_seconds": timed_s, "particle_steps_per_s": PSE_N * C2_TIMED / timed_s,
+        "layers_ms_a_call": layers, "layers_ms_a_step": split,
+        "rest_ms": stats["ms_per_step"] - sum(split.values()),
+        "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "host_reads_per_step": len(reads) / C2_HOST_READ_STEPS, "host_reads_at": reads,
+        "mf_vs_pse_grid_rms": mf_rms, "mf_vs_pse_grid_max": mf_max, "mf_rms_tol": C2_MF_RMS,
+        "control_far_only_rms": ctl_rms, "msd_per_axis": [float(x) for x in msd],
+        "msd_want": want, "fdt_rel_err": fdt, "m_self": m_self,
+        "pencil_controls": ctl, "peak_memory_gib": peak / 2 ** 30,
+        "note": "ms_per_step: the median of the timed steps, each ended by "
+                "torch.cuda.synchronize(); layers timed alone at the final state; a step "
+                "builds the near list twice (compute_mf, compute_bdw), as JAX's"}), flush=True)
+    return rows
+
+
+def dense_rpy_path(dev, card) -> dict:
+    """Phase 3l: CholeskyBDHI at DENSE_N_CHOL and LanczosBDHI at
+    DENSE_N_LANCZOS from fcc at volume fraction 0.05 (open boundaries, WCA
+    over a list), DENSE_WARM + DENSE_TIMED steps at T 1; the checks at
+    DENSE_N_CHOL."""
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.integrators.bdhi.euler_maruyama import (CholeskyBDHI, LanczosBDHI,
+                                                                 bdhi_euler_maruyama)
+    from uammd_tpu_torch.integrators.bdhi.rpy import dense_mobility
+    from uammd_tpu_torch.interactors.pair import pair_forces
+    from uammd_tpu_torch.neighbors.neighbor_list import (build_neighbor_list, ensure_capacity,
+                                                         maybe_rebuild)
+    from uammd_tpu_torch.potentials.radial import wca as radial_wca
+    from uammd_tpu_torch.solvers.lanczos import lanczos_sqrt_apply
+    from uammd_tpu_torch.utils.lattices import lattice
+
+    torch.cuda.empty_cache()
+    pot = radial_wca(1.0, 2.0, device=dev)
+    out = {"phase": "dense_rpy_path", "card": card, "settle_steps": DENSE_WARM,
+           "timed_steps": DENSE_TIMED, "dt": PSE_DT, "temperature": PSE_T}
+    for name, backend, n in (("cholesky", CholeskyBDHI(), DENSE_N_CHOL),
+                             ("lanczos", LanczosBDHI(), DENSE_N_LANCZOS)):
+        L = (n * (4.0 / 3.0) * math.pi / PSE_PHI) ** (1.0 / 3.0)
+        b = box(L, device=dev)
+        pos = torch.tensor(lattice(n, L, "fcc"), dtype=torch.float32, device=dev)
+        nl = ensure_capacity(build_neighbor_list(pos, b, pot.max_cutoff), pos)
+
+        def forces(state, nbrs):
+            nbrs = maybe_rebuild(nbrs, state.pos)
+            return pair_forces(pot, state.pos, nbrs), nbrs
+
+        integ = bdhi_euler_maruyama(forces, backend, dt=PSE_DT, temperature=PSE_T)
+        holder = list(integ.init(make_state(pos, seed=4, device=dev), nl))
+
+        def step(h):
+            h[0], h[1] = integ.step(h[0], h[1])
+
+        torch.cuda.reset_peak_memory_stats()
+        per, _ = timed_steps(step, holder, DENSE_WARM, DENSE_TIMED)
+        check(bool(holder[0].pos.isfinite().all()), f"dense RPY ({name}): positions finite")
+        out[name] = {"n": n, "box": L, **step_stats(per),
+                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # the checks at DENSE_N_CHOL
+    n = DENSE_N_CHOL
+    L = (n * (4.0 / 3.0) * math.pi / PSE_PHI) ** (1.0 / 3.0)
+    pos = torch.tensor(lattice(n, L, "fcc"), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f = torch.randn((n, 3), generator=gen, device=dev)
+    chol, lan = CholeskyBDHI(), LanczosBDHI()
+    a, c = chol.compute_mf(pos, f), lan.compute_mf(pos, f)
+    mf_err = float((a - c).abs().max() / a.abs().max())
+    check(mf_err < DENSE_MF_TOL, f"dense RPY: Cholesky vs Lanczos M F {mf_err:.3g} < "
+                                 f"{DENSE_MF_TOL}")
+    z = torch.randn(3 * n, generator=gen, device=dev)
+    ev, V = torch.linalg.eigh(dense_mobility(pos.double()))
+    ref = V @ (torch.sqrt(torch.clamp(ev, min=0.0)) * (V.T @ z.double()))
+
+    def mv(x):
+        return lan.compute_mf(pos, x.reshape(-1, 3)).reshape(-1)
+
+    root = {}
+    for m in (lan.iterations, 2):
+        got, _ = lanczos_sqrt_apply(mv, z, m=m)
+        root[m] = float((got.double() - ref).norm() / ref.norm())
+    check(root[lan.iterations] < LANCZOS_ROOT_TOL,
+          f"dense RPY: Lanczos M^(1/2) z (m {lan.iterations}) vs eigh {root[lan.iterations]:.3g} "
+          f"< {LANCZOS_ROOT_TOL}")
+    check(root[2] >= LANCZOS_ROOT_TOL, f"control (m 2) fails the bound: {root[2]:.3g}")
+    out.update({"check_n": n, "mf_cholesky_vs_lanczos": mf_err, "mf_tol": DENSE_MF_TOL,
+                "lanczos_root_vs_eigh": {f"m{k}": v for k, v in root.items()},
+                "lanczos_root_tol": LANCZOS_ROOT_TOL,
+                "mobility_eigenvalues": [float(ev.min()), float(ev.max())]})
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def rotational_fcm_path(dev, card) -> list:
+    """Phase 3m: bdhi_fcm_rotational on the FCM path's suspension with
+    seeded forces and torques at T = FCM_T, C2_WARM + C2_TIMED steps; the
+    gates; one torqued particle's rotational self-mobility; #13/#14's rows
+    for the force and torque passes."""
+    import torch
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.integrators.bdhi.rotational import bdhi_fcm_rotational
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    torch.cuda.empty_cache()
+    b, fcm, pos = fcm_setup(dev, seed=1)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    F = torch.randn(pos.shape, generator=gen, device=dev)
+    T = torch.randn(pos.shape, generator=gen, device=dev)
+
+    def force_torque(state, aux):
+        return F, T, aux
+
+    integ = bdhi_fcm_rotational(force_torque, fcm, dt=FCM_DT, temperature=FCM_T)
+    counted = c2_counters()
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    holder = list(integ.init(make_state(pos, seed=2, device=dev), None))
+
+    def step(h):
+        h[0], h[1] = integ.step(h[0], h[1])
+
+    per, timed_s = timed_steps(step, holder, C2_WARM, C2_TIMED)
+    launches = {k: v.launches for k, v in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    st = holder[0]
+    steps = C2_WARM + C2_TIMED
+    check(bool(st.pos.isfinite().all() and st.dir.isfinite().all()),
+          "rotational FCM: pos and dir finite")
+    qerr = float((torch.linalg.vector_norm(st.dir, dim=1) - 1.0).abs().max())
+    check(qerr < QUAT_TOL, f"rotational FCM: max ||q| - 1| = {qerr:.3g} < {QUAT_TOL}")
+    # force and torque spread once each, u and (1/2) curl u interpolated once each
+    for k in ("pencil_spread", "pencil_interp"):
+        check(launches[k] >= 2 * steps,
+              f"rotational FCM: {k} launched {launches[k]} >= 2 x {steps} times")
+    # T = 0 through the kernels against the same call through the plain versions
+    v_k, w_k = fcm.compute_hydrodynamic_displacements(st.pos, F, T)
+    with plain_pencils():
+        v_p, w_p = fcm.compute_hydrodynamic_displacements(st.pos, F, T)
+    t0_err = {"v": rel_err(v_k, v_p), "omega": rel_err(w_k, w_p)}
+    check(all(math.isfinite(e) and e <= PENCIL_TOL for e in t0_err.values()),
+          f"rotational FCM at T = 0: kernels vs plain pencils {t0_err} <= {PENCIL_TOL}")
+    # one torqued particle: omega / tau against 1/(8 pi eta a^3); the
+    # periodic correction -1/(6 eta L^3) is printed beside it
+    e = torch.zeros_like(st.pos)
+    e[0, 2] = 1.0
+    _, w1 = fcm.compute_hydrodynamic_displacements(st.pos, torch.zeros_like(st.pos), e)
+    mu_r = float(w1[0, 2])
+    mu_r0 = 1.0 / (8.0 * math.pi)
+    # #13/#14 rows: the force pass (monopole Gaussian) and the torque pass
+    # (rotlet Gaussian) at the path's final state
+    kern, kern_t = fcm._kernel(), fcm._kernel_torque()
+    bins = fcm.pencil_bins(st.pos)
+    sp, _ = fcm._spread_interp(st.pos, bins)
+    fk = (torch.fft.rfftn(sp(kern, st.pos, F), dim=(0, 1, 2))
+          + fcm._curl_half(torch.fft.rfftn(sp(kern_t, st.pos, T), dim=(0, 1, 2)), st.pos))
+    uk = fcm._mobility_k(fk, st.pos)
+    w_field = fcm._irfftn(fcm._curl_half(uk, st.pos))
+    u_field = fcm._irfftn(uk)
+    n1 = tp.SPREAD.launches, tp.INTERP.launches
+    rows = []
+    for suffix, what, kn, vals, field in (
+            ("_rot_force", "rotational FCM force pass", kern, F, u_field),
+            ("_rot_torque", "rotational FCM torque pass", kern_t, T, w_field)):
+        r = pencil_rows(suffix, what, kn, st.pos, vals, field, fcm.shape, b, bins, 0, launches)
+        rows += pencil_cold_rows(r, kn, st.pos, vals, field, fcm.shape, b, bins)
+    for r in rows:
+        r["note"] = "launches: the path's count of the kernel, force and torque passes together"
+    tp.SPREAD.launches, tp.INTERP.launches = n1
+    print(json.dumps({
+        "phase": "rotational_fcm_path", "card": card, "n": FCM_N, "box": FCM_L,
+        "shape": list(fcm.shape), "support": fcm.support, "sigma_over_h": kern.sigma,
+        "sigma_torque_over_h": kern_t.sigma, "dt": FCM_DT, "temperature": FCM_T,
+        "settle_steps": C2_WARM, "timed_steps": C2_TIMED, **step_stats(per),
+        "timed_seconds": timed_s, "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "max_abs_norm_q_minus_1": qerr, "t0_kernels_vs_plain": t0_err,
+        "rotational_self_mobility": mu_r, "one_over_8_pi": mu_r0,
+        "rel_diff": mu_r / mu_r0 - 1.0, "periodic_correction": -1.0 / (6.0 * FCM_L ** 3),
+        "peak_memory_gib": peak / 2 ** 30}), flush=True)
+    return rows
+
+
+def list_sph_path(dev, card, sph_final) -> dict:
+    """Phase 3n: the list SPH against GridSPH's two #2 sweeps at the grid
+    SPH path's final state (``sph_final``: (GridSPH, GridState)), by pid;
+    then make_sph_force_fn under nve, C2_WARM + C2_TIMED steps."""
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.engine import layout, pair_kernel
+    from uammd_tpu_torch.integrators.verlet import nve
+    from uammd_tpu_torch.interactors.sph import (SPHParams, cubic_spline_gradw_over_r,
+                                                 make_sph_force_fn, sph_density, sph_forces)
+    from uammd_tpu_torch.neighbors.neighbor_list import (build_neighbor_list, ensure_capacity,
+                                                         pair_r2)
+    from uammd_tpu_torch.neighbors.pair_map import apply_pairs
+
+    torch.cuda.empty_cache()
+    md, gs = sph_final
+    params = SPHParams(**SPH_KW)
+    pos, vel, _ = layout.unpack(gs)
+    n = pos.shape[0]
+    mass = torch.full((n,), md.mass, dtype=pos.dtype, device=dev)
+    b = box(SPH_L, device=dev)
+    t0 = time.perf_counter()
+    nl = ensure_capacity(build_neighbor_list(pos, b, params.max_cutoff,
+                                             skin_multiplier=SPH_LIST_SKIN), pos)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    check(not bool(nl.overflow), "list SPH: the list does not overflow")
+    # #2's two sweeps at the same state (one launch each), by pid
+    n0 = (pair_kernel.PAIR_CHANNEL_SPH_DENSITY.launches,
+          pair_kernel.PAIR_CHANNEL_SPH_FORCE.launches)
+    fx, fy, fz = md.compute_forces(gs, gs.vx, gs.vy, gs.vz)
+    check((pair_kernel.PAIR_CHANNEL_SPH_DENSITY.launches - n0[0],
+           pair_kernel.PAIR_CHANNEL_SPH_FORCE.launches - n0[1]) == (1, 1),
+          "list SPH check: #2's density and force sweeps launched once each")
+    m = gs.pid >= 0
+    f2 = torch.zeros((n, 3), dtype=pos.dtype, device=dev)
+    f2[gs.pid[m].long()] = torch.stack([fx[m], fy[m], fz[m]], dim=-1)
+    f_list = sph_forces(params, pos, vel, mass, nl).force
+    check(bool(f_list.isfinite().all()), "list SPH: forces finite")
+    # the scale: each particle's sum_j |term_ij| (pressure terms cancel in a bulk)
+    rho = sph_density(params, pos, mass, nl)
+    pdr = params.gas_stiffness * (rho - params.rest_density) / (rho * rho)
+    h = params.support
+
+    def abs_terms(r2, dr, ii, jj):
+        (pi_, vi, mi), (pj_, vj, mj) = ii, jj
+        inside = (r2 < (2.0 * h) ** 2) & (r2 > 1e-12)
+        visc = -params.viscosity * torch.sum((vi - vj) * (-dr), dim=-1) / (r2 + 1e-3)
+        g = (mi * mj * (pi_ + pj_ + visc) * cubic_spline_gradw_over_r(r2, h)).abs()
+        return {"s": torch.where(inside, g * torch.sqrt(r2), 0.0)}
+
+    scale = float(apply_pairs(lambda r2, dr, ii, jj, idx: abs_terms(r2, dr, ii, jj), nl, pos,
+                              info=(pdr, vel, mass))["s"].max())
+    # left out: particles within 1e-5 of a face and their partners (the grid
+    # rebin's property, ROADMAP.md section 3), and both particles of each pair
+    # at the support's edge, where the two paths' r2 may fall either side
+    half = torch.tensor([0.5 * x for x in b.lengths], dtype=pos.dtype, device=dev)
+    face = ((b.wrap_position(pos).abs() - half).abs() < GEN_FACE_EPS).any(dim=1)
+    keep = ~face
+    partners = nl.idx[face].long().reshape(-1)
+    keep[partners[partners < n]] = False
+    _, r2 = pair_r2(b, pos[torch.clamp(nl.idx, max=n - 1).long()], pos[:, None, :])
+    edge = ((r2 - (2.0 * h) ** 2).abs() < SPH_EDGE_WINDOW) & (nl.idx < n)
+    del r2
+    keep &= ~edge.any(dim=1)
+    err = float(torch.where(keep[:, None], (f_list - f2).abs(), 0.0).max()) / scale
+    check(err < SPH_LIST_TOL, f"list SPH vs #2 by pid: max|df| / max sum|term| = {err:.3g} "
+                              f"< {SPH_LIST_TOL}")
+    ctl_params = SPHParams(**{**SPH_KW, "viscosity": 0.0})  # the control: no viscosity
+    ctl = float(torch.where(keep[:, None], (sph_forces(ctl_params, pos, vel, mass, nl).force
+                                            - f2).abs(), 0.0).max()) / scale
+    check(ctl >= SPH_LIST_TOL, f"control (the list SPH without viscosity) fails: {ctl:.3g}")
+    # the path: make_sph_force_fn under nve
+    integ = nve(make_sph_force_fn(params), dt=SPH_DT)
+    counted = {**c2_counters(), "pair_channel_sph_density": pair_kernel.PAIR_CHANNEL_SPH_DENSITY,
+               "pair_channel_sph_force": pair_kernel.PAIR_CHANNEL_SPH_FORCE}
+    for k in counted.values():
+        k.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    holder = list(integ.init(make_state(pos, vel=vel, mass=mass, seed=8, device=dev), nl))
+
+    def step(hh):
+        hh[0], hh[1] = integ.step(hh[0], hh[1])
+
+    per, timed_s = timed_steps(step, holder, C2_WARM, C2_TIMED)
+    peak = torch.cuda.max_memory_allocated()
+    st, nl2 = holder
+    check(bool(st.pos.isfinite().all() and st.vel.isfinite().all()), "list SPH path: finite")
+    check(not bool(nl2.overflow), "list SPH path: no list overflow")
+    mom = float(torch.linalg.vector_norm((st.vel * mass[:, None]).double().sum(0))) / n
+    check(mom < MOMENTUM_TOL, f"list SPH path: |total momentum| / N = {mom:.3g} < {MOMENTUM_TOL}")
+    out = {"phase": "list_sph_path", "card": card, "n": n, "box": SPH_L, **SPH_KW,
+           "skin": SPH_LIST_SKIN, "max_neighbors": nl.max_neighbors,
+           "grid_shape": list(nl.grid_shape), "build_ms": build_ms,
+           "vs_pair_channel_by_pid": err, "tol": SPH_LIST_TOL, "scale_sum_abs_terms": scale,
+           "control_no_viscosity": ctl, "particles_near_a_face": int(face.sum()),
+           "pairs_at_the_support_edge": int(edge.sum()) // 2,
+           "particles_left_out": int((~keep).sum()), "dt": SPH_DT, "settle_steps": C2_WARM,
+           "timed_steps": C2_TIMED, **step_stats(per), "timed_seconds": timed_s,
+           "momentum_per_particle": mom, "kernel_launches": {k: v.launches
+                                                             for k, v in counted.items()},
+           "peak_memory_gib": peak / 2 ** 30,
+           "memory_note": "each [N, K, 3] float32 tensor is "
+                          f"{4 * 3 * n * nl.max_neighbors / 2 ** 30:.2f} GiB"}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def deserno_path(dev, card) -> dict:
+    """Phase 3o: a Deserno bilayer of build_bilayer(DESERNO_SIDE) under
+    leimkuhler, DESERNO_WARM + DESERNO_TIMED steps; the gates of
+    tests/test_support_subsystems.py:140; the list's forces against the
+    dense all-pairs sum on build_bilayer(DESERNO_DENSE_SIDE)."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.core.state import make_state
+    from uammd_tpu_torch.core.types import Computables
+    from uammd_tpu_torch.integrators.brownian import leimkuhler
+    from uammd_tpu_torch.interactors.deserno import (DesernoParams, build_bilayer,
+                                                     deserno_forces, deserno_pair_kernel)
+    from uammd_tpu_torch.neighbors.neighbor_list import (build_neighbor_list, ensure_capacity,
+                                                         maybe_rebuild)
+    from uammd_tpu_torch.neighbors.pair_map import apply_pairs, apply_pairs_dense
+
+    torch.cuda.empty_cache()
+    params = DesernoParams()
+    # the list against all pairs on a small bilayer
+    pos16, t16, _, _, L16 = build_bilayer(DESERNO_DENSE_SIDE, params, device=dev)
+    b16 = box([L16, L16, 6 * L16], device=dev)
+    p16 = torch.tensor(pos16 + np.random.default_rng(9).uniform(-0.05, 0.05, pos16.shape),
+                       dtype=torch.float32, device=dev)
+    t16 = torch.tensor(t16, device=dev)
+    nl16 = ensure_capacity(build_neighbor_list(p16, b16, params.max_cutoff), p16)
+    kern = deserno_pair_kernel(params, Computables(force=True))
+    f_list = apply_pairs(kern, nl16, p16, info=t16, box=b16)["force"]
+    f_dense = apply_pairs_dense(kern, p16, b16, info=t16)["force"]
+    dense_err = float((f_list - f_dense).abs().max() / f_dense.abs().max())
+    check(dense_err < DESERNO_DENSE_TOL,
+          f"Deserno: list vs all pairs {dense_err:.3g} < {DESERNO_DENSE_TOL}")
+    # the path
+    pos, types, lip, straight, L = build_bilayer(DESERNO_SIDE, params, device=dev)
+    b = box([L, L, 6 * L], device=dev)
+    st = make_state(pos, type_id=types, seed=0, device=dev)
+    nl = ensure_capacity(build_neighbor_list(st.pos, b, params.max_cutoff), st.pos)
+
+    def force_fn(state, nbrs):
+        nbrs = maybe_rebuild(nbrs, state.pos)
+        return deserno_forces(state.pos, state.type_id, lip, straight, params, nbrs, box=b), nbrs
+
+    integ = leimkuhler(force_fn, dt=DESERNO_DT, temperature=DESERNO_T, viscosity=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    holder = list(integ.init(st, nl))
+
+    def step(h):
+        h[0], h[1] = integ.step(h[0], h[1])
+
+    per, timed_s = timed_steps(step, holder, DESERNO_WARM, DESERNO_TIMED)
+    st, (_, nl) = holder  # leimkuhler's aux: (the last noise, the list)
+    check(bool(st.pos.isfinite().all()) and not bool(nl.overflow), "Deserno: finite, no overflow")
+    z = st.pos[:, 2]
+    t = torch.as_tensor(types, device=dev)
+    zmax = float(z.abs().max())
+    heads, tails = float(z[t == 0].abs().mean()), float(z[t == 1].abs().mean())
+    check(zmax < 6 * params.sigma, f"Deserno: max|z| = {zmax:.4g} < 6 sigma")
+    check(heads > tails, f"Deserno: heads outside the tails ({heads:.4g} > {tails:.4g})")
+    out = {"phase": "deserno_path", "card": card, "lipids": 2 * DESERNO_SIDE ** 2,
+           "beads": st.n, "box": [L, L, 6 * L], "dt": DESERNO_DT, "temperature": DESERNO_T,
+           "settle_steps": DESERNO_WARM, "timed_steps": DESERNO_TIMED, **step_stats(per),
+           "timed_seconds": timed_s, "max_neighbors": nl.max_neighbors, "max_abs_z": zmax,
+           "mean_abs_z_heads": heads, "mean_abs_z_tails": tails,
+           "list_vs_dense_rel_err": dense_err, "dense_beads": p16.shape[0],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def check_auto_dispatch_tiled(dev) -> dict:
+    """The auto dispatch's tiled branch on the card: on a 36^3 grid (no
+    pencils, tile 4) at N = 8192, ``spread_auto`` and ``interpolate_auto``
+    launch no pencil kernel and return ``spread_tiled`` /
+    ``interpolate_tiled`` bit for bit; each within PENCIL_TOL x max|ref| of
+    the direct path. Controls that must fail the bound by 100x: the spread
+    with one particle's values dropped, the interpolation of a field
+    shifted by one node."""
+    import numpy as np
+    import torch
+    from uammd_tpu_torch.core.box import box
+    from uammd_tpu_torch.solvers import ibm, tiled_ibm
+    from uammd_tpu_torch.solvers import pencil_ibm as tp
+
+    m = TILED_M
+    shape = (m, m, m)
+    L = m * 0.61
+    b = box(L, device=dev)
+    kern = ibm.GaussianKernel(sigma=1.2, support=8)
+    check(not tp.pencil_ok(shape, kern.support) and tiled_ibm.tile_shape_ok(
+        shape, kern.support, tiled_ibm.pick_tile(shape, kern.support)),
+        "tiled dispatch: the grid is tile-safe and pencil-unsafe")
+    rng = np.random.default_rng(10)
+    pos = torch.tensor((rng.random((TILED_N, 3)) - 0.5) * L, dtype=torch.float32, device=dev)
+    q = torch.tensor(rng.normal(size=(TILED_N, 3)), dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.normal(size=shape + (3,)), dtype=torch.float32, device=dev)
+    n0 = tp.SPREAD.launches, tp.INTERP.launches
+    f_auto = ibm.spread_auto(kern, pos, q, shape, b)
+    v_auto = ibm.interpolate_auto(kern, pos, u, b)
+    check((tp.SPREAD.launches, tp.INTERP.launches) == n0,
+          "tiled dispatch: no pencil kernel launched")
+    f_t, ovf_f = tiled_ibm.spread_tiled(kern, pos, q, shape, b)
+    v_t, ovf_v = tiled_ibm.interpolate_tiled(kern, pos, u, b)
+    check(not bool(ovf_f) and not bool(ovf_v), "tiled dispatch: no tile overflow")
+    check(torch.equal(f_auto, f_t) and torch.equal(v_auto, v_t),
+          "tiled dispatch: the auto results are the tiled path's, bit for bit")
+    f_d, v_d = ibm.spread(kern, pos, q, shape, b), ibm.interpolate(kern, pos, u, b)
+    errs = {"spread": rel_err(f_auto, f_d), "interp": rel_err(v_auto, v_d)}
+    check(all(math.isfinite(e) and e <= PENCIL_TOL for e in errs.values()),
+          f"tiled dispatch vs direct, max|d|/max|ref| = {errs} <= {PENCIL_TOL}")
+    dropped = q.clone()
+    dropped[0] = 0.0
+    ctl = {"spread_one_particle_dropped": rel_err(ibm.spread_auto(kern, pos, dropped, shape, b),
+                                                  f_d),
+           "interp_field_shifted_one_node": rel_err(
+               ibm.interpolate_auto(kern, pos, torch.roll(u, 1, dims=0), b), v_d)}
+    for k, v in ctl.items():
+        check(v > 100 * PENCIL_TOL, f"tiled dispatch: control '{k}' fails ({v:.3g})")
+    return {"shape": list(shape), "n": TILED_N, "tile": tiled_ibm.pick_tile(shape, kern.support),
+            "vs_direct": errs, "controls": ctl}
+
+
+def c2_phases(dev, card, sph_final, grid_be=None) -> list:
+    """Slice C2's phases (3k-3o) with their times; returns the kernels-line
+    rows of #13/#14 at the list PSE far field and the rotational passes."""
+    import torch
+
+    t0 = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        return r
+
+    rows = timed("list_pse", lambda: list_pse_path(dev, card, grid_be))
+    timed("dense_rpy", lambda: dense_rpy_path(dev, card))
+    rows += timed("rotational_fcm", lambda: rotational_fcm_path(dev, card))
+    timed("list_sph", lambda: list_sph_path(dev, card, sph_final))
+    timed("deserno", lambda: deserno_path(dev, card))
+    print(json.dumps({"phase": "c2_seconds", "card": card, "phases": secs,
+                      "total": time.perf_counter() - t0}), flush=True)
+    return rows
+
+
+def c2_only(dev, card) -> int:
+    """``--only-c2``: the auto dispatch's checks (pencil and tiled), the grid
+    SPH path (for its final state) and slice C2's phases; prints no result
+    line."""
+    print(json.dumps({"phase": "auto_dispatch", **check_auto_dispatch(dev)}), flush=True)
+    sph = sph_main_path(dev)
+    rows = c2_phases(dev, card, (sph["md"], sph["gs"]))
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7190,6 +7914,7 @@ def main() -> int:
     only_rebin = "--only-rebin" in sys.argv[1:]
     only_update_fold = "--only-update-fold" in sys.argv[1:]
     only_general = "--only-general" in sys.argv[1:]
+    only_c2 = "--only-c2" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7252,6 +7977,8 @@ def main() -> int:
         return update_fold_only(dev, card)
     if only_general:
         return general_only(dev, card)
+    if only_c2:
+        return c2_only(dev, card)
 
     # 2. kernels against their plain versions
     # a 32^3 simple-cubic lattice at rho 0.5 (spacing 1.26), each site moved
@@ -7528,7 +8255,8 @@ def main() -> int:
             r["pse_path_times"] = pse_path["fold_times"]
     rows.append(lanczos_row(pse_path, d_errs["lanczos_sqrt"]))
     # 3e-3h, 4d: slice D's paths, each with its own zeroed launch counts
-    rows += slice_d_paths(dev, card, gs2, engine2)
+    kept = {}
+    rows += slice_d_paths(dev, card, gs2, engine2, keep=kept)
     del gs2, engine2
     # 3i, 4e: slice A3's unfused v2 path and slice E1's Poisson path, each
     # with its own zeroed launch counts
@@ -7554,6 +8282,9 @@ def main() -> int:
     print(json.dumps({"phase": "general_vs_grid_paths", "card": card, "n": N,
                       "ms_per_step": {"general": gen["ms_per_step"], "v1": ms_v1,
                                       "v2": ms_v2, "v2_unfused": a3["ms"]}}), flush=True)
+    # slice C2: BDHI over lists, SPH and Deserno, each path with its counts
+    # zeroed just before
+    rows += c2_phases(dev, card, kept.pop("sph"), pse_path["be"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

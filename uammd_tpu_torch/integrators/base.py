@@ -19,12 +19,9 @@ from typing import Any, Callable
 
 import torch
 
+from ..core.logging import SimulationError
 from ..core.state import SimState
 from ..core.types import ForceEnergyVirial
-
-
-class SimulationError(RuntimeError):
-    """Non-finite state after a run (the JAX package's core.logging)."""
 
 
 @dataclasses.dataclass(frozen=True)

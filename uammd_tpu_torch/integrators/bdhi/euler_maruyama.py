@@ -9,18 +9,72 @@ src/Integrator/BDHI/BDHI_EulerMaruyama.cu:125-166). A backend exposes
     divergence(pos)       -> kT div M [N, 3]
 
 where the JAX package passes a PRNG key, the port passes the
-``torch.Generator`` that ``core.state.next_key`` names. The dense and
-Lanczos backends (``CholeskyBDHI``, ``LanczosBDHI``) are not ported yet.
+``torch.Generator`` that ``core.state.next_key`` names. Backends here:
+``CholeskyBDHI`` (dense RPY, BDHI_Cholesky.cuh) and ``LanczosBDHI``
+(matrix-free RPY with a Lanczos sqrt(M), BDHI_Lanczos.cuh); the spectral
+ones are in fcm.py and pse.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from ...core.state import next_key
+from ...solvers.lanczos import lanczos_sqrt_apply
 from ..base import Integrator, advance_time
+from .rpy import cholesky_sqrt_dot, dense_mobility, rpy_matvec
+
+
+def _normal_z(pos, gen):
+    """z ~ N(0, 1) of size 3N in the positions' dtype, drawn from ``gen``."""
+    return torch.randn(3 * pos.shape[0], generator=gen, dtype=pos.dtype, device=pos.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class CholeskyBDHI:
+    """Dense RPY and Cholesky noise (reference: BDHI_Cholesky.cuh)."""
+
+    viscosity: float = 1.0
+    radius: float = 1.0
+    box: object = None
+
+    def _mobility(self, pos):
+        return dense_mobility(pos, viscosity=self.viscosity, radius=self.radius, box=self.box)
+
+    def compute_mf(self, pos, f):
+        return (self._mobility(pos) @ f.reshape(-1)).reshape(-1, 3)
+
+    def compute_bdw(self, pos, gen):
+        return cholesky_sqrt_dot(self._mobility(pos), _normal_z(pos, gen)).reshape(-1, 3)
+
+    def divergence(self, pos):
+        return torch.zeros_like(pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class LanczosBDHI:
+    """Matrix-free RPY and a Lanczos sqrt(M) (reference: BDHI_Lanczos.cuh)."""
+
+    viscosity: float = 1.0
+    radius: float = 1.0
+    box: object = None
+    iterations: int = 24
+
+    def compute_mf(self, pos, f):
+        return rpy_matvec(pos, f, viscosity=self.viscosity, radius=self.radius, box=self.box)
+
+    def compute_bdw(self, pos, gen):
+        def mv(x):
+            return self.compute_mf(pos, x.reshape(-1, 3)).reshape(-1)
+
+        out, _ = lanczos_sqrt_apply(mv, _normal_z(pos, gen), m=self.iterations)
+        return out.reshape(-1, 3)
+
+    def divergence(self, pos):
+        return torch.zeros_like(pos)
 
 
 def bdhi_euler_maruyama(force_fn, backend, dt: float, temperature: float = 0.0, K=None, *,

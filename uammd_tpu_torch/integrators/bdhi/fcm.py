@@ -18,9 +18,12 @@ Spread and interpolation go through ``_spread_interp``: with pencil bins
 (N >= 4096 on a pencil-safe grid) the pencil kernels #13/#14 of
 ``solvers/pencil_ibm.py`` (CUDA on the card, their plain versions on CPU
 tensors), else the direct path. The wave-space factors are made once per
-(grid, dtype, device) and kept (``_kspace_factors``). The torque paths
-(``compute_hydrodynamic_displacements``, ``compute_mf_bdw_torques``) are
-not ported yet.
+(grid, dtype, device) and kept (``_kspace_factors``). Torques
+(``compute_hydrodynamic_displacements``, ``compute_mf_bdw_torques``)
+enter as (i/2) k x tau(k), spread with the rotlet Gaussian
+(``sigma_torque``) on the same pencil bins as the forces, and the angular
+velocity is (1/2) curl u, interpolated with the same Gaussian
+(FCM_impl.cuh:654-693).
 """
 
 from __future__ import annotations
@@ -216,6 +219,13 @@ class FCM:
         return self.radius / math.sqrt(math.pi)
 
     @property
+    def sigma_torque(self) -> float:
+        """Rotlet Gaussian width a / (6 sqrt(pi))^(1/3): the rotational
+        self-mobility is then 1/(8 pi eta a^3) (FCM_kernels.cuh's torque
+        kernel; Lomholt & Maxey)."""
+        return self.radius / (6.0 * math.sqrt(math.pi)) ** (1.0 / 3.0)
+
+    @property
     def dV(self) -> float:
         return float(np.prod(np.asarray(self.box_size)) / np.prod(self.shape))
 
@@ -228,6 +238,15 @@ class FCM:
             return _NormalizedBM(beta=self.bm_beta, support=self.support)
         h = self.box_size[0] / self.shape[0]
         return GaussianKernel(sigma=self.sigma / h, support=self.support)
+
+    def _kernel_torque(self, dtype=torch.float32):
+        if self.kernel != "gaussian":
+            raise NotImplementedError(
+                "torque coupling needs the Gaussian rotlet envelope; "
+                f"kernel={self.kernel!r} supports forces only (the reference limits the "
+                "non-Gaussian FCM kernels the same way, FCM_kernels.cuh)")
+        h = self.box_size[0] / self.shape[0]
+        return GaussianKernel(sigma=self.sigma_torque / h, support=self.support)
 
     def _kspace(self, dtype, device):
         return _kspace_factors(tuple(self.shape), tuple(self.box_size), float(self.viscosity),
@@ -309,6 +328,50 @@ class FCM:
         fk = torch.fft.rfftn(sp(kern, pos, forces), dim=(0, 1, 2))
         wk = _sample_white_rfft(gen, self.shape, self.dV, pos.dtype, pos.device)
         return it(kern, pos, self._irfftn(self._kspace_combine(fk, wk, noise_amp, pos)))
+
+    def _curl_half(self, gk, pos):
+        """(i/2) k x g(k) for g [nx, ny, nzr, 3] complex."""
+        kx, ky, kz = self._kspace(pos.dtype, pos.device)[:3]
+        return 0.5j * torch.stack([ky * gk[..., 2] - kz * gk[..., 1],
+                                   kz * gk[..., 0] - kx * gk[..., 2],
+                                   kx * gk[..., 1] - ky * gk[..., 0]], dim=-1)
+
+    def _torque_pass(self, pos, forces, torques, gen=None, noise_amp=0.0):
+        """(v, omega) from one spectral pass: forces spread with the
+        monopole Gaussian and torques with the rotlet one, on one shared
+        binning; (i/2) k x tau(k) added to f(k); the mobility (and, with
+        ``noise_amp``, noise drawn from ``gen``) applied; u interpolated with
+        the monopole kernel and (1/2) curl u with the rotlet kernel."""
+        kern = self._kernel(pos.dtype)
+        kern_t = self._kernel_torque(pos.dtype)
+        sp, it = self._spread_interp(pos)
+        fk = torch.fft.rfftn(sp(kern, pos, forces), dim=(0, 1, 2))
+        if torques is not None:
+            tk = torch.fft.rfftn(sp(kern_t, pos, torques), dim=(0, 1, 2))
+            fk = fk + self._curl_half(tk, pos)
+        if noise_amp:
+            wk = _sample_white_rfft(gen, self.shape, self.dV, pos.dtype, pos.device)
+            uk = self._kspace_combine(fk, wk, noise_amp, pos)
+        else:
+            uk = self._mobility_k(fk, pos)
+        omega = None
+        if torques is not None:
+            omega = it(kern_t, pos, self._irfftn(self._curl_half(uk, pos)))
+        return it(kern, pos, self._irfftn(uk)), omega
+
+    def compute_hydrodynamic_displacements(self, pos, forces, torques=None):
+        """Linear and, with ``torques``, angular velocities (v, omega or
+        None): the reference's curl construction (FCM_impl.cuh:670
+        addSpreadTorquesFourier and the angular interpolation)."""
+        return self._torque_pass(pos, forces, torques)
+
+    def compute_mf_bdw_torques(self, pos, forces, torques, gen, noise_amp):
+        """M [F; T] + noise_amp sqrt(M) dW for the coupled translation-
+        rotation grid mobility in one spectral pass: the fluctuating grid
+        velocity is interpolated with the monopole kernel (v) and through
+        the half curl with the rotlet kernel (omega), so
+        fluctuation-dissipation holds jointly (FCM_impl.cuh:654-693)."""
+        return self._torque_pass(pos, forces, torques, gen, noise_amp)
 
     def compute_bdw(self, pos, gen):
         """sqrt(M) dW: white noise filtered through sqrt(B(k)) = (I - k^k^)

@@ -15,13 +15,14 @@ switch and parameters of the same phi inside the CUDA pencil kernels
 (``engine/csrc/pencil_common.cuh``, shared by ``pencil_spread.cu`` and
 ``pencil_interp.cu``).
 
-``spread_auto``/``interpolate_auto`` dispatch pencil -> direct. The pencil
-branch is kernels #13/#14 (``spread_pencil_fused``/``interpolate_pencil_fused``:
-CUDA on the card, their plain versions on CPU tensors), the same functions
-as the JAX package's XLA pencil path there. The JAX package's middle path,
-``solvers/tiled_ibm.py``, is not ported yet, so a large N on a grid the
-pencil path cannot take goes to the direct path. It computes the same
-function; only the rounding of the sums differs.
+``spread_auto``/``interpolate_auto`` dispatch as the JAX package does: for
+N >= threshold the pencil path on a pencil-safe grid, else the tiled path
+(``solvers/tiled_ibm.py``, plain PyTorch) on a tile-safe one, else the
+direct path. The pencil branch is kernels #13/#14
+(``spread_pencil_fused``/``interpolate_pencil_fused``: CUDA on the card,
+their plain versions on CPU tensors), the same functions as the JAX
+package's XLA pencil path there. A bin overflow of either binned path
+NaN-poisons the result.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 from ..core.box import Box
 from .pencil_ibm import (_node_constants, _node_coords, bin_pencils, interpolate_pencil_fused,
                          pencil_ok, spread_pencil_fused)
+from .tiled_ibm import interpolate_tiled, pick_tile, spread_tiled, tile_shape_ok
 
 # device_phi kinds, as switched on in the CUDA pencil kernels
 PHI_GAUSSIAN, PHI_PESKIN3, PHI_PESKIN4, PHI_BM = 0, 1, 2, 3
@@ -178,18 +180,29 @@ def _poison(x, overflow):
 
 def spread_auto(kernel, pos, values, shape, box: Box, *, threshold=4096, cap=None):
     """Pencil path (kernel #13) for N >= threshold on pencil-safe grids,
-    else direct. A pencil overflow NaN-poisons the result."""
-    if pos.shape[0] >= threshold and pencil_ok(shape, kernel.support):
-        bins = bin_pencils(pos, shape, box, cap=cap)
-        field, overflow = spread_pencil_fused(kernel, pos, values, shape, box, bins)
-        return _poison(field, overflow)
+    the tiled path on tile-safe ones, else direct. ``cap`` is in units of
+    the chosen path's bin."""
+    if pos.shape[0] >= threshold:
+        if pencil_ok(shape, kernel.support):
+            bins = bin_pencils(pos, shape, box, cap=cap)
+            field, overflow = spread_pencil_fused(kernel, pos, values, shape, box, bins)
+            return _poison(field, overflow)
+        tile = pick_tile(shape, kernel.support)
+        if tile_shape_ok(shape, kernel.support, tile):
+            field, overflow = spread_tiled(kernel, pos, values, shape, box, cap=cap, tile=tile)
+            return _poison(field, overflow)
     return spread(kernel, pos, values, shape, box)
 
 
 def interpolate_auto(kernel, pos, field, box: Box, *, threshold=4096, cap=None):
     shape = tuple(field.shape[:3])
-    if pos.shape[0] >= threshold and pencil_ok(shape, kernel.support):
-        bins = bin_pencils(pos, shape, box, cap=cap)
-        out, overflow = interpolate_pencil_fused(kernel, pos, field, box, bins)
-        return _poison(out, overflow)
+    if pos.shape[0] >= threshold:
+        if pencil_ok(shape, kernel.support):
+            bins = bin_pencils(pos, shape, box, cap=cap)
+            out, overflow = interpolate_pencil_fused(kernel, pos, field, box, bins)
+            return _poison(out, overflow)
+        tile = pick_tile(shape, kernel.support)
+        if tile_shape_ok(shape, kernel.support, tile):
+            out, overflow = interpolate_tiled(kernel, pos, field, box, cap=cap, tile=tile)
+            return _poison(out, overflow)
     return interpolate(kernel, pos, field, box)
